@@ -1,0 +1,397 @@
+"""The fused engine's resident epoch program, as in
+``repro.kernels.granule_step``.
+
+The fused engine (``repro_torch.core.fused``) runs an epoch as a flat op
+program: ``("C", n)`` steps its cycle body ``n`` cycles, ``("X", t)``
+exchanges tier ``t``'s boundary queues, and ``("XI", t)`` / ``("XC", t)``
+are the issue and commit halves of that exchange (see
+:func:`overlap_program`).  :func:`epoch_program` runs such a program:
+
+  * on CPU tensors, the plain PyTorch version :func:`epoch_program_ref`,
+    which walks the program calling the engine's Python cycle and
+    exchange functions — generic over block types;
+  * on CUDA tensors, the hand-written Hopper kernel
+    ``csrc/granule_step.cu``.  A kernel cannot trace a Python cycle
+    function as Pallas does, so it carries the fused cycle itself
+    (gathers through the inverse port maps, the depth-1 register commit,
+    the boundary ring handshake, the credit-bounded slab exchange) and
+    each block type's step as a device function.  ``ManycoreCell`` is the
+    one block type with a device step so far; any other raises
+    ``NotImplementedError`` on a CUDA state.  The kernel updates the
+    carry's tensors in place and returns the same carry.
+
+Nothing falls back: a CUDA carry either launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Any, Callable, Sequence, Tuple
+
+import torch
+
+from ..core.struct import static_field, tensor_dataclass
+from ..obs.registry import REGISTRY
+
+Tree = Any
+
+#: Op list executed by :func:`epoch_program`: ``("C", n)`` runs ``n``
+#: cycles of the cycle body; ``("X", t)`` runs tier ``t``'s exchange;
+#: ``("XI", t)`` / ``("XC", t)`` are its issue and commit halves.
+Program = Sequence[Tuple[str, int]]
+
+_OPCODES = {"C": 0, "X": 1, "XI": 2, "XC": 3}
+
+#: Launches of the CUDA program kernel (one per :func:`epoch_program`
+#: call on a CUDA carry).  A plain integer, so a run can show that its
+#: main path went through the kernel; set it to 0 before the run.
+launches = 0
+
+
+def resolve_overlap(overlap: Any = "auto") -> bool:
+    """Resolve the overlapped-exchange knob (split issue/commit phases).
+
+    An explicit non-"auto" argument (bool, or one of
+    ``on|off|1|0|true|false``) always wins; the environment variable
+    ``REPRO_OVERLAP`` overrides a caller-passed ``"auto"``; "auto" resolves
+    to off.  The split schedule is bit-identical by construction.
+    """
+    def parse(v: Any, src: str) -> bool:
+        if isinstance(v, bool):
+            return v
+        s = str(v).strip().lower()
+        if s in ("1", "on", "true", "yes"):
+            return True
+        if s in ("0", "off", "false", "no"):
+            return False
+        raise ValueError(f"{src}={v!r} not a boolean (on|off|1|0|auto)")
+
+    if not (isinstance(overlap, str) and overlap.strip().lower() == "auto"):
+        return parse(overlap, "overlap")
+    env = os.environ.get("REPRO_OVERLAP", "auto").strip().lower()
+    if env and env != "auto":
+        return parse(env, "REPRO_OVERLAP")
+    return False
+
+
+def overlap_program(program: Program) -> Program:
+    """Rewrite a serial op program into the split-exchange schedule.
+
+    Every maximal run of consecutive ``("X", t)`` ops — the tiers firing
+    at one sync boundary — becomes all their issues followed by all their
+    commits: ``X_a, X_b -> XI_a, XI_b, XC_a, XC_b``.  Drains touch only
+    egress queues and fills only ingress queues, and each tier's credits
+    are its own, so the reorder is bit-safe: every tier's drain still
+    precedes its own fill, and every fill still precedes the first cycle
+    that could pop its packets.
+    """
+    out: list[Tuple[str, int]] = []
+    run: list[int] = []
+
+    def flush() -> None:
+        out.extend(("XI", t) for t in run)
+        out.extend(("XC", t) for t in run)
+        run.clear()
+
+    for op, arg in program:
+        if op == "X":
+            run.append(arg)
+        else:
+            flush()
+            out.append((op, arg))
+    flush()
+    return tuple(out)
+
+
+def validate_program(program: Program) -> Tuple[Tuple[str, int], ...]:
+    """Normalize + statically validate an op program.
+
+    Checks the op vocabulary and the split-exchange pairing discipline:
+    every ``("XI", t)`` must be followed by exactly one ``("XC", t)``
+    before the tier issues again, and the program must end with every
+    issue committed.
+    """
+    program = tuple((op, int(arg)) for op, arg in program)
+    pending: set = set()
+    for op, arg in program:
+        if op not in _OPCODES:
+            raise ValueError(f"unknown program op {op!r} (C|X|XI|XC)")
+        if op == "XI":
+            if arg in pending:
+                raise ValueError(
+                    f"tier {arg} issued twice without an intervening commit")
+            pending.add(arg)
+        elif op == "XC":
+            if arg not in pending:
+                raise ValueError(f"tier {arg} committed with no pending issue")
+            pending.remove(arg)
+        elif op == "X" and arg in pending:
+            raise ValueError(
+                f"tier {arg} has a serial exchange while a split one is "
+                f"pending")
+    if pending:
+        raise ValueError(
+            f"program ends with uncommitted exchanges for tiers "
+            f"{sorted(pending)}")
+    return program
+
+
+@tensor_dataclass
+class ProgramConsts:
+    """Read-only tables of a resident program, in the flat local layout.
+
+    Port tables use combined channel ids: ``[0, n_reg)`` registers (row
+    b's at ``b * n_reg_row + c``), then queue rows (row b's at
+    ``n_reg + b * n_q + k``).  Exchange tables are ``(B, S_t)`` per tier.
+    """
+
+    rx_idx: tuple  # per group: (B*n_slot, n_in) int32
+    tx_idx: tuple  # per group: (B*n_slot, n_out) int32
+    inv_tx: torch.Tensor  # (B*(n_reg_row + n_q),) int32
+    inv_tx_mask: torch.Tensor  # bool
+    inv_rx: torch.Tensor
+    inv_rx_mask: torch.Tensor
+    send_idx: tuple  # per tier: (B, S_t) int32 queue row within the batch row
+    send_mask: tuple
+    recv_idx: tuple
+    recv_mask: tuple
+    bat_fwd: tuple  # per tier: (B, S_t) int32 source batch row
+    bat_rev: tuple
+    blocks: tuple = static_field(default=())  # per group: the Block
+    depths: tuple = static_field(default=())  # per tier: slab depth E_t
+    n_q: int = static_field(default=1)  # queue rows per batch row
+
+
+# ------------------------------------------------------- the plain version
+def epoch_program_ref(
+    cycle_fn: Callable[..., Tree],
+    carry: Tree,
+    program: Program,
+    *,
+    exchange_fn: Callable[..., Tree] | None = None,
+    issue_fn: Callable[..., Tuple[Tree, Tree]] | None = None,
+    commit_fn: Callable[..., Tree] | None = None,
+    consts: Tree | None = None,
+) -> Tree:
+    """Run an op program with plain PyTorch ops — the reference the
+    kernel is held against.
+
+    ``cycle_fn(carry, consts)`` steps one cycle; ``exchange_fn(carry, t,
+    consts)`` runs tier ``t``'s serial exchange; ``issue_fn(carry, t,
+    consts) -> (carry, pending)`` and ``commit_fn(carry, t, pending,
+    consts)`` are its halves.  Functional: the input carry is untouched.
+    """
+    program = validate_program(program)
+    if any(op == "X" for op, _ in program) and exchange_fn is None:
+        raise ValueError("program has ('X', t) ops but no exchange_fn")
+    if any(op in ("XI", "XC") for op, _ in program) and (
+            issue_fn is None or commit_fn is None):
+        raise ValueError(
+            "program has split ('XI'/'XC') ops but no issue_fn/commit_fn")
+    out = carry
+    pending: dict = {}
+    for op, arg in program:
+        if op == "C":
+            for _ in range(arg):
+                out = cycle_fn(out, consts)
+        elif op == "X":
+            out = exchange_fn(out, arg, consts)
+        elif op == "XI":
+            out, pending[arg] = issue_fn(out, arg, consts)
+        else:  # "XC"
+            out = commit_fn(out, arg, pending.pop(arg), consts)
+    return out
+
+
+def epoch_program(
+    cycle_fn: Callable[..., Tree],
+    carry: Tree,
+    program: Program,
+    *,
+    exchange_fn: Callable[..., Tree] | None = None,
+    issue_fn: Callable[..., Tuple[Tree, Tree]] | None = None,
+    commit_fn: Callable[..., Tree] | None = None,
+    consts: ProgramConsts,
+) -> Tree:
+    """Run a resident op program on the carry's device.
+
+    ``carry`` is the fused engine's ``(reg_val, reg_v, queues,
+    block_states, cycle, credits)``.  On the CPU this is
+    :func:`epoch_program_ref`; on a CUDA device the Hopper kernel, which
+    updates the carry's tensors in place (the callables are not used
+    there: the kernel carries the cycle and exchange itself).
+    """
+    device = carry[0].device
+    if device.type == "cpu":
+        return epoch_program_ref(
+            cycle_fn, carry, program, exchange_fn=exchange_fn,
+            issue_fn=issue_fn, commit_fn=commit_fn, consts=consts,
+        )
+    if device.type == "cuda":
+        return epoch_program_cuda(carry, program, consts)
+    raise ValueError(f"no epoch program for device {device}")
+
+
+# ------------------------------------------------------------- the kernel
+_PROGRAM_PTRS = (
+    "reg_val", "reg_v", "q_buf", "q_head", "q_tail",
+    "value", "own", "acc", "total", "phase", "sent", "rcvd", "fwd", "fwd_v",
+    "fires", "rx_idx", "tx_idx", "inv_tx", "inv_tx_mask", "inv_rx",
+    "inv_rx_mask", "pay", "val", "rr", "cycle",
+)
+_PROGRAM_INTS = (
+    "n_reg", "n_qrows", "n_q_row", "cap", "have_q", "n_slot", "R", "C",
+    "divider", "W",
+)
+_TIER_PTRS = (
+    "send_idx", "send_mask", "recv_idx", "recv_mask", "bat_fwd", "bat_rev",
+    "credits", "slab", "cnt", "cred",
+)
+_TIER_INTS = ("B", "S", "E")
+
+
+class _ProgramArgs(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_void_p) for n in _PROGRAM_PTRS]
+                + [(n, ctypes.c_int32) for n in _PROGRAM_INTS])
+
+
+class _TierArgs(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_void_p) for n in _TIER_PTRS]
+                + [(n, ctypes.c_int32) for n in _TIER_INTS])
+
+
+_CORE_FIELDS = {
+    "value": torch.float32, "own": torch.float32, "acc": torch.float32,
+    "total": torch.float32, "phase": torch.int32, "sent": torch.int32,
+    "rcvd": torch.int32, "fwd": torch.float32, "fwd_v": torch.bool,
+    "fires": torch.int32,
+}
+
+
+def _library():
+    from . import _build
+
+    lib = _build.load("granule_step")
+    fn = lib.granule_program
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(_ProgramArgs), ctypes.POINTER(_TierArgs),
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> int:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
+        raise ValueError(
+            f"{name}: expected {dtype} {shape} on {device}, got "
+            f"{x.dtype} {tuple(x.shape)} on {x.device}"
+        )
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    return x.data_ptr()
+
+
+def epoch_program_cuda(carry: Tree, program: Program,
+                       consts: ProgramConsts) -> Tree:
+    """Launch ``csrc/granule_step.cu`` on the carry, in place, on the
+    current stream.  Raises for anything the kernel does not take."""
+    from ..hw.manycore import CoreState, ManycoreCell
+
+    global launches
+    program = validate_program(program)
+    reg_val, reg_v, q, block_states, cycle, credits = carry
+    dev = reg_val.device
+    if len(consts.blocks) != 1 or not isinstance(consts.blocks[0], ManycoreCell):
+        names = ", ".join(type(b).__name__ for b in consts.blocks)
+        raise NotImplementedError(
+            f"no device step for block types [{names}]: the CUDA epoch "
+            "program runs one group of ManycoreCell"
+        )
+    cell = consts.blocks[0]
+    st = block_states[0]
+    if not isinstance(st, CoreState):
+        raise TypeError(f"expected CoreState, got {type(st).__name__}")
+    n_reg, W = reg_val.shape
+    if W != 2:
+        raise ValueError(f"ManycoreCell packets are 2 words, carry has {W}")
+    n_slot = st.phase.shape[0]
+    n_qrows, cap = q.buf.shape[0], q.capacity
+    have_q = n_qrows > 1
+    B = consts.send_idx[0].shape[0] if consts.send_idx else 1
+    n_tot = consts.inv_tx.shape[0]
+
+    ptr = {
+        "reg_val": _check(reg_val, "reg_val", torch.float32, (n_reg, W), dev),
+        "reg_v": _check(reg_v, "reg_v", torch.bool, (n_reg,), dev),
+        "q_buf": _check(q.buf, "queues.buf", torch.float32, (n_qrows, cap, W), dev),
+        "q_head": _check(q.head, "queues.head", torch.int32, (n_qrows,), dev),
+        "q_tail": _check(q.tail, "queues.tail", torch.int32, (n_qrows,), dev),
+        "rx_idx": _check(consts.rx_idx[0], "rx_idx", torch.int32, (n_slot, 2), dev),
+        "tx_idx": _check(consts.tx_idx[0], "tx_idx", torch.int32, (n_slot, 2), dev),
+        "inv_tx": _check(consts.inv_tx, "inv_tx", torch.int32, (n_tot,), dev),
+        "inv_tx_mask": _check(consts.inv_tx_mask, "inv_tx_mask", torch.bool, (n_tot,), dev),
+        "inv_rx": _check(consts.inv_rx, "inv_rx", torch.int32, (n_tot,), dev),
+        "inv_rx_mask": _check(consts.inv_rx_mask, "inv_rx_mask", torch.bool, (n_tot,), dev),
+        "cycle": _check(cycle, "cycle", torch.int32, (), dev),
+    }
+    for name, dtype in _CORE_FIELDS.items():
+        ptr[name] = _check(getattr(st, name), f"block_states.0.{name}", dtype,
+                           (n_slot,), dev)
+    if n_tot != n_reg + B * consts.n_q or (have_q and n_qrows != B * consts.n_q):
+        raise ValueError("inverse tables do not match the register/queue carry")
+    # scratch: producer payloads/valids and consumer readies of one cycle
+    pay = torch.empty((2 * n_slot, W), dtype=torch.float32, device=dev)
+    val = torch.empty((2 * n_slot,), dtype=torch.uint8, device=dev)
+    rr = torch.empty((2 * n_slot,), dtype=torch.uint8, device=dev)
+    ptr.update(pay=pay.data_ptr(), val=val.data_ptr(), rr=rr.data_ptr())
+    args = _ProgramArgs(
+        **ptr, n_reg=n_reg, n_qrows=n_qrows, n_q_row=consts.n_q, cap=cap,
+        have_q=int(have_q), n_slot=n_slot, R=cell.R, C=cell.C,
+        divider=int(cell.clock_divider), W=W,
+    )
+
+    n_tiers = len(consts.send_idx)
+    tiers = (_TierArgs * max(n_tiers, 1))()
+    keep = []  # every tier's scratch stays referenced until the launches are queued
+    for t in range(n_tiers):
+        S, E = consts.send_idx[t].shape[1], consts.depths[t]
+        shp = (B, S)
+        slab = torch.empty((B, S, E, W), dtype=torch.float32, device=dev)
+        cnt = torch.empty(shp, dtype=torch.int32, device=dev)
+        cred = torch.empty(shp, dtype=torch.int32, device=dev)
+        keep += [slab, cnt, cred]
+        tiers[t] = _TierArgs(
+            send_idx=_check(consts.send_idx[t], f"send_idx.{t}", torch.int32, shp, dev),
+            send_mask=_check(consts.send_mask[t], f"send_mask.{t}", torch.bool, shp, dev),
+            recv_idx=_check(consts.recv_idx[t], f"recv_idx.{t}", torch.int32, shp, dev),
+            recv_mask=_check(consts.recv_mask[t], f"recv_mask.{t}", torch.bool, shp, dev),
+            bat_fwd=_check(consts.bat_fwd[t], f"bat_fwd.{t}", torch.int32, shp, dev),
+            bat_rev=_check(consts.bat_rev[t], f"bat_rev.{t}", torch.int32, shp, dev),
+            credits=_check(credits[t], f"credits.{t}", torch.int32, shp, dev),
+            slab=slab.data_ptr(), cnt=cnt.data_ptr(), cred=cred.data_ptr(),
+            B=B, S=S, E=E,
+        )
+    ops = (ctypes.c_int32 * (2 * len(program) or 1))(
+        *[v for op, arg in program for v in (_OPCODES[op], arg)]
+    )
+    fn = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(ctypes.byref(args), tiers, n_tiers, ops, len(program),
+                ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"granule_step kernel launch failed: CUDA error {rc}")
+    launches += 1
+    REGISTRY.inc("granule_step.launches")
+    return carry
+
+
+__all__ = [
+    "Program", "ProgramConsts", "epoch_program", "epoch_program_ref",
+    "epoch_program_cuda", "overlap_program", "resolve_overlap",
+    "validate_program",
+]

@@ -13,6 +13,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where there is none"
+    )
+
+
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)

@@ -1,0 +1,85 @@
+"""The hand-written ``granule_step`` kernel against its plain PyTorch
+version, on the card.  These tests need a CUDA device and skip without one
+(run them there with ``python -m pytest -q -m cuda tests/test_torch_kernel.py``);
+``chip_smoke.py`` makes the same check at full width."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.convert import fused_state_to_numpy
+from repro_torch.core import ChannelGraph, tiered_grid_partition
+from repro_torch.core.fused import FusedEngine
+from repro_torch.core.struct import tree_map
+from repro_torch.kernels import granule_step
+from repro_torch.hw.manycore import ManycoreCell, make_core_params
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _engine(R, C, tiers, cap, overlap):
+    vals = ((np.arange(R * C) % 8) + 1).astype(np.float32).reshape(R, C)
+    graph = ChannelGraph.torus(ManycoreCell(R, C), R, C,
+                               params=make_core_params(vals), capacity=cap)
+    return FusedEngine(graph, tiered_grid_partition(R, C, [(2, 1), (2, 2)]),
+                       None, tiers=tiers, batch_axes={"pod": 2, "g": 4},
+                       overlap=overlap, device="cuda")
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("tiers,cap", [([(("pod",), 1), (("g",), 1)], 2),
+                                       ([(("pod",), 2), (("g",), 4)], 4)])
+def test_kernel_matches_plain_version(cuda, tiers, cap, overlap):
+    """Every state leaf bit-exact after every epoch, through convergence."""
+    eng = _engine(16, 16, tiers, cap, overlap)
+    gpu = eng.init(0)
+    cpu = tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, gpu)
+    before = granule_step.launches
+    for ep in range(12):
+        gpu = eng.run_epochs(gpu, 3)
+        cpu = eng.run_epochs(cpu, 3)
+        a, b = fused_state_to_numpy(gpu), fused_state_to_numpy(cpu)
+        for k in a:
+            assert np.array_equal(a[k], b[k]), (ep, k)
+    assert granule_step.launches - before == 36
+
+
+def test_donate_false_keeps_input_on_card(cuda):
+    eng = _engine(8, 8, [(("pod",), 2), (("g",), 4)], 8, False)
+    st = eng.init(0)
+    before = fused_state_to_numpy(st)
+    eng.run_epochs(st, 2, donate=False)
+    after = fused_state_to_numpy(st)
+    assert all(np.array_equal(before[k], after[k]) for k in before)
+
+
+class _HalfRateCell(ManycoreCell):
+    """A many-core cell stepped every other base-clock cycle."""
+
+    clock_divider = 2
+
+
+@pytest.mark.parametrize("cell_cls", [ManycoreCell, _HalfRateCell])
+def test_kernel_single_granule_and_divided_clock(cuda, cell_cls):
+    """One granule (no boundary queues: the kernel's register-only path)
+    and a divided block clock match the plain version through convergence."""
+    R = C = 8
+    vals = ((np.arange(R * C) % 8) + 1).astype(np.float32).reshape(R, C)
+    graph = ChannelGraph.torus(cell_cls(R, C), R, C,
+                               params=make_core_params(vals), capacity=4)
+    eng = FusedEngine(graph, None, None, K=4, device="cuda")
+    assert eng.n_q == 1 and eng.B == 1
+    gpu = eng.init(0)
+    cpu = tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, gpu)
+    for ep in range(40):
+        gpu, cpu = eng.run_epochs(gpu, 1), eng.run_epochs(cpu, 1)
+        a, b = fused_state_to_numpy(gpu), fused_state_to_numpy(cpu)
+        for k in a:
+            assert np.array_equal(a[k], b[k]), (ep, k)
+    assert (eng.gather_group(gpu, 0).total == vals.sum()).all()

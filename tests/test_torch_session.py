@@ -1,0 +1,102 @@
+"""The port's ``Simulation`` session: the wafer allreduce run to
+convergence against the JAX session, and host I/O through the fused
+engine against the single-netlist oracle."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import Simulation as JSimulation
+from repro.hw.manycore import allreduce_done as j_done
+from repro_torch.core import Network, Simulation
+from repro_torch.hw.manycore import allreduce_done, expected_total
+from repro_torch.kernels import granule_step
+
+from test_torch_graph import wafer_pair
+from test_torch_network import TIncrement, chain
+
+
+def test_allreduce_until_matches_jax_cycle():
+    """``Simulation.run(until=allreduce_done)`` stops at the same cycle as
+    the JAX session, with every core holding the global sum."""
+    R = 8
+    je, te, vals = wafer_pair(R, R, [(("pod",), 2), (("g",), 4)], 8)
+    jsim = JSimulation(je).reset(jax.random.key(0))
+    jsim.run(until=lambda s: j_done(s.block_states[0], s.tables.active[0]),
+             cache_key="done")
+    sim = Simulation(te).reset(0)
+    sim.run(until=lambda s: allreduce_done(s.block_states[0], s.tables.active[0]))
+    assert sim.cycle == jsim.cycle == 48
+    assert sim.epoch == jsim.epoch
+    total = te.gather_group(sim.state, 0).total
+    assert np.array_equal(total, np.full(R * R, expected_total(vals), np.float32))
+    # a done state runs zero more epochs
+    sim.run(until=lambda s: allreduce_done(s.block_states[0], s.tables.active[0]))
+    assert sim.cycle == jsim.cycle
+    assert sim.stats()["cycle"] == sim.cycle
+    assert float(sim.probe(5).total) == expected_total(vals)
+
+
+def _script(sim):
+    """Send 40 packets in bursts, drain everything that comes out."""
+    tx, rx = sim.tx("tx"), sim.rx("rx")
+    got = []
+    for k in range(8):
+        tx.send_many(np.stack([np.arange(5) + 10 * k, np.full(5, k)], 1))
+        sim.run(cycles=6)
+        got.extend(rx.drain().tolist())
+    for _ in range(30):  # the rx ring holds 3: keep draining it
+        sim.run(cycles=6)
+        got.extend(rx.drain().tolist())
+    return got, tx, rx
+
+
+def test_host_io_fused_matches_netlist():
+    """Host traffic through the fused engine's external queues (homed on
+    their granules, flushed at epoch boundaries) delivers exactly the
+    netlist's packets, in order."""
+    ref, _, _ = _script(chain(Network, TIncrement(), 4, 4).build(device="cpu").reset(0))
+    sim = chain(Network, TIncrement(), 4, 4).build(
+        engine="fused", device="cpu", partition=[0, 0, 1, 1],
+        tiers=[(("g",), 2)], batch_axes={"g": 2},
+    )
+    sim.reset(0)
+    got, tx, rx = _script(sim)
+    assert got == ref and len(got) == 40 and tx.pending == 0
+    assert [p[0] for p in got] == [v + 4.0 for k in range(8)
+                                   for v in np.arange(5) + 10 * k]
+    stats = sim.stats()
+    assert stats["ports"]["tx"]["tx"]["sent"] == 40
+    assert stats["ports"]["rx"]["rx"]["received"] == 40
+    assert stats["metrics"]["fused.epochs"] > 0
+
+
+def test_run_arguments_and_reset():
+    sim = chain(Network, TIncrement(), 2, 4).build(device="cpu")
+    with pytest.raises(RuntimeError, match="reset"):
+        sim.run(cycles=1)
+    sim.reset(0)
+    with pytest.raises(TypeError, match="exactly one"):
+        sim.run(cycles=1, epochs=1)
+    with pytest.raises(KeyError, match="no external-in"):
+        sim.tx("nope")
+    sim.run(cycles=5)
+    assert sim.cycle == 5 and sim.block_until_ready() is sim
+
+
+def test_cuda_program_refuses_blocks_without_device_step():
+    """The kernel carries ManycoreCell's step only; any other block type
+    raises before anything is launched (checked here on a CPU carry)."""
+    eng = chain(Network, TIncrement(), 4, 4).build(
+        engine="fused", session=False, device="cpu", partition=[0, 0, 1, 1],
+        tiers=[(("g",), 2)], batch_axes={"g": 2},
+    )
+    local = eng._local_view(eng.init(0))
+    carry = (local.reg_val, local.reg_v, local.queues, local.block_states,
+             local.cycle, local.credits)
+    before = granule_step.launches
+    with pytest.raises(NotImplementedError, match="TIncrement"):
+        granule_step.epoch_program_cuda(carry, eng._resident_program(0),
+                                        eng._consts(local.tables))
+    assert granule_step.launches == before
+    assert isinstance(local.reg_val, torch.Tensor)
