@@ -1,16 +1,25 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
-The main path is the paper's flagship: the 1024x1024 wafer-scale torus of
-``ManycoreCell`` cores running a two-phase ring allreduce, partitioned over
-2 pods x 2x2 granules with all 8 granules batched on one card, through
-``Network``/``ChannelGraph`` -> ``Simulation`` -> ``FusedEngine``, whose
-epoch is one call of the hand-written ``granule_step`` kernel
-(``src/repro_torch/kernels/csrc/granule_step.cu``).
+Two paths, each through the entry points a user calls:
+
+  * the paper's wafer-scale torus: 1024x1024 ``ManycoreCell`` cores running
+    a two-phase ring allreduce, partitioned over 2 pods x 2x2 granules with
+    all 8 granules batched on one card, through ``ChannelGraph`` ->
+    ``Simulation`` -> ``FusedEngine``, whose epoch is one call of the
+    hand-written ``granule_step`` kernel
+    (``src/repro_torch/kernels/csrc/granule_step.cu``);
+  * the paper's systolic matmul (§IV-B): a 1024x1024 grid of
+    ``SystolicCell`` MAC cores computing the full 1024x1024 product
+    ``Y = A @ B``, through ``ChannelGraph.grid`` -> ``RegisterGridEngine``
+    -> ``Simulation``, whose epoch of K = 62 cycles is one call of the
+    hand-written ``systolic_step`` kernel
+    (``src/repro_torch/kernels/csrc/systolic_step.cu``).
 
 Phases (a failing phase raises, and the script exits non-zero):
 
-  1. build   compile the kernel from the checkout's sources (nvcc, sm_90a).
+  1. build   compile both kernels from the checkout's sources (nvcc,
+             sm_90a; one nvcc for each source, started together).
   2. small   a 32x32 torus, 8 granules, tiers (2, 4), capacity 4: the
              kernel against the plain PyTorch version on a CPU copy, every
              state leaf bit-exact after each of 10 epochs, overlap off and on.
@@ -25,6 +34,27 @@ Phases (a failing phase raises, and the script exits non-zero):
              4,718,592; then the same run again under ``torch.profiler``,
              whose trace gives the device's idle share and each kernel's
              time per cycle.
+  4. sys-small  the systolic kernel's MAC against ``hw.systolic.mac`` on
+             2^20 random triples (one rounding, as the reference's FMA);
+             then the register engine through the kernel against the same
+             engine through the plain version, both on the card, every
+             state leaf equal after every epoch to completion, at
+             (M, R, C) = (12, 8, 8) and (33, 17, 23) one tile and
+             (12, 8, 8) and (33, 18, 24) 2x2 tiles (17 x 23 does not split
+             into 2x2 tiles), K = 2, 7 and 16; and an interior tile fed
+             only through its slabs with emission limits below K.
+  5. sys-full  the full-width systolic matmul (1,048,576 cores, M = 1024,
+             K = 62): set-up seconds; one mid-run epoch bit-exact against
+             the plain version on the card; the kernel's and the plain
+             version's times per simulated cycle (medians over whole
+             epochs) beside the memory bound counted from the run's
+             tensors; ``Simulation.run(until=every south cell collected M
+             outputs)`` through the kernel with the launch count set to 0
+             just before and read just after, Y held against the f64
+             product under the rounding bound of in-order FMA sums,
+             gamma_R * (|A| @ |B|) (``hw.systolic.matmul_error_bound``); a traced
+             repeat of that run; and the same run at 4x4 tiles, whose Y
+             must equal the one-tile Y bit for bit.
 
 The output ends with a JSON line describing each kernel, the card's name and
 power limit from nvidia-smi, and the one-line result JSON.
@@ -32,11 +62,12 @@ power limit from nvidia-smi, and the one-line result JSON.
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --phases build,small
+    python3 chip_smoke.py --phases build,small,sys-small
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -47,6 +78,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 TOTAL = 4_718_592.0  # sum over the wafer of (arange(R*C) % 8) + 1
+KERNELS = ("granule_step", "systolic_step")
+PHASES = ("build", "small", "full", "sys-small", "sys-full")
 
 
 def log(msg: str) -> None:
@@ -222,11 +255,11 @@ KERNEL_NAMES = ("manycore_step", "fused_commit", "exchange_drain",
                 "exchange_fill", "exchange_credit")
 
 
-def traced_run(run) -> dict:
+def traced_run(run, names=KERNEL_NAMES) -> dict:
     """Call ``run()`` under ``torch.profiler`` (device activity only) and
     read its trace: host wall seconds of the call, device busy seconds (the
     union of every device event's interval) and device seconds per kernel
-    of ``KERNEL_NAMES``.  ``busy`` is None when the trace holds no device
+    of ``names``.  ``busy`` is None when the trace holds no device
     event."""
     import torch
     from torch.autograd import DeviceType
@@ -240,10 +273,10 @@ def traced_run(run) -> dict:
         wall = time.perf_counter() - t0
     spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
                    for ev in prof.events() if ev.device_type == DeviceType.CUDA)
-    per_kernel = dict.fromkeys(KERNEL_NAMES, 0.0)
+    per_kernel = dict.fromkeys(names, 0.0)
     busy_us, reach = 0.0, float("-inf")
     for lo, hi, name in spans:
-        kernel = next((k for k in KERNEL_NAMES if k in name), None)
+        kernel = next((k for k in names if k in name), None)
         if kernel:
             per_kernel[kernel] += (hi - lo) * 1e-6
         if hi > reach:
@@ -392,12 +425,251 @@ def phase_full(result: dict) -> None:
     )
 
 
+# ------------------------------------------------------------ systolic path
+SYS_M = SYS_R = SYS_C = 1024  # the paper's grid; the full product Y = A @ B
+SYS_K = 62  # the paper's queue depth, the largest K of the JAX K-sweep
+SYS_SEED = 0
+
+
+def sys_operands(M, R, C, seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return rng.randn(M, R).astype(np.float32), rng.randn(R, C).astype(np.float32)
+
+
+def sys_graph(A, B):
+    """The systolic grid's IR, built without a Python loop per cell.  Its
+    (R, C, M) stream buffer is numpy zeros with A in column 0 only, so the
+    host touches a few MB of it."""
+    from repro_torch.core import ChannelGraph
+    from repro_torch.hw.systolic import SystolicCell, make_cell_params
+
+    return ChannelGraph.grid(SystolicCell(A.shape[0]), *B.shape,
+                             params=make_cell_params(A, B))
+
+
+def phase_sys_small() -> None:
+    from repro_torch.kernels.systolic_checks import (
+        check_engine, check_interior_tile, check_mac)
+
+    # the MAC: the kernel's __fmaf_rn against mac() on the card and on the
+    # CPU (an exact FMA there), and against multiply-then-add
+    two = check_mac(1 << 20, SYS_SEED)
+    log(f"[sys-small] MAC: kernel __fmaf_rn == mac() on the card == mac() on "
+        f"the CPU on {1 << 20} triples; multiply-then-add differs in {two}")
+
+    cases = [((12, 8, 8), (1, 1)), ((33, 17, 23), (1, 1)),
+             ((12, 8, 8), (2, 2)), ((33, 18, 24), (2, 2))]
+    for (M, R, C), tiles in cases:
+        for K in (2, 7, 16):
+            epochs, cycles = check_engine(M, R, C, K, tiles, M + R + C + K)
+            log(f"[sys-small] (M, R, C)={(M, R, C)} tiles={tiles} K={K}: "
+                f"{epochs} epochs ({cycles} cycles) bit-exact against the "
+                f"plain version; Y within the bound")
+
+    # an interior tile fed only through its slabs, limits below K
+    emitted = check_interior_tile((3, 2))
+    log(f"[sys-small] interior tile fed through its slabs, limits 3/2 < K=8: "
+        f"4 calls bit-exact against the plain version ({emitted} packets out)")
+
+
+def sys_cycle_bytes(cell: dict, d_west_fires: int, d_collects: int,
+                    n_cycles: int) -> dict:
+    """The least bytes one simulated cycle must move, each input read once
+    and each output written once, counted from this run's tensors and data:
+
+      * per cell read: ``b``, ``a_reg``, ``a_v``, ``p_reg``, ``p_v`` and the
+        four flags; written: both registers and both valid flags;
+      * ``a_idx`` read on the ``is_west`` cells and ``y_idx`` on the
+        ``is_south`` cells, the only cells whose step uses them;
+      * per west-cell fire (counted in the timed window): the ``a_buf``
+        element read and ``a_idx`` written; per collect: the ``y_buf``
+        element and ``y_idx`` written.
+
+    The slabs are left out: with one tile nothing crosses them."""
+    def nb(k):
+        x = cell[k]
+        return x.numel() * x.element_size()
+
+    reads = sum(nb(k) for k in ("b", "a_reg", "a_v", "p_reg", "p_v", "is_west",
+                                "is_north", "is_south", "is_east"))
+    idx = (int(cell["is_west"].sum()) * cell["a_idx"].element_size()
+           + int(cell["is_south"].sum()) * cell["y_idx"].element_size())
+    writes = sum(nb(k) for k in ("a_reg", "a_v", "p_reg", "p_v"))
+    word = cell["a_buf"].element_size() + cell["a_idx"].element_size()
+    edges = idx + (d_west_fires + d_collects) * word / n_cycles
+    return {"reads": reads, "writes": writes, "edges": edges,
+            "per_cycle": reads + writes + edges}
+
+
+def phase_sys_full(result: dict) -> None:
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.core import Simulation
+    from repro_torch.core.fastgrid import RegisterGridEngine
+    from repro_torch.hw.systolic import matmul_error_bound
+    from repro_torch.kernels import systolic_step as sk
+    from repro_torch.kernels.systolic_checks import assert_states_equal, clone_state
+
+    M, R, C, K = SYS_M, SYS_R, SYS_C, SYS_K
+    t0 = time.perf_counter()
+    A, B = sys_operands(M, R, C, SYS_SEED)
+    graph = sys_graph(A, B)
+    eng = RegisterGridEngine.from_graph(graph, K=K)
+    sim = Simulation(eng).reset()
+    sim.block_until_ready()
+    setup_s = time.perf_counter() - t0
+    log(f"[sys-full] {R}x{C} grid = {R * C} cores, M={M}, K={K}, tiles "
+        f"{(eng.Dr, eng.Dc)}; a_buf and y_buf {M * R * C * 4 / 2**30:.0f} GiB "
+        f"each; set-up {setup_s:.2f} s")
+
+    # one mid-run epoch: the kernel against the plain version on the card
+    n0 = (2 * M + R + C) // (2 * K)  # half way: every cell is busy
+    sim.run(epochs=n0)
+    sim.block_until_ready()
+    t1 = time.perf_counter()
+    plain = eng._epoch(clone_state(sim.state), step=sk.systolic_step_ref)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    kern = eng._epoch(sim.state)
+    torch.cuda.synchronize()
+    err = assert_states_equal(kern, plain)
+    log(f"[sys-full] epoch {n0 + 1} (cycles {n0 * K}-{(n0 + 1) * K}) bit-exact "
+        f"against the plain version on the card (max |diff| {err}; the plain "
+        f"epoch took {plain_s:.2f} s)")
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # times per simulated cycle: kernel vs plain PyTorch, the median of each
+    # over whole epochs, continuing the run
+    st = kern
+    kstate = dict(st.cell, west_slab=st.west_slab, west_cnt=st.west_cnt,
+                  north_slab=st.north_slab, north_cnt=st.north_cnt,
+                  east_limit=torch.clamp(st.credit_e, max=K),
+                  south_limit=torch.clamp(st.credit_s, max=K))
+    n_before = sk.launches
+
+    def kernel():  # each epoch continues from the last one's results
+        out = sk.systolic_step_cuda(kstate, K)
+        kstate.update({k: out[k] for k in sk.CELL_OUT})
+
+    kernel()  # warm-up
+    torch.cuda.synchronize()
+    reps = 10
+    total = lambda k: int(kstate[k].sum(dtype=torch.int64))  # noqa: E731
+    a0, y0 = total("a_idx"), total("y_idx")
+    k_times = [t / K for t in time_reps(kernel, reps)]
+    d_fires, d_collects = total("a_idx") - a0, total("y_idx") - y0
+    sk.launches = n_before  # timing launches are not the main path
+    plain_reps = 3
+    sk.systolic_step_ref(kstate, K)  # warm-up
+    p_times = [t / K for t in time_reps(lambda: sk.systolic_step_ref(kstate, K),
+                                        plain_reps)]
+    kern_ms, plain_ms = statistics.median(k_times), statistics.median(p_times)
+    nbytes = sys_cycle_bytes(kstate, d_fires, d_collects, reps * K)
+    bound_ms = nbytes["per_cycle"] / HBM_BYTES_PER_S * 1e3
+    log(f"[sys-full] per simulated cycle at {R * C} cores (median over {reps} "
+        f"kernel and {plain_reps} plain epochs of {K} cycles): kernel "
+        f"{kern_ms:.5f} ms ({min(k_times):.5f}-{max(k_times):.5f}), plain "
+        f"PyTorch on the card {plain_ms:.4f} ms ({min(p_times):.4f}-"
+        f"{max(p_times):.4f}), {plain_ms / kern_ms:.1f}x the kernel; memory "
+        f"bound {bound_ms:.5f} ms, kernel at {kern_ms / bound_ms:.2f}x it")
+    log("[sys-full] bound per core and cycle: " + ", ".join(
+        f"{k} {nbytes[k] / (R * C):.3f} B" for k in ("per_cycle", "reads",
+                                                      "writes", "edges"))
+        + f" ({d_fires} stream reads and {d_collects} collects in "
+        f"{reps * K} timed cycles)")
+    del st, kern, kstate
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path: Simulation.run(until=every south cell has M outputs)
+    sim.reset()
+    sim.block_until_ready()
+    torch.cuda.reset_peak_memory_stats()
+    sk.launches = 0
+    t2 = time.perf_counter()
+    sim.run(until=eng.y_done)
+    sim.block_until_ready()
+    run_s = time.perf_counter() - t2
+    launches = sk.launches
+    if launches <= 0:
+        raise AssertionError("the main path launched the systolic_step kernel 0 times")
+    cycles, epochs = sim.cycle, sim.epoch
+    Y = eng.result(sim.state)
+    Y64 = A.astype(np.float64) @ B.astype(np.float64)
+    tol = matmul_error_bound(A, B)
+    err_y = np.abs(Y - Y64)
+    if Y.shape != (M, C) or not np.isfinite(Y).all() or not (err_y <= tol).all():
+        raise AssertionError(f"Y off the f64 product: max |err| {err_y.max()}, "
+                             f"max err/bound {(err_y / tol).max()}")
+    log(f"[sys-full] done: every south cell collected {M} outputs after "
+        f"{cycles} cycles ({epochs} epochs); Y {Y.shape} within "
+        f"gamma_R*(|A|@|B|) of the f64 product (max |err| {err_y.max():.3e}, "
+        f"max err/bound {(err_y / tol).max():.4f}, max |Y| "
+        f"{np.abs(Y64).max():.2f}); run {run_s:.3f} s wall, set-up "
+        f"{setup_s:.2f} s; {R * C * cycles / run_s:.4e} core-cycles/s; "
+        f"systolic_step launches {launches}; device memory in use "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    # the same until-run again under the profiler
+    sim.reset()
+    sim.block_until_ready()
+    trace = traced_run(lambda: sim.run(until=eng.y_done), ("systolic_cycle",))
+    sk.launches = launches
+    if sim.cycle != cycles:
+        raise AssertionError(f"the traced run stopped at cycle {sim.cycle}, "
+                             f"the main run at {cycles}")
+    if trace["busy"] is None:
+        log("[sys-trace] device idle share: not measured (the trace holds no "
+            "device event)")
+    else:
+        kernels = "; ".join(f"{k} {v / cycles * 1e6:.2f} us"
+                            for k, v in trace["per_kernel"].items())
+        log(f"[sys-trace] traced repeat of the until-run: {trace['wall']:.3f} s "
+            f"wall, device busy {trace['busy']:.3f} s over {trace['events']} "
+            f"device events, idle share {1.0 - trace['busy'] / trace['wall']:.4f}; "
+            f"per simulated cycle: {kernels}")
+    sim._state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same run on 4x4 tiles: the result does not depend on the partition
+    eng4 = RegisterGridEngine.from_graph(graph, K=K, tiles=(4, 4))
+    sim4 = Simulation(eng4).reset()
+    t3 = time.perf_counter()
+    sim4.run(until=eng4.y_done)
+    sim4.block_until_ready()
+    run4_s = time.perf_counter() - t3
+    Y4 = eng4.result(sim4.state)
+    if not np.array_equal(Y4.view(np.uint32), Y.view(np.uint32)):
+        raise AssertionError("Y at tiles (4, 4) differs from Y at tiles (1, 1)")
+    log(f"[sys-full] tiles (4, 4) of {eng4.Tr}x{eng4.Tc}: Y bit-identical to one tile "
+        f"after {sim4.cycle} cycles ({sim4.epoch} epochs), run {run4_s:.3f} s")
+    sim4._state = None
+    result.update(
+        name="systolic_step", route="cuda",
+        source="src/repro_torch/kernels/csrc/systolic_step.cu",
+        replaces="src/repro/kernels/systolic_step.py:176",
+        launches=launches, max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+    )
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,small,full",
-                    help="comma-separated subset of build,small,full")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    if phases - set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
 
     import torch
 
@@ -415,18 +687,24 @@ def main(argv=None) -> int:
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    secs = _build.build("granule_step")
-    log(f"[build] granule_step built in {secs:.2f} s "
-        f"({time.perf_counter() - t0:.2f} s wall)")
-    for line in _build.PTXAS_REPORT.get("granule_step", "").splitlines():
-        if "registers" in line or "spill" in line or "Function properties" in line:
-            log(f"[build] {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        secs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    for name in KERNELS:
+        log(f"[build] {name} built in {secs[name]:.2f} s")
+        for line in _build.PTXAS_REPORT.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Function properties" in line:
+                log(f"[build] {line.strip()}")
+    log(f"[build] {time.perf_counter() - t0:.2f} s wall for both")
     if "small" in phases:
         phase_small()
-    kernel = {}
+    kernels = [{}, {}]
     if "full" in phases:
-        phase_full(kernel)
-    print(json.dumps({"kernels": [kernel] if kernel else []}), flush=True)
+        phase_full(kernels[0])
+    if "sys-small" in phases:
+        phase_sys_small()
+    if "sys-full" in phases:
+        phase_sys_full(kernels[1])
+    print(json.dumps({"kernels": [k for k in kernels if k]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

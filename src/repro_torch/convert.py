@@ -10,7 +10,12 @@ nothing of JAX:
     engine state to and from a dict of numpy arrays keyed by dotted field
     path (``"reg_val"``, ``"queues.buf"``, ``"block_states.0.acc"``,
     ``"credits.0"``, ``"cycle"``, ``"epoch"``), all in the global view —
-    the layout the JAX ``FusedEngine`` keeps with ``batch_axes``.
+    the layout the JAX ``FusedEngine`` keeps with ``batch_axes``;
+  * ``register_state_from_numpy`` / ``register_state_to_numpy`` do the
+    same for a register engine state (``"cell.a_reg"``, ``"west_slab"``,
+    ``"credit_e"``, ``"cycle"``, ...), leaves with leading ``(Dr, Dc)``
+    tile dims — the JAX ``RegisterGridEngine`` layout on a ``(Dr, Dc)``
+    mesh.
 
 That lets a test start both packages from one state, including mid-run.
 Tables are not state: the target engine builds its own.
@@ -22,14 +27,35 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .core.device import to_tensor
+from .core.device import resolve_device, to_tensor
+from .core.fastgrid import RegGridState, RegisterGridEngine
 from .core.fused import FusedEngine, FusedState
 from .core.struct import tree_map_with_path, tree_paths
 
 
-def params_from_numpy(params_cls, arrays: Mapping[str, np.ndarray], device="cpu"):
-    """``params_cls(**{field: tensor})`` from numpy leaves by field name."""
-    return params_cls(**{k: to_tensor(v, device) for k, v in arrays.items()})
+def params_from_numpy(params_cls, arrays: Mapping[str, np.ndarray], device="cuda"):
+    """``params_cls(**{field: tensor})`` from numpy leaves by field name, on
+    ``device`` (``"cuda"`` by default; raises without CUDA — pass
+    ``device="cpu"``)."""
+    dev = resolve_device(device)
+    return params_cls(**{k: to_tensor(v, dev) for k, v in arrays.items()})
+
+
+def _from_numpy(template, arrays: Mapping[str, np.ndarray], device):
+    """``template``'s tree holding ``arrays`` (by dotted path, dtypes and
+    shapes of the template) on ``device``; extra keys are ignored."""
+    missing = [p for p, _ in tree_paths(template) if p not in arrays]
+    if missing:
+        raise KeyError(f"state arrays missing {missing}")
+
+    def take(path: str, leaf: torch.Tensor) -> torch.Tensor:
+        arr = np.asarray(arrays[path])
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"{path}: shape {arr.shape} != {tuple(leaf.shape)}")
+        np_dtype = torch.empty((), dtype=leaf.dtype).numpy().dtype
+        return torch.tensor(arr.astype(np_dtype), device=device)
+
+    return tree_map_with_path(take, template)
 
 
 def fused_state_to_numpy(state: FusedState) -> dict[str, np.ndarray]:
@@ -46,17 +72,20 @@ def fused_state_from_numpy(engine: FusedEngine,
     for the keys), on the engine's device.  Every leaf must be present with
     the engine's shape; extra keys (e.g. the source's tables) are ignored."""
     template = engine.init(0)
-    missing = [p for p, _ in tree_paths(template.replace(tables=None))
-               if p not in arrays]
-    if missing:
-        raise KeyError(f"state arrays missing {missing}")
-
-    def take(path: str, leaf: torch.Tensor) -> torch.Tensor:
-        arr = np.asarray(arrays[path])
-        if tuple(arr.shape) != tuple(leaf.shape):
-            raise ValueError(f"{path}: shape {arr.shape} != {tuple(leaf.shape)}")
-        np_dtype = torch.empty((), dtype=leaf.dtype).numpy().dtype
-        return torch.tensor(arr.astype(np_dtype), device=engine.device)
-
-    body = tree_map_with_path(take, template.replace(tables=None))
+    body = _from_numpy(template.replace(tables=None), arrays, engine.device)
     return body.replace(tables=template.tables)
+
+
+def register_state_to_numpy(state: RegGridState) -> dict[str, np.ndarray]:
+    """Every leaf of a register engine state, by dotted path."""
+    return {path: leaf.detach().cpu().numpy() for path, leaf in tree_paths(state)}
+
+
+def register_state_from_numpy(engine: RegisterGridEngine,
+                              arrays: Mapping[str, np.ndarray]) -> RegGridState:
+    """A state of ``engine`` holding ``arrays`` (see
+    ``register_state_to_numpy`` for the keys), on the engine's device.
+    Every leaf must be present with the engine's shape."""
+    zeros = (np.zeros((engine.M, engine.R), np.float32),
+             np.zeros((engine.R, engine.C), np.float32))
+    return _from_numpy(engine.init(*zeros), arrays, engine.device)

@@ -12,6 +12,8 @@ The counterpart of ``repro.core``: Network description -> channel-graph IR
   distributed partition/tier/batch resolution and the batched exchange
   fused       fused-epoch engine: depth-1 register channels + one resident
               epoch program (the Hopper kernel on CUDA)
+  fastgrid    register engine: the systolic grid, one systolic_step call an
+              epoch (the Hopper kernel on CUDA)
   session     Simulation facade: reset/run/probe/tx/rx/stats
 """
 from .block import Block
@@ -24,5 +26,6 @@ from .graph import (
 from .queue import QueueArray, make_queues, DEFAULT_CAPACITY
 from .distributed import GraphEngine, edge_color_routes, merge_compatible_classes
 from .fused import FusedEngine, FusedState
+from .fastgrid import RegGridState, RegisterGridEngine
 from .session import RxPort, Simulation, TxPort
 from . import packet

@@ -18,7 +18,8 @@ Usage mirrors the paper's Listing 5::
 The builder lowers to the channel-graph IR (``repro_torch.core.graph``), and
 ``build(engine=...)`` hands that IR to a backend: ``"single"`` is
 ``NetworkSim`` below, the cycle-accurate oracle; ``"fused"`` is
-``fused.FusedEngine``.  The other engines of the JAX package are not
+``fused.FusedEngine``; ``"register"`` is ``fastgrid.RegisterGridEngine``
+(systolic grids only).  The other engines of the JAX package are not
 ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -43,7 +44,6 @@ Tree = Any
 _LATER = {
     "graph": "Queue 1 item 5 (granule_local_cycle and the queue-interpreter "
              "GraphEngine)",
-    "register": "Queue 1 item 9 (the register engine and its systolic kernel)",
     "procs": "Queue 1 item 10 (the multiprocess runtime)",
 }
 
@@ -134,6 +134,8 @@ class Network:
         engine="fused"   -> fused.FusedEngine; kwargs: mesh, K, partition
                             (instance->granule map or a graph.PartitionTree),
                             axes, tiers, batch_axes, overlap.
+        engine="register" -> fastgrid.RegisterGridEngine (systolic-grid
+                            networks only); kwargs: K, tiles, mesh.
         """
         graph = self.graph()
         eng = self._build_engine(graph, engine, kw, device)
@@ -163,12 +165,16 @@ class Network:
                 )
             return FusedEngine(graph, partition, mesh, K=K, axes=axes,
                                tiers=tiers, device=device, **extra)
+        if engine == "register":
+            from .fastgrid import RegisterGridEngine
+
+            return RegisterGridEngine.from_graph(graph, device=device, **kw)
         if engine in _LATER:
             raise NotImplementedError(
                 f"engine={engine!r} is not ported yet: {_LATER[engine]}"
             )
         raise ValueError(
-            f"unknown engine {engine!r} (single | fused; graph | register | "
+            f"unknown engine {engine!r} (single | fused | register; graph | "
             "procs are not ported yet)"
         )
 

@@ -16,6 +16,10 @@ same SPSC ring operations the tier exchange uses.  A ``TxPort`` never
 drops traffic: packets that do not fit the device queue stay in a
 host-side buffer and are flushed at later boundaries during ``run``.
 
+The register engine (``engine="register"``) has no external ports; its
+``reset`` takes no seed (the operands live in the IR), and its ``until``
+predicate sees the tile-local cell dict.
+
 **State ownership.**  The session owns the engine state and lets the
 engine update it in place (``donate=True``).  Monitors, ``trace`` and
 ``save``/``load`` of the JAX session are not ported yet.
@@ -32,7 +36,7 @@ from ..obs.registry import REGISTRY
 
 Tree = Any
 
-_ENGINE_KINDS = ("single", "fused")
+_ENGINE_KINDS = ("single", "fused", "register")
 _DEFAULT_MAX_EPOCHS = 100_000
 STATS_SCHEMA = "repro-stats-v1"
 
@@ -116,9 +120,9 @@ class Simulation:
         self._state: Tree | None = None
         self._tx_ports: dict[str, TxPort] = {}
         self._rx_ports: dict[str, RxPort] = {}
-        graph = engine.graph
-        self._ext_in = dict(graph.ext_in)
-        self._ext_out = dict(graph.ext_out)
+        graph = getattr(engine, "graph", None)
+        self._ext_in = dict(graph.ext_in) if graph is not None else {}
+        self._ext_out = dict(graph.ext_out) if graph is not None else {}
 
     # ------------------------------------------------------------- lifecycle
     @property
@@ -129,8 +133,12 @@ class Simulation:
     def reset(self, key: int | torch.Generator = 0, **init_kw) -> "Simulation":
         """(Re)initialize and take ownership of the engine state.  ``key``
         (an int seed or a ``torch.Generator``) seeds per-block
-        ``init_state``; extra kwargs go to ``engine.init``."""
-        self._state = self.engine.init(key, **init_kw)
+        ``init_state``, and is ignored by the register engine, whose
+        operands live in the IR; extra kwargs go to ``engine.init``."""
+        if self.kind == "register":
+            self._state = self.engine.init(**init_kw)
+        else:
+            self._state = self.engine.init(key, **init_kw)
         for p in self._tx_ports.values():
             p.sent = 0
             p._pending.clear()
@@ -339,6 +347,8 @@ class Simulation:
         st = self._require_state()
         if self.kind == "single":
             return bool(done_fn(st))
+        if self.kind == "register":
+            return self.engine.tiles_done(st.cell, done_fn)
         local = self.engine._local_view(st)
         return bool(torch.as_tensor(done_fn(self.engine._done_view(local))).all())
 

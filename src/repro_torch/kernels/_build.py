@@ -1,6 +1,6 @@
-"""Build and load the port's CUDA kernel (``csrc/granule_step.cu``).
+"""Build and load the port's CUDA kernels (``csrc/<name>.cu``).
 
-The source compiles with ``nvcc`` into a shared library with a plain C
+Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes`` — no PyTorch headers, so a build takes
 seconds.  The library lands in ``build/repro_torch/`` at the root of the
 checkout (``.gitignore`` lists ``build/``), named by a hash of the source
@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -78,3 +80,19 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def tensor_ptr(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+               device: torch.device) -> int:
+    """``x``'s data pointer for a kernel argument, after checking that it
+    is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: expected {dtype} {tuple(shape)} on {device}, got "
+            f"{x.dtype} {tuple(x.shape)} on {x.device}"
+        )
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    return x.data_ptr()

@@ -32,6 +32,7 @@ import torch
 
 from ..core.struct import static_field, tensor_dataclass
 from ..obs.registry import REGISTRY
+from ._build import tensor_ptr
 
 Tree = Any
 
@@ -281,20 +282,6 @@ def _library():
     return fn
 
 
-def _check(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> int:
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
-        raise ValueError(
-            f"{name}: expected {dtype} {shape} on {device}, got "
-            f"{x.dtype} {tuple(x.shape)} on {x.device}"
-        )
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-    return x.data_ptr()
-
-
 def epoch_program_cuda(carry: Tree, program: Program,
                        consts: ProgramConsts) -> Tree:
     """Launch ``csrc/granule_step.cu`` on the carry, in place, on the
@@ -325,21 +312,21 @@ def epoch_program_cuda(carry: Tree, program: Program,
     n_tot = consts.inv_tx.shape[0]
 
     ptr = {
-        "reg_val": _check(reg_val, "reg_val", torch.float32, (n_reg, W), dev),
-        "reg_v": _check(reg_v, "reg_v", torch.bool, (n_reg,), dev),
-        "q_buf": _check(q.buf, "queues.buf", torch.float32, (n_qrows, cap, W), dev),
-        "q_head": _check(q.head, "queues.head", torch.int32, (n_qrows,), dev),
-        "q_tail": _check(q.tail, "queues.tail", torch.int32, (n_qrows,), dev),
-        "rx_idx": _check(consts.rx_idx[0], "rx_idx", torch.int32, (n_slot, 2), dev),
-        "tx_idx": _check(consts.tx_idx[0], "tx_idx", torch.int32, (n_slot, 2), dev),
-        "inv_tx": _check(consts.inv_tx, "inv_tx", torch.int32, (n_tot,), dev),
-        "inv_tx_mask": _check(consts.inv_tx_mask, "inv_tx_mask", torch.bool, (n_tot,), dev),
-        "inv_rx": _check(consts.inv_rx, "inv_rx", torch.int32, (n_tot,), dev),
-        "inv_rx_mask": _check(consts.inv_rx_mask, "inv_rx_mask", torch.bool, (n_tot,), dev),
-        "cycle": _check(cycle, "cycle", torch.int32, (), dev),
+        "reg_val": tensor_ptr(reg_val, "reg_val", torch.float32, (n_reg, W), dev),
+        "reg_v": tensor_ptr(reg_v, "reg_v", torch.bool, (n_reg,), dev),
+        "q_buf": tensor_ptr(q.buf, "queues.buf", torch.float32, (n_qrows, cap, W), dev),
+        "q_head": tensor_ptr(q.head, "queues.head", torch.int32, (n_qrows,), dev),
+        "q_tail": tensor_ptr(q.tail, "queues.tail", torch.int32, (n_qrows,), dev),
+        "rx_idx": tensor_ptr(consts.rx_idx[0], "rx_idx", torch.int32, (n_slot, 2), dev),
+        "tx_idx": tensor_ptr(consts.tx_idx[0], "tx_idx", torch.int32, (n_slot, 2), dev),
+        "inv_tx": tensor_ptr(consts.inv_tx, "inv_tx", torch.int32, (n_tot,), dev),
+        "inv_tx_mask": tensor_ptr(consts.inv_tx_mask, "inv_tx_mask", torch.bool, (n_tot,), dev),
+        "inv_rx": tensor_ptr(consts.inv_rx, "inv_rx", torch.int32, (n_tot,), dev),
+        "inv_rx_mask": tensor_ptr(consts.inv_rx_mask, "inv_rx_mask", torch.bool, (n_tot,), dev),
+        "cycle": tensor_ptr(cycle, "cycle", torch.int32, (), dev),
     }
     for name, dtype in _CORE_FIELDS.items():
-        ptr[name] = _check(getattr(st, name), f"block_states.0.{name}", dtype,
+        ptr[name] = tensor_ptr(getattr(st, name), f"block_states.0.{name}", dtype,
                            (n_slot,), dev)
     if n_tot != n_reg + B * consts.n_q or (have_q and n_qrows != B * consts.n_q):
         raise ValueError("inverse tables do not match the register/queue carry")
@@ -365,13 +352,13 @@ def epoch_program_cuda(carry: Tree, program: Program,
         cred = torch.empty(shp, dtype=torch.int32, device=dev)
         keep += [slab, cnt, cred]
         tiers[t] = _TierArgs(
-            send_idx=_check(consts.send_idx[t], f"send_idx.{t}", torch.int32, shp, dev),
-            send_mask=_check(consts.send_mask[t], f"send_mask.{t}", torch.bool, shp, dev),
-            recv_idx=_check(consts.recv_idx[t], f"recv_idx.{t}", torch.int32, shp, dev),
-            recv_mask=_check(consts.recv_mask[t], f"recv_mask.{t}", torch.bool, shp, dev),
-            bat_fwd=_check(consts.bat_fwd[t], f"bat_fwd.{t}", torch.int32, shp, dev),
-            bat_rev=_check(consts.bat_rev[t], f"bat_rev.{t}", torch.int32, shp, dev),
-            credits=_check(credits[t], f"credits.{t}", torch.int32, shp, dev),
+            send_idx=tensor_ptr(consts.send_idx[t], f"send_idx.{t}", torch.int32, shp, dev),
+            send_mask=tensor_ptr(consts.send_mask[t], f"send_mask.{t}", torch.bool, shp, dev),
+            recv_idx=tensor_ptr(consts.recv_idx[t], f"recv_idx.{t}", torch.int32, shp, dev),
+            recv_mask=tensor_ptr(consts.recv_mask[t], f"recv_mask.{t}", torch.bool, shp, dev),
+            bat_fwd=tensor_ptr(consts.bat_fwd[t], f"bat_fwd.{t}", torch.int32, shp, dev),
+            bat_rev=tensor_ptr(consts.bat_rev[t], f"bat_rev.{t}", torch.int32, shp, dev),
+            credits=tensor_ptr(credits[t], f"credits.{t}", torch.int32, shp, dev),
             slab=slab.data_ptr(), cnt=cnt.data_ptr(), cred=cred.data_ptr(),
             B=B, S=S, E=E,
         )

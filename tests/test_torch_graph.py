@@ -181,7 +181,7 @@ def test_params_carried_across():
     R, C = 4, 8
     vals = np.random.RandomState(2).randint(1, 50, size=(R, C)).astype(np.float32)
     jp = j_params(vals)
-    tp = params_from_numpy(CoreParams, {"value": np.asarray(jp.value)})
+    tp = params_from_numpy(CoreParams, {"value": np.asarray(jp.value)}, device="cpu")
     assert isinstance(tp.value, torch.Tensor) and tp.value.dtype == torch.float32
     part = j_tgp(R, C, [(2, 1), (2, 2)])
     tiers = [(("pod",), 2), (("g",), 2)]

@@ -8,9 +8,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.convert import params_from_numpy
 from repro_torch.core import ChannelGraph, Network, NetworkSim
+from repro_torch.core.fastgrid import RegisterGridEngine
 from repro_torch.core.fused import FusedEngine
-from repro_torch.hw.manycore import ManycoreCell, make_core_params
+from repro_torch.hw.manycore import CoreParams, ManycoreCell, make_core_params
+from repro_torch.hw.systolic import SystolicCell, make_cell_params, make_systolic_network
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -39,7 +42,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_scan_sees_the_package():
     names = {p.name for p in PORT_FILES}
-    assert {"fused.py", "granule_step.py", "chip_smoke.py"} <= names
+    assert {"fused.py", "granule_step.py", "fastgrid.py", "systolic_step.py",
+            "systolic.py", "chip_smoke.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
     assert not _forbidden("repro_torch.core")
 
@@ -56,6 +60,11 @@ def test_engines_default_to_cuda():
         lambda **kw: FusedEngine(_graph(), None, **kw),
         lambda **kw: NetworkSim(_graph(), **kw),
         lambda **kw: Network().build(**kw),
+        lambda **kw: RegisterGridEngine(2, 2, K=2, m_stream=2, **kw),
+        lambda **kw: make_systolic_network(np.ones((2, 2)), np.ones((2, 2)))[0].build(
+            engine="register", K=2, **kw),
+        lambda **kw: params_from_numpy(CoreParams, {"value": np.ones(4, np.float32)},
+                                       **kw).value,
     ]
     for make in makers:
         if torch.cuda.is_available():
@@ -64,3 +73,23 @@ def test_engines_default_to_cuda():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 make()
         assert make(device="cpu").device.type == "cpu"
+
+
+def test_register_engine_rejects_other_graphs():
+    """``from_graph`` takes only the row-major east/south grid of one
+    ``SystolicCell`` group; anything else raises ``ValueError``."""
+    A, B = np.ones((3, 2), np.float32), np.ones((2, 2), np.float32)
+    cell = SystolicCell(3)
+    graphs = [
+        _graph(),  # a ManycoreCell torus
+        ChannelGraph.torus(cell, 2, 2, params=make_cell_params(A, B)),  # wrap links
+        ChannelGraph.grid(cell, 2, 2),  # no params
+    ]
+    net, grid = make_systolic_network(A, B)
+    net.external_out(grid[1][1]["s_out"])  # a host port
+    graphs.append(net.graph())
+    for g in graphs:
+        with pytest.raises(ValueError, match="register"):
+            RegisterGridEngine.from_graph(g, K=2, device="cpu")
+    ok = ChannelGraph.grid(cell, 2, 2, params=make_cell_params(A, B))
+    assert RegisterGridEngine.from_graph(ok, K=2, device="cpu").R == 2

@@ -1,7 +1,10 @@
-"""The hand-written ``granule_step`` kernel against its plain PyTorch
-version, on the card.  These tests need a CUDA device and skip without one
-(run them there with ``python -m pytest -q -m cuda tests/test_torch_kernel.py``);
-``chip_smoke.py`` makes the same check at full width."""
+"""The hand-written ``granule_step`` and ``systolic_step`` kernels against
+their plain PyTorch versions, on the card.  These tests need a CUDA device
+and skip without one (run them there with
+``python -m pytest -q -m cuda tests/test_torch_kernel.py``);
+``chip_smoke.py`` makes the same checks, through the same
+``kernels.systolic_checks`` helpers for ``systolic_step``, and at full
+width."""
 import numpy as np
 import pytest
 import torch
@@ -10,7 +13,7 @@ from repro_torch.convert import fused_state_to_numpy
 from repro_torch.core import ChannelGraph, tiered_grid_partition
 from repro_torch.core.fused import FusedEngine
 from repro_torch.core.struct import tree_map
-from repro_torch.kernels import granule_step
+from repro_torch.kernels import granule_step, systolic_checks
 from repro_torch.hw.manycore import ManycoreCell, make_core_params
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +86,27 @@ def test_kernel_single_granule_and_divided_clock(cuda, cell_cls):
         for k in a:
             assert np.array_equal(a[k], b[k]), (ep, k)
     assert (eng.gather_group(gpu, 0).total == vals.sum()).all()
+
+
+def test_systolic_mac_is_one_rounding(cuda):
+    """The kernel's ``__fmaf_rn`` MAC equals ``mac`` on the card and on the
+    CPU (an exact FMA there), and differs from multiply-then-add."""
+    assert systolic_checks.check_mac(1 << 20, seed=0) > 0
+
+
+@pytest.mark.parametrize("tiles", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("K", [2, 7, 16])
+def test_systolic_kernel_matches_plain_version(cuda, K, tiles):
+    """The register engine's epochs through the kernel and through the
+    plain version, both on the card: every state leaf equal after every
+    epoch, through completion."""
+    epochs, cycles = systolic_checks.check_engine(12, 8, 8, K, tiles, seed=K)
+    assert epochs > 0 and cycles == epochs * K
+
+
+@pytest.mark.parametrize("limit", [None, 3])
+def test_systolic_kernel_interior_tile(cuda, limit):
+    """An interior tile fed only through its slabs, with emission limits
+    below K: every output key equal to the plain version's, call by call."""
+    limits = None if limit is None else (limit, limit)
+    assert systolic_checks.check_interior_tile(limits) > 0
