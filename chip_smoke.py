@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-Two paths, each through the entry points a user calls:
+Three paths, each through the entry points a user calls:
 
   * the paper's wafer-scale torus: 1024x1024 ``ManycoreCell`` cores running
     a two-phase ring allreduce, partitioned over 2 pods x 2x2 granules with
@@ -14,7 +14,14 @@ Two paths, each through the entry points a user calls:
     ``Y = A @ B``, through ``ChannelGraph.grid`` -> ``RegisterGridEngine``
     -> ``Simulation``, whose epoch of K = 62 cycles is one call of the
     hand-written ``systolic_step`` kernel
-    (``src/repro_torch/kernels/csrc/systolic_step.cu``).
+    (``src/repro_torch/kernels/csrc/systolic_step.cu``);
+  * LM serving: ``launch.serve.serve`` -> ``models.model.init_params`` ->
+    ``prefill`` -> greedy ``decode_step``s for recurrentgemma-2b and
+    xlstm-125m at their published widths (batch 4, a 3,072-token prompt,
+    16 tokens), whose prefill runs the hand-written ``flash_attention``,
+    ``rglru_scan`` and ``slstm_scan`` kernels
+    (``src/repro_torch/kernels/csrc/{flash_attention,rglru_scan,
+    slstm_scan}.cu``; the sLSTM kernel also serves every decode step).
 
 Phases (a failing phase raises, and the script exits non-zero):
 
@@ -55,6 +62,24 @@ Phases (a failing phase raises, and the script exits non-zero):
              gamma_R * (|A| @ |B|) (``hw.systolic.matmul_error_bound``); a traced
              repeat of that run; and the same run at 4x4 tiles, whose Y
              must equal the one-tile Y bit for bit.
+  6. lm-small  each LM kernel against its plain version on the card, at
+             the CPU tests' shapes (``kernels.lm_checks``): attention MHA,
+             GQA and MQA, causal with and without a window, f32 and bf16;
+             the RG-LRU with and without h0; the sLSTM at T = 1 and longer,
+             R in f32 and bf16.
+  7. rg-full   recurrentgemma-2b at full width (26 layers, d 2560, 8 local
+             attention layers, window 2048): ``serve`` with every kernel's
+             launch count set to 0 just before and read just after (8
+             ``flash_attention``, 18 ``rglru_scan``), every logit finite;
+             set-up, prefill and decode rates, peak memory; then one
+             layer's kernel inputs from that run, the kernel against its
+             plain version at full shape, and the times of the kernel, the
+             plain version and (attention) ``scaled_dot_product_attention``
+             with the same mask, beside the bound counted from the inputs;
+             last, a warm prefill and one decode step under
+             ``torch.profiler``: device idle share and time by kernel.
+  8. xl-full   xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
+             prefill, 6 in each of the 15 decode steps).
 
 The output ends with a JSON line describing each kernel, the card's name and
 power limit from nvidia-smi, and the one-line result JSON.
@@ -63,6 +88,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases build,small,sys-small
+    python3 chip_smoke.py --phases build,lm-small,rg-full,xl-full
 """
 from __future__ import annotations
 
@@ -78,8 +104,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 TOTAL = 4_718_592.0  # sum over the wafer of (arange(R*C) % 8) + 1
-KERNELS = ("granule_step", "systolic_step")
-PHASES = ("build", "small", "full", "sys-small", "sys-full")
+BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores (NVIDIA data sheet)
+KERNELS = ("granule_step", "systolic_step", "flash_attention", "rglru_scan",
+           "slstm_scan")
+PHASES = ("build", "small", "full", "sys-small", "sys-full", "lm-small",
+          "rg-full", "xl-full")
 
 
 def log(msg: str) -> None:
@@ -661,6 +691,276 @@ def phase_sys_full(result: dict) -> None:
         bound_ms=bound_ms, bound_by="bytes", library_ms=None,
     )
 
+# ------------------------------------------------------------ LM serving
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 3072, 16
+
+
+def phase_lm_small() -> None:
+    from repro_torch.kernels import lm_checks as lc
+
+    for case in lc.FLASH_CASES:
+        err = lc.check_flash(case)
+        log(f"[lm-small] flash_attention (B, Hq, Hkv, T, S, D, causal, window, "
+            f"dtype) = {case}: kernel == plain version (max |diff| {err:.3e})")
+    for case in lc.RGLRU_CASES:
+        err = lc.check_rglru(case)
+        log(f"[lm-small] rglru_scan (B, T, D, h0) = {case}: kernel == plain "
+            f"version (max |diff| {err:.3e})")
+    for case in lc.SLSTM_CASES:
+        err = lc.check_slstm(case)
+        log(f"[lm-small] slstm_scan (B, T, d, H, R dtype, carry) = {case}: "
+            f"kernel == plain version (max |diff| {err:.3e})")
+
+
+def attention_pairs(T: int, S: int, causal: bool, window) -> int:
+    """(q, k) pairs the mask admits for one (batch, head)."""
+    import numpy as np
+
+    q = np.arange(T, dtype=np.int64)
+    hi = np.minimum(q if causal else S - 1, S - 1)
+    lo = np.zeros_like(q) if window is None else np.maximum(q - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float, ops_per_s: float) -> tuple:
+    """(bound ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the peak rate for their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def capture_first_call(mod, name: str, store: dict):
+    """Wrap ``mod.name`` so that the arguments of its first call land in
+    ``store[name]``; returns a function that restores it."""
+    orig = getattr(mod, name)
+
+    def wrapped(*args, **kw):
+        store.setdefault(name, (args, kw))
+        return orig(*args, **kw)
+
+    setattr(mod, name, wrapped)
+    return lambda: setattr(mod, name, orig)
+
+
+def serve_full(arch: str, tag: str, modules: dict, expect: dict, captured: dict):
+    """``serve`` at full width with the kernels' launch counts set to 0 just
+    before and read just after; raises unless each equals ``expect`` and
+    every logit is finite."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+
+    cfg = get_config(arch)
+    restore = [capture_first_call(mod, f"{name}_cuda", captured)
+               for name, mod in modules.items()]
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in modules.values():
+            mod.launches = 0
+        r = serve(arch, smoke=False, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                  gen=LM_GEN, seed=0, verbose=False, device="cuda")
+        launches = {name: mod.launches for name, mod in modules.items()}
+    finally:
+        for undo in restore:
+            undo()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launches {launches}, expected {expect}")
+    tok = r["tokens"]
+    if not r["finite"]:
+        raise AssertionError(f"[{tag}] a logit of the run was not finite")
+    if tok.shape != (LM_BATCH, LM_GEN) or tok.min() < 0 or tok.max() >= cfg.vocab:
+        raise AssertionError(f"[{tag}] tokens {tok.shape} out of range")
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}; batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"{LM_GEN} greedy tokens; set-up {r['setup_s']:.3f} s; prefill "
+        f"{r['prefill_s']:.4f} s ({LM_BATCH * LM_PROMPT / r['prefill_s']:.1f} "
+        f"tok/s); decode {r['tok_per_s']:.2f} tok/s; every logit finite; "
+        f"launches {launches}; peak device memory {peak / 2**20:.1f} MiB; "
+        f"first tokens {tok[:, :6].tolist()}")
+    return launches
+
+
+LM_TRACE_NAMES = ("fa_fwd", "rglru_fwd", "slstm_fwd", "gemm", "nvjet")
+
+
+def trace_serving(arch: str, tag: str) -> None:
+    """A warm prefill and one decode step of ``arch`` at full width, each
+    under ``torch.profiler``: wall, device busy and idle share, and the
+    device time of each kernel of ``LM_TRACE_NAMES`` (``gemm`` and
+    ``nvjet``: cuBLAS's matrix products).  The launch counts these calls
+    add are not the main path's."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch)
+    with torch.inference_mode():
+        params = M.init_params(cfg, 0, device="cuda")
+        prompts = torch.randint(2, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                                generator=torch.Generator().manual_seed(1)).cuda()
+        max_seq = LM_PROMPT + LM_GEN
+        out = {}
+
+        def prefill():
+            out["prefill"] = M.prefill(params, cfg, prompts, max_seq)
+
+        def decode():
+            states, logits = out["prefill"]
+            M.decode_step(params, cfg, states, logits.argmax(-1), LM_PROMPT)
+
+        prefill()  # warm-ups
+        decode()
+        for what, fn in (("prefill", prefill), ("decode step", decode)):
+            tr = traced_run(fn, LM_TRACE_NAMES)
+            if tr["busy"] is None:
+                log(f"[{tag}] traced warm {what}: {tr['wall']:.4f} s wall; device "
+                    "idle share: not measured (the trace holds no device event)")
+                continue
+            kernels = "; ".join(f"{k} {v * 1e3:.3f} ms"
+                                for k, v in tr["per_kernel"].items())
+            other = tr["busy"] - sum(tr["per_kernel"].values())
+            log(f"[{tag}] traced warm {what}: {tr['wall']:.4f} s wall, device busy "
+                f"{tr['busy']:.4f} s over {tr['events']} device events, idle share "
+                f"{1.0 - tr['busy'] / tr['wall']:.4f}; {kernels}; other device "
+                f"work {other * 1e3:.3f} ms")
+
+
+def time_kernel(tag: str, name: str, kernel, plain, reps: int, plain_reps: int,
+                library=None):
+    """Median ms of each, by CUDA events, after a warm-up call of each."""
+    import statistics
+
+    out = {}
+    for key, fn, n in (("ms", kernel, reps), ("plain_ms", plain, plain_reps),
+                       ("library_ms", library, reps)):
+        if fn is None:
+            out[key] = None
+            continue
+        fn()
+        times = time_reps(fn, n)
+        out[key] = statistics.median(times)
+        log(f"[{tag}] {name} {key}: median {out[key]:.4f} ms over {n} calls "
+            f"({min(times):.4f}-{max(times):.4f})")
+    return out
+
+
+def phase_rg_full(results: list) -> None:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lm_checks as lc
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels.ref import attention_mask
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 unembedding stays f32
+    captured: dict = {}
+    launches = serve_full("recurrentgemma-2b", "rg-full",
+                          {"flash_attention": fa, "rglru_scan": rg},
+                          {"flash_attention": 8, "rglru_scan": 18}, captured)
+
+    # attention: the first local-attention layer's q, k, v from that run
+    (q, k, v), kw = captured["flash_attention_cuda"]
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    causal, window = kw["causal"], kw["window"]
+    B, Hq, T, D = q.shape
+    err = lc.compare_flash(q, k, v, causal=causal, window=window)
+    log(f"[rg-full] flash_attention at q {tuple(q.shape)}, k/v {tuple(k.shape)} "
+        f"{q.dtype}, window {window}: kernel == plain version within one bf16 ulp "
+        f"(max |diff| {err:.3e})")
+    mask = attention_mask(T, k.shape[2], causal, window, q.device)
+    scale = 1.0 / D ** 0.5
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+    lib_err = (lib().float() - fa.flash_attention_ref(
+        q, k, v, causal=causal, window=window).float()).abs().max().item()
+    times = time_kernel(
+        "rg-full", "flash_attention",
+        lambda: fa.flash_attention_cuda(q, k, v, causal=causal, window=window),
+        lambda: fa.flash_attention_ref(q, k, v, causal=causal, window=window),
+        10, 3, lib)
+    pairs = attention_pairs(T, k.shape[2], causal, window) * B * Hq
+    n_bytes = nbytes(q, k, v, q)  # q, k, v read; o (q's shape and dtype) written
+    bound_ms, by = bound(n_bytes, 4 * D * pairs, BF16_OPS_PER_S)
+    log(f"[rg-full] flash_attention bound: {pairs} (q, k) pairs, "
+        f"{4 * D * pairs:.4e} flop, {n_bytes} B -> {bound_ms:.4f} ms ({by}); "
+        f"kernel at {times['ms'] / bound_ms:.1f}x it; scaled_dot_product_attention "
+        f"(same mask) differs from the plain version by at most {lib_err:.3e}")
+    results.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:137",
+        launches=launches["flash_attention"], max_abs_err=err, **times,
+        bound_ms=bound_ms, bound_by=by))
+    del q, k, v, mask
+    captured.pop("flash_attention_cuda")
+
+    # RG-LRU: the first recurrent layer's x and a from that run
+    (x, a, h0), _ = captured.pop("rglru_scan_cuda")
+    err = lc.compare_rglru(x, a, h0)
+    log(f"[rg-full] rglru_scan at x {tuple(x.shape)} {x.dtype}, h0 "
+        f"{'given' if h0 is not None else 'zeros'}: kernel == plain version "
+        f"(max |diff| {err:.3e}, max |h| {rg.rglru_scan_ref(x, a, h0)[0].abs().max().item():.3f})")
+    times = time_kernel("rg-full", "rglru_scan", lambda: rg.rglru_scan_cuda(x, a, h0),
+                        lambda: rg.rglru_scan_ref(x, a, h0), 10, 3)
+    n_bytes = nbytes(x, a, x) + x.shape[0] * x.shape[2] * x.element_size() + (
+        nbytes(h0) if h0 is not None else 0)  # x, a (h0) read; h, h_last written
+    bound_ms, by = bound(n_bytes, 2 * x.numel(), F32_OPS_PER_S)
+    log(f"[rg-full] rglru_scan bound: {n_bytes} B, {2 * x.numel()} flop -> "
+        f"{bound_ms:.4f} ms ({by}); kernel at {times['ms'] / bound_ms:.1f}x it")
+    results.append(dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:78",
+        launches=launches["rglru_scan"], max_abs_err=err, **times,
+        bound_ms=bound_ms, bound_by=by))
+    del x, a, h0
+    trace_serving("recurrentgemma-2b", "rg-full")
+
+
+def phase_xl_full(results: list) -> None:
+    import torch
+    from repro_torch.kernels import lm_checks as lc
+    from repro_torch.kernels import slstm_scan as sl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    captured: dict = {}
+    # 6 sLSTM layers: one launch each in the prefill and in each of the
+    # gen - 1 decode steps (T = 1 takes the kernel too)
+    launches = serve_full("xlstm-125m", "xl-full", {"slstm_scan": sl},
+                          {"slstm_scan": 6 * LM_GEN}, captured)
+    (r, pre, carry0), _ = captured.pop("slstm_scan_cuda")
+    B, T, _, d = pre.shape
+    H, hd = r["i"].shape[:2]
+    err = lc.compare_slstm(r, pre, carry0)
+    log(f"[xl-full] slstm_scan at pre {tuple(pre.shape)}, R {H}x({hd}, {hd}) "
+        f"{r['i'].dtype}: kernel == plain version (max |diff| {err:.3e})")
+    times = time_kernel("xl-full", "slstm_scan",
+                        lambda: sl.slstm_scan_cuda(r, pre, carry0),
+                        lambda: sl.slstm_scan_ref(r, pre, carry0), 5, 2)
+    # R, pre and the carry read; four sequences and the final carry written
+    n_bytes = (nbytes(*r.values(), pre, *carry0) + 4 * B * T * d * 4
+               + nbytes(*carry0))
+    flop = 4 * 2 * hd * d * B * T  # h @ R_g for the four gates, in f32
+    bound_ms, by = bound(n_bytes, flop, F32_OPS_PER_S)
+    log(f"[xl-full] slstm_scan bound: {n_bytes} B, {flop:.4e} flop (f32) -> "
+        f"{bound_ms:.4f} ms ({by}); kernel at {times['ms'] / bound_ms:.1f}x it; "
+        f"the {T} steps form a dependent chain, {times['ms'] / T * 1e3:.2f} us a step")
+    results.append(dict(
+        name="slstm_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/slstm_scan.cu",
+        replaces="src/repro/kernels/slstm_scan.py:121",
+        launches=launches["slstm_scan"], max_abs_err=err, **times,
+        bound_ms=bound_ms, bound_by=by))
+    del r, pre, carry0
+    trace_serving("xlstm-125m", "xl-full")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -694,17 +994,21 @@ def main(argv=None) -> int:
         for line in _build.PTXAS_REPORT.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
                 log(f"[build] {line.strip()}")
-    log(f"[build] {time.perf_counter() - t0:.2f} s wall for both")
-    if "small" in phases:
-        phase_small()
+    log(f"[build] {time.perf_counter() - t0:.2f} s wall for all {len(KERNELS)}")
     kernels = [{}, {}]
-    if "full" in phases:
-        phase_full(kernels[0])
-    if "sys-small" in phases:
-        phase_sys_small()
-    if "sys-full" in phases:
-        phase_sys_full(kernels[1])
-    print(json.dumps({"kernels": [k for k in kernels if k]}), flush=True)
+    lm_kernels: list = []
+    for phase, run in (("small", phase_small),
+                       ("full", lambda: phase_full(kernels[0])),
+                       ("sys-small", phase_sys_small),
+                       ("sys-full", lambda: phase_sys_full(kernels[1])),
+                       ("lm-small", phase_lm_small),
+                       ("rg-full", lambda: phase_rg_full(lm_kernels)),
+                       ("xl-full", lambda: phase_xl_full(lm_kernels))):
+        if phase in phases:
+            t1 = time.perf_counter()
+            run()
+            log(f"[{phase}] phase took {time.perf_counter() - t1:.1f} s")
+    print(json.dumps({"kernels": [k for k in kernels + lm_kernels if k]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 
 A second package beside the JAX reference ``repro``: the same channel-graph
 IR, partitions and engine state layouts, run with PyTorch tensors, with the
-fused engine's resident epoch program as a hand-written Hopper kernel
-(``kernels/csrc/granule_step.cu``).  Engines run on ``device="cuda"``
-unless the caller asks for ``device="cpu"``.  Nothing here imports JAX or
-the ``repro`` package.
+fused engine's resident epoch program and the systolic tile as
+hand-written Hopper kernels (``kernels/csrc/``); and the LM stack's
+serving path (``launch.serve``), with flash attention, the RG-LRU scan and
+the sLSTM scan as hand-written Hopper kernels.  Engines and entry points
+run on ``device="cuda"`` unless the caller asks for ``device="cpu"``.
+Nothing here imports JAX or the ``repro`` package.
 """

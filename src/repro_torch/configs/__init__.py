@@ -1,1 +1,2 @@
-"""Simulation configurations of the port (the manycore wafer)."""
+"""Configurations of the port: the manycore wafer, and the LM architectures
+ported so far (``registry.get_config``)."""

@@ -19,6 +19,18 @@ nothing of JAX:
 
 That lets a test start both packages from one state, including mid-run.
 Tables are not state: the target engine builds its own.
+
+For the LM stack the weights are the model's parameters, and the state is
+the decode state:
+
+  * ``lm_params_from_numpy`` maps the JAX ``init_params`` tree, flattened
+    by dotted path (``"embed"``, ``"segments.0.2.mix.wq"``,
+    ``"final_norm.scale"``; segment leaves keep their leading stage dim),
+    onto the port's parameters.  bf16 leaves cross as f32 numpy arrays and
+    are cast back here, which is exact;
+  * ``lm_state_from_numpy`` does the same for a decode state
+    (``"0.1.conv"``, ``"0.2.k"``: segment, pattern position, leaf), so a
+    test can start both packages mid-decode.
 """
 from __future__ import annotations
 
@@ -39,6 +51,65 @@ def params_from_numpy(params_cls, arrays: Mapping[str, np.ndarray], device="cuda
     ``device="cpu"``)."""
     dev = resolve_device(device)
     return params_cls(**{k: to_tensor(v, dev) for k, v in arrays.items()})
+
+
+#: LM parameter and state leaves that are f32 whatever the model dtype.
+LM_F32_PARAMS = frozenset({"lam", "b_if", "b_i", "b_f", "b_z", "b_o"})
+LM_MODEL_DTYPE_STATE = frozenset({"conv", "k", "v"})
+
+
+def _nest(flat: dict) -> dict:
+    """{dotted path: leaf} -> nested dicts."""
+    out: dict = {}
+    for path, leaf in flat.items():
+        *parents, name = path.split(".")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = leaf
+    return out
+
+
+def _seq(node: dict, cls=list):
+    """A dict keyed "0", "1", ... -> ``cls`` of its values in order."""
+    if sorted(node, key=int) != [str(i) for i in range(len(node))]:
+        raise KeyError(f"expected keys 0..{len(node) - 1}, got {sorted(node)}")
+    return cls(node[str(i)] for i in range(len(node)))
+
+
+def lm_params_from_numpy(cfg, arrays: Mapping[str, np.ndarray], device="cuda") -> dict:
+    """The port's parameters for ``cfg`` from the JAX ``init_params`` leaves
+    by dotted path, on ``device`` (``"cuda"`` by default; raises without
+    CUDA — pass ``device="cpu"``).  Leaves of ``LM_F32_PARAMS`` stay f32,
+    every other one is cast to ``cfg.dtype``."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+
+    def leaf(path: str, arr) -> torch.Tensor:
+        name = path.rsplit(".", 1)[-1]
+        dt = torch.float32 if name in LM_F32_PARAMS else dtype
+        return torch.tensor(np.asarray(arr, np.float32), device=dev).to(dt)
+
+    tree = _nest({p: leaf(p, a) for p, a in arrays.items()})
+    tree["segments"] = [_seq(seg, tuple) for seg in _seq(tree["segments"])]
+    return tree
+
+
+def lm_state_from_numpy(cfg, arrays: Mapping[str, np.ndarray], device="cuda") -> list:
+    """A decode state (per segment, a tuple of stage-stacked per-layer
+    dicts) from numpy leaves keyed ``"<segment>.<position>.<leaf>"``, on
+    ``device``.  KV caches and conv carries take ``cfg.dtype``, the rest
+    f32."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+
+    def leaf(path: str, arr) -> torch.Tensor:
+        name = path.rsplit(".", 1)[-1]
+        dt = dtype if name in LM_MODEL_DTYPE_STATE else torch.float32
+        return torch.tensor(np.asarray(arr, np.float32), device=dev).to(dt)
+
+    tree = _nest({p: leaf(p, a) for p, a in arrays.items()})
+    return [_seq(seg, tuple) for seg in _seq(tree)]
 
 
 def _from_numpy(template, arrays: Mapping[str, np.ndarray], device):

@@ -1,0 +1,121 @@
+"""The RG-LRU linear recurrence h_t = a_t h_{t-1} + x_t over (B, T, D), as
+``repro.kernels.rglru_scan`` (the Pallas kernel ``_rglru_kernel``).
+
+Returns (h (B, T, D), h_last (B, D)) in x's dtype, f32 math.
+:func:`rglru_scan` dispatches by device:
+
+  * CPU tensors go to :func:`rglru_scan_ref`, the plain PyTorch version:
+    the TPU kernel's time chunks of ``block_t`` steps, a Hillis–Steele scan
+    inside each and the carry across them;
+  * CUDA tensors go to :func:`rglru_scan_cuda`, the hand-written Hopper
+    kernel ``csrc/rglru_scan.cu`` (one sequential f32 FMA chain a channel;
+    the same h up to rounding), or raise.  Nothing falls back.
+
+Both take the TPU kernel's shape rule: T and D divisible by the blocks.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..obs.registry import REGISTRY
+from ._build import tensor_ptr
+from .ref import affine_scan
+
+#: Launches of the CUDA kernel (one per :func:`rglru_scan_cuda` call).  A
+#: plain integer, so a run can show that its main path went through the
+#: kernel; set it to 0 before the run.
+launches = 0
+
+
+def _blocks(x, block_t: int, block_d: int) -> tuple[int, int]:
+    if x.dim() != 3:
+        raise ValueError(f"expected x (B, T, D), got {tuple(x.shape)}")
+    _, T, D = x.shape
+    bt, bd = min(block_t, T), min(block_d, D)
+    if T % bt or D % bd:
+        raise ValueError(f"T={T}, D={D} must divide blocks ({bt}, {bd})")
+    return bt, bd
+
+
+def rglru_scan_ref(x, a, h0=None, *, block_t: int = 256, block_d: int = 256):
+    """``_rglru_kernel`` in plain PyTorch: per time chunk of ``block_t``
+    steps, the Hillis–Steele scan of the affine maps (a, x), then the carry
+    applied and the chunk's last row carried on.  Channels are independent,
+    so ``block_d`` only checks the shape rule."""
+    bt, _ = _blocks(x, block_t, block_d)
+    B, T, D = x.shape
+    h_in = (torch.zeros((B, 1, D), dtype=torch.float32, device=x.device)
+            if h0 is None else h0.float()[:, None])
+    hs = []
+    for t0 in range(0, T, bt):
+        A, X = affine_scan(a[:, t0:t0 + bt].float(), x[:, t0:t0 + bt].float(), dim=1)
+        h = X + A * h_in
+        h_in = h[:, -1:]
+        hs.append(h)
+    h = torch.cat(hs, 1)
+    return h.to(x.dtype), h[:, -1].to(x.dtype)
+
+
+def rglru_scan(x, a, h0=None, *, block_t: int = 256, block_d: int = 256):
+    """The recurrence on the inputs' device: the plain version on the CPU,
+    the Hopper kernel on CUDA."""
+    _blocks(x, block_t, block_d)
+    if x.device.type == "cpu":
+        return rglru_scan_ref(x, a, h0, block_t=block_t, block_d=block_d)
+    if x.device.type == "cuda":
+        return rglru_scan_cuda(x, a, h0)
+    raise ValueError(f"no rglru_scan for device {x.device}")
+
+
+# ------------------------------------------------------------- the kernel
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _library():
+    from . import _build
+
+    lib = _build.load("rglru_scan")
+    if lib.rglru_scan_fwd.argtypes is None:
+        lib.rglru_scan_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        lib.rglru_scan_fwd.restype = ctypes.c_int
+    return lib
+
+
+def rglru_scan_cuda(x, a, h0=None):
+    """Launch ``csrc/rglru_scan.cu`` on the current stream.  x and a:
+    contiguous (B, T, D) of one dtype, f32 or bf16; h0 (B, D) of any float
+    dtype (taken as f32), zeros when absent.  Raises for anything the kernel
+    does not take."""
+    global launches
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"rglru_scan_cuda needs CUDA tensors, got {dev}")
+    if x.dim() != 3 or x.dtype not in _DTYPES:
+        raise ValueError(f"x: expected f32 or bf16 (B, T, D), got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    B, T, D = x.shape
+    if min(B, T, D) < 1:
+        raise ValueError(f"empty axis in {tuple(x.shape)}")
+    px = tensor_ptr(x, "x", x.dtype, (B, T, D), dev)
+    pa = tensor_ptr(a, "a", x.dtype, (B, T, D), dev)
+    h0 = (torch.zeros((B, D), dtype=torch.float32, device=dev) if h0 is None
+          else h0.to(torch.float32).contiguous())
+    ph0 = tensor_ptr(h0, "h0", torch.float32, (B, D), dev)
+    h = torch.empty_like(x)
+    h_last = torch.empty((B, D), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _library().rglru_scan_fwd(px, pa, ph0, h.data_ptr(), h_last.data_ptr(),
+                                       _DTYPES[x.dtype], B, T, D,
+                                       ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {rc}")
+    launches += 1
+    REGISTRY.inc("rglru_scan.launches")
+    return h, h_last
+
+
+__all__ = ["launches", "rglru_scan", "rglru_scan_cuda", "rglru_scan_ref"]

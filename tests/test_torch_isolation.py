@@ -8,12 +8,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.convert import params_from_numpy
+from repro_torch.configs.registry import get_config
+from repro_torch.convert import lm_params_from_numpy, lm_state_from_numpy, params_from_numpy
 from repro_torch.core import ChannelGraph, Network, NetworkSim
 from repro_torch.core.fastgrid import RegisterGridEngine
 from repro_torch.core.fused import FusedEngine
+from repro_torch.core.struct import tree_paths
 from repro_torch.hw.manycore import CoreParams, ManycoreCell, make_core_params
 from repro_torch.hw.systolic import SystolicCell, make_cell_params, make_systolic_network
+from repro_torch.launch.serve import serve
+from repro_torch.models import model as lm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -43,7 +47,12 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_sees_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"fused.py", "granule_step.py", "fastgrid.py", "systolic_step.py",
-            "systolic.py", "chip_smoke.py"} <= names
+            "systolic.py", "chip_smoke.py", "flash_attention.py", "rglru_scan.py",
+            "slstm_scan.py", "ops.py", "ref.py", "lm_checks.py", "layers.py",
+            "recurrent.py", "model.py", "config.py", "registry.py",
+            "recurrentgemma_2b.py", "xlstm_125m.py", "serve.py"} <= names
+    assert {"flash_attention.cu", "rglru_scan.cu", "slstm_scan.cu"} <= {
+        p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
     assert not _forbidden("repro_torch.core")
 
@@ -73,6 +82,31 @@ def test_engines_default_to_cuda():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 make()
         assert make(device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_default_to_cuda():
+    """``serve``, ``init_params``, ``lm_params_from_numpy`` and
+    ``lm_state_from_numpy`` run on CUDA unless told ``device="cpu"``; without
+    CUDA the default raises."""
+    cfg = get_config("xlstm-125m", smoke=True)
+    arrays = {p: x.float().numpy() for p, x in tree_paths(lm.init_params(cfg, 0, "cpu"))}
+    states = {p: x.float().numpy()
+              for p, x in tree_paths(lm.init_decode_state(cfg, 1, 8, "cpu"))}
+    makers = [
+        lambda **kw: serve("xlstm-125m", smoke=True, batch=1, prompt_len=8, gen=2,
+                           verbose=False, **kw)["tokens"],
+        lambda **kw: lm.init_params(cfg, 0, **kw)["embed"],
+        lambda **kw: lm_params_from_numpy(cfg, arrays, **kw)["embed"],
+        lambda **kw: lm_state_from_numpy(cfg, states, **kw)[0][1]["m"],
+    ]
+    for make in makers:
+        if torch.cuda.is_available():
+            out = make()
+            assert not isinstance(out, torch.Tensor) or out.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+        make(device="cpu")
 
 
 def test_register_engine_rejects_other_graphs():

@@ -1,19 +1,27 @@
-"""The hand-written ``granule_step`` and ``systolic_step`` kernels against
-their plain PyTorch versions, on the card.  These tests need a CUDA device
-and skip without one (run them there with
+"""The hand-written kernels (``granule_step``, ``systolic_step``,
+``flash_attention``, ``rglru_scan``, ``slstm_scan``) against their plain
+PyTorch versions, on the card.  These tests need a CUDA device and skip
+without one (run them there with
 ``python -m pytest -q -m cuda tests/test_torch_kernel.py``);
 ``chip_smoke.py`` makes the same checks, through the same
-``kernels.systolic_checks`` helpers for ``systolic_step``, and at full
+``kernels.systolic_checks`` and ``kernels.lm_checks`` helpers, and at full
 width."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_config
 from repro_torch.convert import fused_state_to_numpy
 from repro_torch.core import ChannelGraph, tiered_grid_partition
 from repro_torch.core.fused import FusedEngine
 from repro_torch.core.struct import tree_map
-from repro_torch.kernels import granule_step, systolic_checks
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import granule_step, lm_checks, systolic_checks
+from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import slstm_scan as sl
+from repro_torch.models import model as lm
 from repro_torch.hw.manycore import ManycoreCell, make_core_params
 
 pytestmark = pytest.mark.cuda
@@ -110,3 +118,52 @@ def test_systolic_kernel_interior_tile(cuda, limit):
     below K: every output key equal to the plain version's, call by call."""
     limits = None if limit is None else (limit, limit)
     assert systolic_checks.check_interior_tile(limits) > 0
+
+
+@pytest.mark.parametrize("case", lm_checks.FLASH_CASES, ids=str)
+def test_flash_kernel_matches_plain_version(cuda, case):
+    """o within the stated tolerance (one bf16 ulp for bf16), lse in f32."""
+    assert lm_checks.check_flash(case) >= 0.0
+
+
+@pytest.mark.parametrize("case", lm_checks.RGLRU_CASES, ids=str)
+def test_rglru_kernel_matches_plain_version(cuda, case):
+    assert lm_checks.check_rglru(case) >= 0.0
+
+
+@pytest.mark.parametrize("case", lm_checks.SLSTM_CASES, ids=str)
+def test_slstm_kernel_matches_plain_version(cuda, case):
+    """hs, the c/n/m sequences and the final carry, T = 1 included."""
+    assert lm_checks.check_slstm(case) >= 0.0
+
+
+@pytest.mark.parametrize("arch,over,launches", [
+    ("recurrentgemma-2b", dict(use_kernels=True, rnn_width=256, attn_window=96),
+     {"flash": 1, "rglru": 4, "slstm": 0}),
+    ("xlstm-125m", dict(use_kernels=True), {"flash": 0, "rglru": 0, "slstm": 3}),
+])
+def test_lm_on_the_card_matches_the_cpu(cuda, arch, over, launches):
+    """The kernel-aligned smoke configs in f32: prefill (T = 256) and two
+    decode steps on the card, through the kernels, give the CPU's logits
+    (within 1e-3: cuBLAS sums the f32 products in its own order, on logits
+    up to ~60) and tokens; each kernel launched as the shape rules say."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **over)
+    params = lm.init_params(cfg, 0, device="cpu")
+    toks = torch.tensor(np.random.RandomState(1).randint(2, cfg.vocab, (2, 256)))
+    mods = {"flash": fa, "rglru": rg, "slstm": sl}
+    for mod in mods.values():
+        mod.launches = 0
+    out = {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda x: x.to(dev), params)
+            states, logits = lm.prefill(p, cfg, toks.to(dev), 258)
+            seq = [logits.cpu()]
+            for i in range(2):
+                states, logits = lm.decode_step(p, cfg, states, logits.argmax(-1), 256 + i)
+                seq.append(logits.cpu())
+            out[dev] = seq
+    assert {k: m.launches for k, m in mods.items()} == launches
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-3)
+        assert (a.argmax(-1) == b.argmax(-1)).all()
