@@ -734,29 +734,33 @@ def bound(n_bytes: float, ops: float, ops_per_s: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def capture_first_call(mod, name: str, store: dict):
-    """Wrap ``mod.name`` so that the arguments of its first call land in
-    ``store[name]``; returns a function that restores it."""
+def capture_first_calls(mod, name: str, store: dict, kind=None):
+    """Wrap ``mod.name`` so that the arguments of its first call of each
+    kind land in ``store[name, kind(*args)]`` (one kind, None, where
+    ``kind`` is None); returns a function that restores it."""
     orig = getattr(mod, name)
 
     def wrapped(*args, **kw):
-        store.setdefault(name, (args, kw))
+        store.setdefault((name, kind and kind(*args)), (args, kw))
         return orig(*args, **kw)
 
     setattr(mod, name, wrapped)
     return lambda: setattr(mod, name, orig)
 
 
-def serve_full(arch: str, tag: str, modules: dict, expect: dict, captured: dict):
+def serve_full(arch: str, tag: str, modules: dict, expect: dict, captured: dict,
+               kinds: dict | None = None):
     """``serve`` at full width with the kernels' launch counts set to 0 just
     before and read just after; raises unless each equals ``expect`` and
-    every logit is finite."""
+    every logit is finite.  The first call of each kernel's wrapper (of
+    each kind, by ``kinds[name]``) lands in ``captured``."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serve
 
     cfg = get_config(arch)
-    restore = [capture_first_call(mod, f"{name}_cuda", captured)
+    kinds = kinds or {}
+    restore = [capture_first_calls(mod, f"{name}_cuda", captured, kinds.get(name))
                for name, mod in modules.items()]
     try:
         torch.cuda.empty_cache()
@@ -866,24 +870,24 @@ def phase_rg_full(results: list) -> None:
                           {"flash_attention": 8, "rglru_scan": 18}, captured)
 
     # attention: the first local-attention layer's q, k, v from that run
-    (q, k, v), kw = captured["flash_attention_cuda"]
+    (q, k, v), kw = captured["flash_attention_cuda", None]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    causal, window = kw["causal"], kw["window"]
+    causal, window, scale = kw["causal"], kw["window"], kw["sm_scale"]
+    mkw = dict(causal=causal, window=window, sm_scale=scale)
     B, Hq, T, D = q.shape
-    err = lc.compare_flash(q, k, v, causal=causal, window=window)
+    err = lc.compare_flash(q, k, v, **mkw)
     log(f"[rg-full] flash_attention at q {tuple(q.shape)}, k/v {tuple(k.shape)} "
-        f"{q.dtype}, window {window}: kernel == plain version within one bf16 ulp "
-        f"(max |diff| {err:.3e})")
+        f"{q.dtype}, window {window}, scale {scale}: kernel == plain version "
+        f"within one bf16 ulp (max |diff| {err:.3e})")
     mask = attention_mask(T, k.shape[2], causal, window, q.device)
-    scale = 1.0 / D ** 0.5
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
     lib_err = (lib().float() - fa.flash_attention_ref(
-        q, k, v, causal=causal, window=window).float()).abs().max().item()
+        q, k, v, **mkw).float()).abs().max().item()
     times = time_kernel(
         "rg-full", "flash_attention",
-        lambda: fa.flash_attention_cuda(q, k, v, causal=causal, window=window),
-        lambda: fa.flash_attention_ref(q, k, v, causal=causal, window=window),
+        lambda: fa.flash_attention_cuda(q, k, v, **mkw),
+        lambda: fa.flash_attention_ref(q, k, v, **mkw),
         10, 3, lib)
     pairs = attention_pairs(T, k.shape[2], causal, window) * B * Hq
     n_bytes = nbytes(q, k, v, q)  # q, k, v read; o (q's shape and dtype) written
@@ -899,10 +903,10 @@ def phase_rg_full(results: list) -> None:
         launches=launches["flash_attention"], max_abs_err=err, **times,
         bound_ms=bound_ms, bound_by=by))
     del q, k, v, mask
-    captured.pop("flash_attention_cuda")
+    captured.pop(("flash_attention_cuda", None))
 
     # RG-LRU: the first recurrent layer's x and a from that run
-    (x, a, h0), _ = captured.pop("rglru_scan_cuda")
+    (x, a, h0), _ = captured.pop(("rglru_scan_cuda", None))
     err = lc.compare_rglru(x, a, h0)
     log(f"[rg-full] rglru_scan at x {tuple(x.shape)} {x.dtype}, h0 "
         f"{'given' if h0 is not None else 'zeros'}: kernel == plain version "
@@ -933,9 +937,24 @@ def phase_xl_full(results: list) -> None:
     captured: dict = {}
     # 6 sLSTM layers: one launch each in the prefill and in each of the
     # gen - 1 decode steps (T = 1 takes the kernel too)
-    launches = serve_full("xlstm-125m", "xl-full", {"slstm_scan": sl},
-                          {"slstm_scan": 6 * LM_GEN}, captured)
-    (r, pre, carry0), _ = captured.pop("slstm_scan_cuda")
+    launches = serve_full(
+        "xlstm-125m", "xl-full", {"slstm_scan": sl}, {"slstm_scan": 6 * LM_GEN},
+        captured, {"slstm_scan": lambda r, pre, carry0: pre.shape[1] == 1})
+    # the first decode step's inputs: T = 1 from the carry the prefill left
+    (r, pre, carry0), _ = captured.pop(("slstm_scan_cuda", True))
+    if pre.shape[1] != 1 or not all(torch.isfinite(x).all() for x in carry0):
+        raise AssertionError(f"[xl-full] the decode call's pre {tuple(pre.shape)} "
+                             "or its carry is not a decode step's")
+    err_dec = lc.compare_slstm(r, pre, carry0)
+    log(f"[xl-full] slstm_scan at the first decode step's pre {tuple(pre.shape)} "
+        f"and the carry the prefill left (every m finite, max |m| "
+        f"{carry0[3].abs().max().item():.3f}): kernel == plain version (max |diff| "
+        f"{err_dec:.3e})")
+    time_kernel("xl-full", "slstm_scan (decode, T = 1)",
+                lambda: sl.slstm_scan_cuda(r, pre, carry0),
+                lambda: sl.slstm_scan_ref(r, pre, carry0), 20, 5)
+    # the first prefill call's inputs, from a zero carry with m = -inf
+    (r, pre, carry0), _ = captured.pop(("slstm_scan_cuda", False))
     B, T, _, d = pre.shape
     H, hd = r["i"].shape[:2]
     err = lc.compare_slstm(r, pre, carry0)
@@ -956,7 +975,7 @@ def phase_xl_full(results: list) -> None:
         name="slstm_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/slstm_scan.cu",
         replaces="src/repro/kernels/slstm_scan.py:121",
-        launches=launches["slstm_scan"], max_abs_err=err, **times,
+        launches=launches["slstm_scan"], max_abs_err=max(err, err_dec), **times,
         bound_ms=bound_ms, bound_by=by))
     del r, pre, carry0
     trace_serving("xlstm-125m", "xl-full")

@@ -40,7 +40,8 @@ SLSTM_CASES = ((1, 1, 16, 2, torch.float32, "zero"),
                (2, 64, 32, 4, torch.float32, "random"),
                (2, 128, 64, 4, torch.float32, "zero"),
                (2, 1, 64, 4, torch.bfloat16, "random"),
-               (2, 128, 64, 4, torch.bfloat16, "zero"))
+               (2, 128, 64, 4, torch.bfloat16, "zero"),
+               (4, 1, 768, 4, torch.bfloat16, "random"))  # xlstm-125m's decode
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -79,12 +80,11 @@ def assert_bf16_close(got, want, name: str) -> float:
 
 
 # ------------------------------------------------------------ comparisons
-def compare_flash(q, k, v, *, causal=True, window=None) -> float:
+def compare_flash(q, k, v, *, causal=True, window=None, sm_scale=None) -> float:
     """Kernel against plain version; o and lse."""
-    o_k, lse_k = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                         return_lse=True)
-    o_p, lse_p = fa.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                        return_lse=True)
+    kw = dict(causal=causal, window=window, sm_scale=sm_scale, return_lse=True)
+    o_k, lse_k = fa.flash_attention_cuda(q, k, v, **kw)
+    o_p, lse_p = fa.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     if q.dtype == torch.bfloat16:
         err = assert_bf16_close(o_k, o_p, "flash_attention o")

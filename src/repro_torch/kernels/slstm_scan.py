@@ -7,8 +7,8 @@ carry0: (c, n, h, m), each (B, d) f32.  Returns (hs, (cs, ns, ms), final
 carry) with the sequences (B, T, d) f32.  :func:`slstm_scan` dispatches by
 device:
 
-  * CPU tensors go to :func:`slstm_scan_ref`, the plain PyTorch version:
-    the TPU kernel's time chunks of ``block_t`` steps, one step at a time;
+  * CPU tensors go to :func:`slstm_scan_ref`, the plain PyTorch version,
+    one step at a time;
   * CUDA tensors go to :func:`slstm_scan_cuda`, the hand-written Hopper
     kernel ``csrc/slstm_scan.cu``, or raise.  Nothing falls back.
 """
@@ -17,9 +17,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from ..obs.registry import REGISTRY
+from . import ref
 from ._build import tensor_ptr
 
 #: Launches of the CUDA kernel (one per :func:`slstm_scan_cuda` call, which
@@ -30,55 +30,26 @@ launches = 0
 GATES = ("i", "f", "z", "o")
 
 
-def _step(r, c, n, h, m, pre_t):
-    """One sLSTM step in f32, as the TPU kernel's ``_step``; r holds the
-    f32 (H, hd, hd) matrices, pre_t is (B, 4, d)."""
-    B, d = h.shape
-    H, hd = r["i"].shape[:2]
-    hb = h.reshape(B, H, hd)
-
-    def gate(gi, g):
-        return pre_t[:, gi] + torch.einsum("bhd,hde->bhe", hb, r[g]).reshape(B, d)
-
-    li = gate(0, "i")
-    lf = F.logsigmoid(gate(1, "f"))
-    z = torch.tanh(gate(2, "z"))
-    o = torch.sigmoid(gate(3, "o"))
-    m_new = torch.maximum(lf + m, li)
-    c = c * torch.exp(lf + m - m_new) + torch.exp(li - m_new) * z
-    n = n * torch.exp(lf + m - m_new) + torch.exp(li - m_new)
-    h = o * c / torch.clamp(n, min=1.0)
-    return c, n, h, m_new
-
-
-def _block_t(pre, block_t: int) -> int:
+def _check_block_t(pre, block_t: int) -> None:
     T = pre.shape[1]
     bt = min(block_t, T)
     if T % bt:
         raise ValueError(f"T={T} must divide block_t={bt}")
-    return bt
 
 
 def slstm_scan_ref(r: dict, pre, carry0: tuple, *, block_t: int = 128):
-    """``_slstm_kernel`` in plain PyTorch: time chunks of ``block_t`` steps,
-    each walked step by step with the carry held across chunks."""
-    bt = _block_t(pre, block_t)
-    rf = {g: r[g].float() for g in GATES}
-    pre = pre.float()
-    carry = tuple(x.float() for x in carry0)
-    seqs = []
-    for t0 in range(0, pre.shape[1], bt):
-        for t in range(t0, t0 + bt):
-            carry = _step(rf, *carry, pre[:, t])
-            seqs.append(carry)
-    cs, ns, hs, ms = (torch.stack(s, 1) for s in zip(*seqs))
-    return hs, (cs, ns, ms), carry
+    """``_slstm_kernel`` in plain PyTorch: the TPU kernel's shape rule on
+    ``block_t``, then the oracle ``ref.slstm_scan_ref``.  The kernel's time
+    chunks walk T one step at a time in order, as the oracle does, so they
+    change nothing."""
+    _check_block_t(pre, block_t)
+    return ref.slstm_scan_ref(r, pre, carry0)
 
 
 def slstm_scan(r: dict, pre, carry0: tuple, *, block_t: int = 128):
     """The recurrence on the inputs' device: the plain version on the CPU,
     the Hopper kernel (the whole sequence in one launch) on CUDA."""
-    _block_t(pre, block_t)
+    _check_block_t(pre, block_t)
     if pre.device.type == "cpu":
         return slstm_scan_ref(r, pre, carry0, block_t=block_t)
     if pre.device.type == "cuda":
