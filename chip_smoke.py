@@ -64,22 +64,29 @@ Phases (a failing phase raises, and the script exits non-zero):
              must equal the one-tile Y bit for bit.
   6. lm-small  each LM kernel against its plain version on the card, at
              the CPU tests' shapes (``kernels.lm_checks``): attention MHA,
-             GQA and MQA, causal with and without a window, f32 and bf16;
-             the RG-LRU with and without h0; the sLSTM at T = 1 and longer,
-             R in f32 and bf16.
+             GQA and MQA, causal with and without a window, f32 (the
+             CUDA-core route) and bf16 (the tensor-core route; each case
+             must take its dtype's route), D up to 256, T not a multiple
+             of 128; the RG-LRU with and without h0; the sLSTM at T = 1
+             and longer, R in f32 and bf16, up to xlstm-125m's width.
   7. rg-full   recurrentgemma-2b at full width (26 layers, d 2560, 8 local
              attention layers, window 2048): ``serve`` with every kernel's
              launch count set to 0 just before and read just after (8
-             ``flash_attention``, 18 ``rglru_scan``), every logit finite;
+             ``flash_attention``, all on the tensor-core route, 18
+             ``rglru_scan``), every logit finite;
              set-up, prefill and decode rates, peak memory; then one
              layer's kernel inputs from that run, the kernel against its
              plain version at full shape, and the times of the kernel, the
              plain version and (attention) ``scaled_dot_product_attention``
-             with the same mask, beside the bound counted from the inputs;
-             last, a warm prefill and one decode step under
-             ``torch.profiler``: device idle share and time by kernel.
+             with the same mask, beside the bound counted from the inputs,
+             and the kernel's ratios to both; last, a warm prefill and one
+             decode step under ``torch.profiler``: device idle share and
+             time by kernel.
   8. xl-full   xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
-             prefill, 6 in each of the 15 decode steps).
+             prefill, 6 in each of the 15 decode steps), at the first
+             decode step's inputs and the first prefill's: the cluster
+             plan, the T = 1 call by CUDA events and the wrapper's host
+             time a call, us a step and the marginal step (T against T/2).
 
 The output ends with a JSON line describing each kernel, the card's name and
 power limit from nvidia-smi, and the one-line result JSON.
@@ -698,10 +705,17 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 3072, 16
 def phase_lm_small() -> None:
     from repro_torch.kernels import lm_checks as lc
 
+    from repro_torch.kernels import flash_attention as fa
+
     for case in lc.FLASH_CASES:
+        before = dict(fa.route_launches)
         err = lc.check_flash(case)
+        route = fa.route(case[8], case[5])
+        if fa.route_launches[route] != before[route] + 1:
+            raise AssertionError(f"[lm-small] {case} did not take the {route} route")
         log(f"[lm-small] flash_attention (B, Hq, Hkv, T, S, D, causal, window, "
-            f"dtype) = {case}: kernel == plain version (max |diff| {err:.3e})")
+            f"dtype) = {case}, {route} route: kernel == plain version (max |diff| "
+            f"{err:.3e})")
     for case in lc.RGLRU_CASES:
         err = lc.check_rglru(case)
         log(f"[lm-small] rglru_scan (B, T, D, h0) = {case}: kernel == plain "
@@ -767,9 +781,13 @@ def serve_full(arch: str, tag: str, modules: dict, expect: dict, captured: dict,
         torch.cuda.reset_peak_memory_stats()
         for mod in modules.values():
             mod.launches = 0
+            for route in getattr(mod, "route_launches", {}):
+                mod.route_launches[route] = 0
         r = serve(arch, smoke=False, batch=LM_BATCH, prompt_len=LM_PROMPT,
                   gen=LM_GEN, seed=0, verbose=False, device="cuda")
         launches = {name: mod.launches for name, mod in modules.items()}
+        routes = {name: dict(mod.route_launches) for name, mod in modules.items()
+                  if hasattr(mod, "route_launches")}
     finally:
         for undo in restore:
             undo()
@@ -786,9 +804,10 @@ def serve_full(arch: str, tag: str, modules: dict, expect: dict, captured: dict,
         f"{LM_GEN} greedy tokens; set-up {r['setup_s']:.3f} s; prefill "
         f"{r['prefill_s']:.4f} s ({LM_BATCH * LM_PROMPT / r['prefill_s']:.1f} "
         f"tok/s); decode {r['tok_per_s']:.2f} tok/s; every logit finite; "
-        f"launches {launches}; peak device memory {peak / 2**20:.1f} MiB; "
+        f"launches {launches}, by route {routes}; peak device memory "
+        f"{peak / 2**20:.1f} MiB; "
         f"first tokens {tok[:, :6].tolist()}")
-    return launches
+    return launches, routes
 
 
 LM_TRACE_NAMES = ("fa_fwd", "rglru_fwd", "slstm_fwd", "gemm", "nvjet")
@@ -865,9 +884,12 @@ def phase_rg_full(results: list) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 unembedding stays f32
     captured: dict = {}
-    launches = serve_full("recurrentgemma-2b", "rg-full",
-                          {"flash_attention": fa, "rglru_scan": rg},
-                          {"flash_attention": 8, "rglru_scan": 18}, captured)
+    launches, routes = serve_full("recurrentgemma-2b", "rg-full",
+                                  {"flash_attention": fa, "rglru_scan": rg},
+                                  {"flash_attention": 8, "rglru_scan": 18}, captured)
+    if routes["flash_attention"] != {"tensor_cores": 8, "cuda_cores": 0}:
+        raise AssertionError(f"[rg-full] flash routes {routes['flash_attention']}: "
+                             "all 8 served launches must take the tensor cores")
 
     # attention: the first local-attention layer's q, k, v from that run
     (q, k, v), kw = captured["flash_attention_cuda", None]
@@ -894,8 +916,10 @@ def phase_rg_full(results: list) -> None:
     bound_ms, by = bound(n_bytes, 4 * D * pairs, BF16_OPS_PER_S)
     log(f"[rg-full] flash_attention bound: {pairs} (q, k) pairs, "
         f"{4 * D * pairs:.4e} flop, {n_bytes} B -> {bound_ms:.4f} ms ({by}); "
-        f"kernel at {times['ms'] / bound_ms:.1f}x it; scaled_dot_product_attention "
-        f"(same mask) differs from the plain version by at most {lib_err:.3e}")
+        f"kernel ({fa.route(q.dtype, D)} route, {fa.smem_bytes(q.dtype, D)} B of "
+        f"shared memory a CTA) at {times['ms'] / bound_ms:.2f}x it and "
+        f"{times['ms'] / times['library_ms']:.3f}x scaled_dot_product_attention "
+        f"(same mask), which differs from the plain version by at most {lib_err:.3e}")
     results.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -937,7 +961,7 @@ def phase_xl_full(results: list) -> None:
     captured: dict = {}
     # 6 sLSTM layers: one launch each in the prefill and in each of the
     # gen - 1 decode steps (T = 1 takes the kernel too)
-    launches = serve_full(
+    launches, _ = serve_full(
         "xlstm-125m", "xl-full", {"slstm_scan": sl}, {"slstm_scan": 6 * LM_GEN},
         captured, {"slstm_scan": lambda r, pre, carry0: pre.shape[1] == 1})
     # the first decode step's inputs: T = 1 from the carry the prefill left
@@ -950,16 +974,31 @@ def phase_xl_full(results: list) -> None:
         f"and the carry the prefill left (every m finite, max |m| "
         f"{carry0[3].abs().max().item():.3f}): kernel == plain version (max |diff| "
         f"{err_dec:.3e})")
-    time_kernel("xl-full", "slstm_scan (decode, T = 1)",
-                lambda: sl.slstm_scan_cuda(r, pre, carry0),
-                lambda: sl.slstm_scan_ref(r, pre, carry0), 20, 5)
+    dec = time_kernel("xl-full", "slstm_scan (decode, T = 1)",
+                      lambda: sl.slstm_scan_cuda(r, pre, carry0),
+                      lambda: sl.slstm_scan_ref(r, pre, carry0), 20, 5)
+    n_calls = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        sl.slstm_scan_cuda(r, pre, carry0)
+    host_us = (time.perf_counter() - t0) / n_calls * 1e6
+    torch.cuda.synchronize()
+    log(f"[xl-full] slstm_scan decode call: {dec['ms']:.4f} ms by CUDA events "
+        f"(the single-CTA design before the cluster one: 0.2020 ms on an H100 "
+        f"80GB HBM3 at 700 W); the wrapper's host work "
+        f"{host_us:.1f} us a call ({n_calls} calls enqueued back to back)")
     # the first prefill call's inputs, from a zero carry with m = -inf
     (r, pre, carry0), _ = captured.pop(("slstm_scan_cuda", False))
     B, T, _, d = pre.shape
     H, hd = r["i"].shape[:2]
     err = lc.compare_slstm(r, pre, carry0)
+    plan = sl.cluster_plan(B, hd, r["i"].dtype)
     log(f"[xl-full] slstm_scan at pre {tuple(pre.shape)}, R {H}x({hd}, {hd}) "
-        f"{r['i'].dtype}: kernel == plain version (max |diff| {err:.3e})")
+        f"{r['i'].dtype}: kernel == plain version (max |diff| {err:.3e}); "
+        f"{H} clusters of {plan.C} CTAs, {plan.E} channels and {plan.threads} "
+        f"threads a CTA, k-sum split {plan.KS} ways, {plan.smem} B of shared "
+        f"memory a CTA")
     times = time_kernel("xl-full", "slstm_scan",
                         lambda: sl.slstm_scan_cuda(r, pre, carry0),
                         lambda: sl.slstm_scan_ref(r, pre, carry0), 5, 2)
@@ -970,7 +1009,14 @@ def phase_xl_full(results: list) -> None:
     bound_ms, by = bound(n_bytes, flop, F32_OPS_PER_S)
     log(f"[xl-full] slstm_scan bound: {n_bytes} B, {flop:.4e} flop (f32) -> "
         f"{bound_ms:.4f} ms ({by}); kernel at {times['ms'] / bound_ms:.1f}x it; "
-        f"the {T} steps form a dependent chain, {times['ms'] / T * 1e3:.2f} us a step")
+        f"the {T} steps form a dependent chain, {times['ms'] / T * 1e3:.3f} us a step")
+    half = pre[:, :T // 2].contiguous()
+    t_half = time_kernel("xl-full", f"slstm_scan (T = {T // 2})",
+                         lambda: sl.slstm_scan_cuda(r, half, carry0), None, 5, 0)
+    step_us = (times["ms"] - t_half["ms"]) / (T - T // 2) * 1e3
+    log(f"[xl-full] slstm_scan marginal step: {step_us:.3f} us ((T = {T} minus "
+        f"T = {T // 2}) / {T - T // 2}); the chain floor at this step time: "
+        f"{step_us * T / 1e3:.3f} ms")
     results.append(dict(
         name="slstm_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/slstm_scan.cu",
@@ -1011,7 +1057,8 @@ def main(argv=None) -> int:
     for name in KERNELS:
         log(f"[build] {name} built in {secs[name]:.2f} s")
         for line in _build.PTXAS_REPORT.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "Function properties" in line:
+            if any(w in line for w in ("registers", "spill", "Function properties",
+                                       "Performance Loss", "setmaxnreg")):
                 log(f"[build] {line.strip()}")
     log(f"[build] {time.perf_counter() - t0:.2f} s wall for all {len(KERNELS)}")
     kernels = [{}, {}]

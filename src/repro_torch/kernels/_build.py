@@ -27,6 +27,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: Shared memory a CTA may use on Hopper (232,448 B of an SM's 256 KB).
+SMEM_LIMIT = 232_448
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: ``-Xptxas -v`` report (registers, shared memory, spills) of each build
 #: made by this process, by kernel name.

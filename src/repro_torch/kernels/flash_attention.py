@@ -14,6 +14,15 @@ with no visible key gives ``o = 0`` and ``lse = -1e30``.
   * CUDA tensors go to :func:`flash_attention_cuda`, the hand-written
     Hopper kernel ``csrc/flash_attention.cu``, or raise.  Nothing falls
     back.
+
+The kernel has two routes, chosen by dtype (:func:`route`), with no
+fallback between them:
+
+  * bf16 (the serving path): ``fa_fwd_tc``, on the tensor cores (``wgmma``
+    on bf16 tiles that TMA loads into a two-stage ring, P applied as
+    bf16 hi + lo parts); D a multiple of 16, at most 256;
+  * f32: ``fa_fwd``, every product an f32 FMA on the CUDA cores; D a
+    multiple of 4, at most 256.
 """
 from __future__ import annotations
 
@@ -27,9 +36,12 @@ from ._build import tensor_ptr
 from .ref import NEG_INF, attention_mask
 
 #: Launches of the CUDA kernel (one per :func:`flash_attention_cuda`
-#: call).  A plain integer, so a run can show that its main path went
-#: through the kernel; set it to 0 before the run.
+#: call), over both routes.  A plain integer, so a run can show that its
+#: main path went through the kernel; set it to 0 before the run.
 launches = 0
+#: The same launches by route (:data:`ROUTES`); set each to 0 with
+#: ``launches``.
+route_launches = {"tensor_cores": 0, "cuda_cores": 0}
 
 
 def _visible(q_start: int, bq: int, k_start: int, bk: int, causal: bool,
@@ -115,40 +127,71 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
 # ------------------------------------------------------------- the kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The kernel's route for each dtype it takes.
+ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 MAX_HEAD_DIM = 256
+_CHUNK_BYTES = 64 * 128  # a 64 x 64 bf16 tile of the tensor-core route
+
+
+def route(dtype: torch.dtype, D: int) -> str:
+    """The route of ``csrc/flash_attention.cu`` that takes q, k, v of
+    ``dtype`` with head dim ``D``; raises where none does."""
+    if dtype not in ROUTES:
+        raise ValueError(f"q, k, v must be bf16 or f32, got {dtype}")
+    step = 16 if dtype == torch.bfloat16 else 4
+    if not 1 <= D <= MAX_HEAD_DIM or D % step:
+        raise ValueError(f"head dim {D}: the {dtype} route takes a multiple of "
+                         f"{step} up to {MAX_HEAD_DIM}")
+    return ROUTES[dtype]
+
+
+def smem_bytes(dtype: torch.dtype, D: int) -> int:
+    """Dynamic shared memory of one CTA of the route for (dtype, D), as the
+    launcher asks for it: the tensor-core route holds Q (64 rows) and two
+    stages of K and V (64 keys), each in whole 64-column chunks, plus 1 KB
+    of alignment and its barriers; the f32 route two 32-key tiles (rows
+    padded by 4 floats) and 32 query rows."""
+    if route(dtype, D) == "tensor_cores":
+        nch = -(-D // 64)
+        return (nch + 2 * 2 * nch) * _CHUNK_BYTES + 1024 + 64
+    return 4 * (2 * 32 * (D + 4) + 32 * D)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare ``flash_attention_fwd``'s C signature on a built library."""
+    lib.flash_attention_fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    return lib
 
 
 def _library():
     from . import _build
 
     lib = _build.load("flash_attention")
-    if lib.flash_attention_fwd.argtypes is None:
-        lib.flash_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float,
-                                                           ctypes.c_void_p])
-        lib.flash_attention_fwd.restype = ctypes.c_int
-    return lib
+    return lib if lib.flash_attention_fwd.argtypes is not None else bind(lib)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int | None = None,
                          sm_scale: float | None = None, return_lse: bool = False):
-    """Launch ``csrc/flash_attention.cu`` on the current stream.  q, k and v
-    are made contiguous here (the model hands over transposed views); they
-    must share one dtype, bf16 or f32, and D must be at most 256 and a
-    multiple of 4.  Raises for anything the kernel does not take."""
+    """Launch ``csrc/flash_attention.cu`` on the current stream, on the
+    route of q's dtype (:func:`route`).  q, k and v are made contiguous
+    here (the model hands over transposed views) and must share one
+    dtype; the tensor-core route also needs them 16-byte aligned.  Raises
+    for anything the kernel does not take."""
     global launches
     _check(q, k, v)
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must share dtype bf16 or f32, got "
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share one dtype, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    if D > MAX_HEAD_DIM or D % 4 or min(B, Hq, T, S) < 1:
-        raise ValueError(f"head dim {D} (at most {MAX_HEAD_DIM}, a multiple "
-                         f"of 4) or an empty axis in {tuple(q.shape)}")
+    path = route(q.dtype, D)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
+    if min(B, Hq, T, S) < 1:
+        raise ValueError(f"an empty axis in q {tuple(q.shape)} or k {tuple(k.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be at least 1, got {window}")
     if sm_scale is None:
@@ -157,6 +200,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int | None = N
     ptrs = [tensor_ptr(x, n, q.dtype, x.shape, dev)
             for x, n in ((q, "q"), (k, "k"), (v, "v"))]
     o = torch.empty_like(q)
+    if path == "tensor_cores" and any(p % 16 for p in ptrs):
+        raise ValueError("the tensor-core route needs q, k and v 16-byte aligned")
     lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=dev)
            if return_lse else None)
     lib = _library()
@@ -170,9 +215,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int | None = N
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     launches += 1
+    route_launches[path] += 1
     REGISTRY.inc("flash_attention.launches")
     return (o, lse) if return_lse else o
 
 
-__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_ref",
-           "launches"]
+__all__ = ["ROUTES", "flash_attention", "flash_attention_cuda", "flash_attention_ref",
+           "launches", "route", "route_launches", "smem_bytes"]

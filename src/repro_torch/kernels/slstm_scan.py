@@ -10,17 +10,21 @@ device:
   * CPU tensors go to :func:`slstm_scan_ref`, the plain PyTorch version,
     one step at a time;
   * CUDA tensors go to :func:`slstm_scan_cuda`, the hand-written Hopper
-    kernel ``csrc/slstm_scan.cu``, or raise.  Nothing falls back.
+    kernel ``csrc/slstm_scan.cu`` (one thread-block cluster per head, R
+    resident in the cluster's shared memory, :func:`cluster_plan`), or
+    raise.  Nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from ..obs.registry import REGISTRY
 from . import ref
-from ._build import tensor_ptr
+from ._build import SMEM_LIMIT, tensor_ptr
 
 #: Launches of the CUDA kernel (one per :func:`slstm_scan_cuda` call, which
 #: runs the whole sequence).  A plain integer, so a run can show that its
@@ -62,6 +66,56 @@ _R_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VECS = ("c0", "n0", "h0", "m0")
 _SEQS = ("hs", "cs", "ns", "ms")
 _FINAL = ("cf", "nf", "hf", "mf")
+CLUSTER_SIZES = (1, 2, 4, 8)
+#: Threads a CTA may have (``MAX_THREADS`` of the kernel: 128 registers each).
+MAX_THREADS = 512
+#: Fewest channels a CTA of a cluster of two or more owns.
+MIN_CHANNELS = 8
+
+
+@dataclass(frozen=True)
+class ClusterPlan:
+    """How ``csrc/slstm_scan.cu`` splits one head: a cluster of ``C`` CTAs,
+    CTA c owning channels [c E, (c + 1) E) of all four gates; ``KS`` groups
+    of E threads split the k-sum (``threads`` = E * KS); ``smem`` bytes of
+    shared memory a CTA (the kernel's ``Plan`` counts the same)."""
+
+    C: int
+    E: int
+    KS: int
+    threads: int
+    smem: int
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(x, 1).bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(B: int, hd: int, r_dtype: torch.dtype) -> ClusterPlan:
+    """The largest cluster of ``CLUSTER_SIZES`` that divides ``hd``, leaves
+    each CTA at least ``MIN_CHANNELS`` channels and fits its R slice (4 x
+    hd x E in R's dtype) and buffers in ``SMEM_LIMIT``; raises where none
+    does.  The largest, not the smallest that fits: each CTA's share of a
+    step's products (4 hd E B FMAs) sets the chain's pace, so spreading
+    them wins (at xlstm-125m's prefill, 3.62, 2.85 and 2.29 us a step at
+    C = 2, 4, 8 on an H100: ``scripts/kernel_variants.py``)."""
+    if r_dtype not in _R_DTYPES:
+        raise ValueError(f"R must be f32 or bf16, got {r_dtype}")
+    r_size = r_dtype.itemsize
+    Bp = -(-B // 4) * 4
+    for C in sorted(CLUSTER_SIZES, reverse=True):
+        E = hd // C
+        if hd % C or E > MAX_THREADS or (E < MIN_CHANNELS and C > 1):
+            continue
+        KS = min(_pow2_floor(MAX_THREADS // E), _pow2_floor(hd), 16)
+        r_bytes = -(-4 * hd * E * r_size // 16) * 16
+        floats = KS * B * 4 * E + 2 * hd * Bp + 2 * B * 4 * E + 3 * B * E
+        smem = r_bytes + 16 + 4 * floats  # + two mbarriers
+        if smem <= SMEM_LIMIT:
+            return ClusterPlan(C, E, KS, E * KS, smem)
+    raise ValueError(f"no cluster of {CLUSTER_SIZES} CTAs holds R (hd={hd}, "
+                     f"{r_dtype}) and the buffers of B={B} in {SMEM_LIMIT} B")
 
 
 class _SlstmArgs(ctypes.Structure):
@@ -72,23 +126,28 @@ class _SlstmArgs(ctypes.Structure):
                 + [(k, ctypes.c_int) for k in ("T", "H", "hd")])
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare ``slstm_scan_fwd``'s C signature on a built library."""
+    lib.slstm_scan_fwd.argtypes = ([ctypes.POINTER(_SlstmArgs)] + [ctypes.c_int] * 4
+                                   + [ctypes.c_void_p])
+    lib.slstm_scan_fwd.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     from . import _build
 
     lib = _build.load("slstm_scan")
-    if lib.slstm_scan_fwd.argtypes is None:
-        lib.slstm_scan_fwd.argtypes = [ctypes.POINTER(_SlstmArgs), ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_void_p]
-        lib.slstm_scan_fwd.restype = ctypes.c_int
-    return lib
+    return lib if lib.slstm_scan_fwd.argtypes is not None else bind(lib)
 
 
 def slstm_scan_cuda(r: dict, pre, carry0: tuple):
     """Launch ``csrc/slstm_scan.cu`` on the current stream: one launch runs
-    all T steps.  The four R matrices share one dtype, bf16 or f32, and are
-    made contiguous here; pre and the carry are f32.  4 * hd threads a
-    block, so hd is at most 256.  Raises for anything the kernel does not
-    take."""
+    all T steps, one cluster of :func:`cluster_plan`'s C CTAs per head with
+    R resident in their shared memory.  The four R matrices share one
+    dtype, bf16 or f32, and are made contiguous here; pre and the carry
+    are f32.  The four sequences and the final carry are views of one
+    allocation.  Raises for anything the kernel does not take."""
     global launches
     dev = pre.device
     if dev.type != "cuda":
@@ -98,30 +157,33 @@ def slstm_scan_cuda(r: dict, pre, carry0: tuple):
     B, T, _, d = pre.shape
     H, hd = r["i"].shape[:2]
     r_dtype = r["i"].dtype
-    if r_dtype not in _R_DTYPES or H * hd != d or hd > 256 or min(B, T) < 1:
+    if r_dtype not in _R_DTYPES or H * hd != d or min(B, T) < 1:
         raise ValueError(f"r {r_dtype} (H={H}, hd={hd}) against d={d}: R must be "
-                         "f32 or bf16 with H * hd == d and hd <= 256")
-    rs = [r[g].contiguous() for g in GATES]
+                         "f32 or bf16 with H * hd == d")
+    plan = cluster_plan(B, hd, r_dtype)
     f32 = torch.float32
-    ptr = {"pre": tensor_ptr(pre, "pre", f32, (B, T, 4, d), dev)}
+    rs = [r[g].contiguous() for g in GATES]  # alive until the launch
     r_ptrs = [tensor_ptr(x, f"r_{g}", r_dtype, (H, hd, hd), dev)
               for x, g in zip(rs, GATES)]
-    for name, x in zip(_VECS, carry0):
-        ptr[name] = tensor_ptr(x, name, f32, (B, d), dev)
-    out = {k: torch.empty((B, T, d), dtype=f32, device=dev) for k in _SEQS}
-    out.update({k: torch.empty((B, d), dtype=f32, device=dev) for k in _FINAL})
-    args = _SlstmArgs(r=(ctypes.c_void_p * 4)(*r_ptrs), T=T, H=H, hd=hd, **ptr,
-                      **{k: v.data_ptr() for k, v in out.items()})
+    ptrs = [tensor_ptr(pre, "pre", f32, (B, T, 4, d), dev)]
+    ptrs += [tensor_ptr(x, name, f32, (B, d), dev) for name, x in zip(_VECS, carry0)]
+    n_seq, n_vec = B * T * d, B * d
+    out = torch.empty(4 * (n_seq + n_vec), dtype=f32, device=dev)
+    base, size = out.data_ptr(), out.element_size()
+    ptrs += [base + size * n_seq * i for i in range(4)]
+    ptrs += [base + size * (4 * n_seq + n_vec * i) for i in range(4)]
+    args = _SlstmArgs((ctypes.c_void_p * 4)(*r_ptrs), *ptrs, T, H, hd)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _library().slstm_scan_fwd(ctypes.byref(args), _R_DTYPES[r_dtype], B,
-                                       ctypes.c_void_p(stream))
+                                       plan.C, plan.KS, stream)
     if rc != 0:
         raise RuntimeError(f"slstm_scan kernel launch failed: CUDA error {rc}")
     launches += 1
     REGISTRY.inc("slstm_scan.launches")
-    return (out["hs"], (out["cs"], out["ns"], out["ms"]),
-            (out["cf"], out["nf"], out["hf"], out["mf"]))
+    hs, cs, ns, ms = out[:4 * n_seq].view(4, B, T, d).unbind(0)
+    return hs, (cs, ns, ms), tuple(out[4 * n_seq:].view(4, B, d).unbind(0))
 
 
-__all__ = ["launches", "slstm_scan", "slstm_scan_cuda", "slstm_scan_ref"]
+__all__ = ["ClusterPlan", "cluster_plan", "launches", "slstm_scan", "slstm_scan_cuda",
+           "slstm_scan_ref"]

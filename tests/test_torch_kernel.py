@@ -122,8 +122,12 @@ def test_systolic_kernel_interior_tile(cuda, limit):
 
 @pytest.mark.parametrize("case", lm_checks.FLASH_CASES, ids=str)
 def test_flash_kernel_matches_plain_version(cuda, case):
-    """o within the stated tolerance (one bf16 ulp for bf16), lse in f32."""
+    """o within the stated tolerance (one bf16 ulp for bf16), lse in f32;
+    bf16 through the tensor-core route, f32 through the CUDA-core one."""
+    route = fa.route(case[8], case[5])
+    before = fa.route_launches[route]
     assert lm_checks.check_flash(case) >= 0.0
+    assert fa.route_launches[route] == before + 1
 
 
 @pytest.mark.parametrize("case", lm_checks.RGLRU_CASES, ids=str)

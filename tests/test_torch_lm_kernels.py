@@ -145,7 +145,11 @@ def test_rglru_shape_rule():
     (lm_checks.SLSTM_CASES[2], 128),
     (lm_checks.SLSTM_CASES[3], 128),   # T = 1, R in bf16
     (lm_checks.SLSTM_CASES[4], 32),    # R in bf16, as the model stores it
-    (lm_checks.SLSTM_CASES[5], 128)])  # T = 1 at xlstm-125m's width, hd = 192
+    (lm_checks.SLSTM_CASES[5], 128),   # T = 1 at xlstm-125m's width, hd = 192
+    (lm_checks.SLSTM_CASES[6], 128),   # xlstm-125m's width over 512 steps
+    (lm_checks.SLSTM_CASES[7], 64),    # its width with R in f32
+    (lm_checks.SLSTM_CASES[8], 64),    # one batch row
+    (lm_checks.SLSTM_CASES[9], 16)])   # five batch rows
 def test_slstm_plain_matches_pallas_and_oracle(case, bt):
     r, pre, carry0 = lm_checks.slstm_inputs(case, seed=case[1], device="cpu")
     jdt = jnp.bfloat16 if case[4] == torch.bfloat16 else jnp.float32
