@@ -810,6 +810,26 @@ def serve_full(arch: str, tag: str, modules: dict, expect: dict, captured: dict,
     return launches, routes
 
 
+def serve_batch(arch: str, tag: str, mod, batch: int) -> None:
+    """``serve`` through the entry point at ``batch`` rows and a short
+    prompt, outside the main path: every logit finite, tokens in range,
+    and the kernel of ``mod`` launched."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+
+    cfg = get_config(arch)
+    before = mod.launches
+    r = serve(arch, smoke=False, batch=batch, prompt_len=512, gen=4, seed=0,
+              verbose=False, device="cuda")
+    tok = r["tokens"]
+    if not r["finite"] or tok.shape != (batch, 4) or tok.min() < 0 or tok.max() >= cfg.vocab:
+        raise AssertionError(f"[{tag}] batch {batch}: tokens {tuple(tok.shape)}, "
+                             f"finite {r['finite']}")
+    log(f"[{tag}] {cfg.name} at batch {batch}, prompt 512, 4 tokens: every logit "
+        f"finite; {mod.launches - before} kernel launches; prefill "
+        f"{r['prefill_s']:.4f} s")
+
+
 LM_TRACE_NAMES = ("fa_fwd", "rglru_fwd", "slstm_fwd", "gemm", "nvjet")
 
 
@@ -1017,6 +1037,35 @@ def phase_xl_full(results: list) -> None:
     log(f"[xl-full] slstm_scan marginal step: {step_us:.3f} us ((T = {T} minus "
         f"T = {T // 2}) / {T - T // 2}); the chain floor at this step time: "
         f"{step_us * T / 1e3:.3f} ms")
+    # the cluster sizes cluster_plan passes over, on the same inputs
+    want = sl.slstm_scan_ref(r, pre, carry0)
+    for c in sorted(set(sl.CLUSTER_SIZES) - {plan.C}):
+        try:
+            p_c = sl.cluster_plan(B, hd, r["i"].dtype, sizes=(c,))
+        except ValueError as e:
+            log(f"[xl-full] slstm_scan with a cluster of {c}: no plan ({e})")
+            continue
+        run_c = lambda p_c=p_c: sl.slstm_scan_cuda(r, pre, carry0, plan=p_c)  # noqa: E731
+        err_c = lc.assert_close(run_c()[0], want[0], f"slstm_scan hs (C = {c})",
+                                rtol=1e-4, atol_rel=1e-4)
+        t_c = time_kernel("xl-full", f"slstm_scan (C = {c})", run_c, None, 5, 0)
+        log(f"[xl-full] slstm_scan with a cluster of {c} ({p_c.threads} threads, "
+            f"{p_c.smem} B a CTA): hs == plain version (max |diff| {err_c:.3e}); "
+            f"{t_c['ms'] / T * 1e3:.3f} us a step")
+    del want
+    # more batch rows than one cluster's buffers hold: groups of rows, each
+    # row's prompt a different shift of the served one
+    big = torch.cat([pre.roll(97 * j, dims=1) for j in range(8)])
+    carry_big = tuple(x.repeat(8, 1) for x in carry0)
+    p_big = sl.cluster_plan(big.shape[0], hd, r["i"].dtype)
+    err_big = lc.compare_slstm(r, big, carry_big)
+    t_big = time_kernel("xl-full", f"slstm_scan (B = {big.shape[0]})",
+                        lambda: sl.slstm_scan_cuda(r, big, carry_big), None, 5, 0)
+    log(f"[xl-full] slstm_scan at pre {tuple(big.shape)}: {p_big.groups} groups of "
+        f"{p_big.Bg} rows a head, clusters of {p_big.C}, {p_big.smem} B a CTA: "
+        f"kernel == plain version (max |diff| {err_big:.3e}); "
+        f"{t_big['ms'] / T * 1e3:.3f} us a step")
+    del big, carry_big
     results.append(dict(
         name="slstm_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/slstm_scan.cu",
@@ -1024,6 +1073,7 @@ def phase_xl_full(results: list) -> None:
         launches=launches["slstm_scan"], max_abs_err=max(err, err_dec), **times,
         bound_ms=bound_ms, bound_by=by))
     del r, pre, carry0
+    serve_batch("xlstm-125m", "xl-full", sl, 32)
     trace_serving("xlstm-125m", "xl-full")
 
 

@@ -39,8 +39,7 @@
 // whatever setmaxnreg asks, and the D = 256 instance spills and
 // serializes its wgmmas (1.09-1.17 ms at the served shape against 0.745
 // ms for this layout, whose 160 threads leave 255 registers a thread; it
-// uses 219 and spills nothing: scripts/kernel_variants.py on an H100 80GB
-// HBM3 at 700 W).  D must
+// uses 219 and spills nothing; both on an H100 80GB HBM3 at 700 W).  D must
 // be a multiple of 16 and at most 256; D is padded to whole 64-column
 // chunks by the TMA's zero fill.
 //
@@ -206,8 +205,9 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __
 
 int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
            int Hq, int Hkv, int Tq, int S, int D, int causal, int window, float scale,
-           cudaStream_t stream) {
+           size_t smem_plan, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
+  if (smem != smem_plan) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fa_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -651,12 +651,13 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int rows, int planes) {
 template <int NCH>
 int launch_tc(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Hq,
               int Hkv, int Tq, int S, int D, int causal, int window, float scale,
-              cudaStream_t stream) {
+              size_t smem_plan, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<NCH>();
+  if (smem != smem_plan) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, D, Tq, B * Hq) || !make_map(&mk, k, D, S, B * Hkv) ||
       !make_map(&mv, v, D, S, B * Hkv))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = tc_smem_bytes<NCH>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_fwd_tc<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -671,25 +672,30 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, void* lse, i
 
 // dtype 0: float32 (the CUDA-core kernel, D a multiple of 4), 1: bfloat16
 // (the tensor-core kernel, D a multiple of 16; q, k, v 16-byte aligned).
-// D <= 256.  lse may be null.  window <= 0: none.  Returns the cudaError_t
-// of the launch.
+// D <= 256.  lse may be null.  window <= 0: none.  smem: the bytes of
+// shared memory a CTA that the caller's plan (flash_attention.smem_bytes)
+// counts for the route.  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue where smem is not the route's own count).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int dtype, int B, int Hq,
                                    int Hkv, int T, int S, int D, int causal,
-                                   int window, float scale, void* stream) {
+                                   int window, float scale, size_t smem, void* stream) {
   if (D < 1 || D > MAX_D || Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (D % 4 != 0) return (int)cudaErrorInvalidValue;
-    return launch_f32(q, k, v, o, lse, B, Hq, Hkv, T, S, D, causal, window, scale, s);
+    return launch_f32(q, k, v, o, lse, B, Hq, Hkv, T, S, D, causal, window, scale, smem, s);
   }
   if (dtype != 1 || D % 16 != 0 ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   switch ((D + 63) / 64) {
-    case 1: return launch_tc<1>(q, k, v, o, lse, B, Hq, Hkv, T, S, D, causal, window, scale, s);
-    case 2: return launch_tc<2>(q, k, v, o, lse, B, Hq, Hkv, T, S, D, causal, window, scale, s);
-    case 3: return launch_tc<3>(q, k, v, o, lse, B, Hq, Hkv, T, S, D, causal, window, scale, s);
-    default: return launch_tc<4>(q, k, v, o, lse, B, Hq, Hkv, T, S, D, causal, window, scale, s);
+#define FA_TC(NCH) \
+  launch_tc<NCH>(q, k, v, o, lse, B, Hq, Hkv, T, S, D, causal, window, scale, smem, s)
+    case 1: return FA_TC(1);
+    case 2: return FA_TC(2);
+    case 3: return FA_TC(3);
+    default: return FA_TC(4);
+#undef FA_TC
   }
 }

@@ -24,8 +24,13 @@
 //
 // Design.  The TPU kernel's point is that R stays resident in fast memory
 // for the whole sequence.  One head's R (295 KB in bf16) is over an SM's
-// 227 KB, so one thread-block cluster of C CTAs serves one head and all B
-// batch rows: CTA c owns channels [c E, (c + 1) E), E = hd / C, of all
+// 227 KB, so one thread-block cluster of C CTAs serves one head and a group
+// of at most ROWS = 4 batch rows, the rows a thread's accumulators hold
+// (the served B = 4 is one group; B = 32 is eight clusters a head, which
+// run side by side: one cluster of 16 rows, four accumulator tiles a
+// thread, took 8.45 us a step against 2.27 at 4 rows on an H100 80GB HBM3
+// at 700 W):
+// CTA c owns channels [c E, (c + 1) E), E = hd / C, of all
 // four gates, and copies its slice of R_i, R_f, R_z, R_o (4 x hd x E, in
 // R's own dtype, the four gates of a channel side by side; widening bf16
 // at the read is exact) into shared memory once.  The time loop reads no
@@ -33,7 +38,7 @@
 // FMAs, ~1.4 instructions each with the loads and the bf16 widening) sets
 // the chain's pace, so the wrapper takes the largest cluster that divides
 // hd (cluster_plan: 8 at xlstm-125m, E = 24).  Each step:
-//   1. the pre-activations of the CTA's 4E columns for all B rows from
+//   1. the pre-activations of the CTA's 4E columns for its B rows from
 //      h_{t-1} (B x hd f32 in the CTA's own shared memory, laid out
 //      [k][b]) and the resident slice: thread (s, q) takes channel q's
 //      four gates for every row over k-slice s, and the KS partial sums
@@ -63,8 +68,9 @@
 // streamed from L2 every step, two block barriers a step) measured
 // 38.96-40.07 ms at the served prefill shape, 12.7-13.0 us a step, on an
 // H100 80GB HBM3 at 700 W.  This one takes 3.62, 2.85 and 2.29 us a step
-// at C = 2, 4, 8, and 4.25, 3.40 and 2.76 with a barrier.cluster a step in
-// place of the st.async exchange (scripts/kernel_variants.py).
+// there at C = 2, 4, 8 (chip_smoke.py's xl-full phase sweeps C), and a
+// build with a barrier.cluster a step in place of the st.async exchange
+// took 4.25, 3.40 and 2.76.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -93,20 +99,21 @@ namespace {
 
 constexpr int MAX_SMEM = 232448;  // bytes of shared memory a CTA may use
 constexpr int MAX_THREADS = 512;  // a CTA's threads: 128 registers each
+constexpr int ROWS = 4;           // most batch rows a cluster serves
+static_assert(ROWS == 4, "a thread reads the rows of h as one float4");
 
-__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
-
-// Shared-memory plan of one CTA: the R slice, two mbarriers, then f32
-// buffers (counted in floats); the wrapper's slstm_scan.cluster_plan counts
-// the same bytes.
+// Shared-memory plan of one CTA serving B <= ROWS batch rows: the R slice,
+// two mbarriers, then f32 buffers (counted in floats).  The wrapper's
+// slstm_scan.cluster_plan counts the same bytes and passes its count, which
+// the launch refuses unless it is this one.
 struct Plan {
-  int E, KS, Bp;
+  int E, KS;
   size_t r_bytes, part, hbuf, prebuf, carry;
   __host__ __device__ Plan(int B, int hd, int C, int KS_, int r_size)
-      : E(hd / C), KS(KS_), Bp(round4(B)) {
+      : E(hd / C), KS(KS_) {
     r_bytes = ((size_t)4 * hd * E * r_size + 15) & ~(size_t)15;
     part = (size_t)KS * B * 4 * E;  // partial sums [KS][B][E][4 gates]
-    hbuf = (size_t)2 * hd * Bp;     // h_{t-1} and h_t, [k][Bp] each
+    hbuf = (size_t)2 * hd * ROWS;   // h_{t-1} and h_t, [k][ROWS] each
     prebuf = (size_t)2 * B * 4 * E; // pre of two steps, [B][4][E] each
     carry = (size_t)3 * B * E;      // c, n, m [B][E]
   }
@@ -197,24 +204,36 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Cluster (head, g) of ceil(B_all / Bg) groups a head serves batch rows
+// [g Bg, min((g + 1) Bg, B_all)).
 template <typename R>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
-slstm_fwd(SlstmArgs args, int B, int C, int KS) {
+slstm_fwd(SlstmArgs args, int B_all, int Bg, int C, int KS) {
   extern __shared__ float4 smem4[];
   const int hd = args.hd, Tn = args.T, d = args.H * hd;
-  const Plan plan(B, hd, C, KS, (int)sizeof(R));
-  const int E = plan.E, Bp = plan.Bp, W = 4 * E;  // W: the CTA's columns
+  const Plan plan(Bg, hd, C, KS, (int)sizeof(R));
+  const int groups = (B_all + Bg - 1) / Bg, cluster = blockIdx.x / C;
+  const int head = cluster / groups, b_first = (cluster % groups) * Bg;
+  const int B = min(Bg, B_all - b_first);  // this cluster's batch rows
+  // the global tensors from this cluster's first row on
+  const size_t vec0 = (size_t)b_first * d, seq0 = vec0 * Tn;
+  const float *c0 = args.c0 + vec0, *n0 = args.n0 + vec0, *h0 = args.h0 + vec0,
+              *m0 = args.m0 + vec0;
+  float *hs = args.hs + seq0, *cs = args.cs + seq0, *ns = args.ns + seq0,
+        *ms = args.ms + seq0;
+  float *cf = args.cf + vec0, *nf = args.nf + vec0, *hf = args.hf + vec0,
+        *mf = args.mf + vec0;
+  const int E = plan.E, W = 4 * E;  // W: the CTA's columns
   char* base = reinterpret_cast<char*>(smem4);
   R* r_s = reinterpret_cast<R*>(base);            // [hd][E][4 gates]
   const uint32_t bars = smem_addr(base + plan.r_bytes);  // h buffer 0's, 1's
   float* part = reinterpret_cast<float*>(base + plan.r_bytes + 16);
-  float* hbuf = part + plan.part;      // 2 x [hd][Bp]
+  float* hbuf = part + plan.part;      // 2 x [hd][ROWS]
   float* prebuf = hbuf + plan.hbuf;    // 2 x [B][4][E]
   float* c_s = prebuf + plan.prebuf;   // [B][E]
   float* n_s = c_s + B * E;
   float* m_s = n_s + B * E;
 
-  const int head = blockIdx.x / C;
   const uint32_t rank = cluster_rank();
   const int col0 = head * hd + (int)rank * E;  // first channel of this CTA
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -227,16 +246,16 @@ slstm_fwd(SlstmArgs args, int B, int C, int KS) {
     r_s[i] = static_cast<const R*>(args.r[x])[((size_t)head * hd + k) * hd + rank * E + e];
   }
   // h_{-1} of the whole head into buffer 0, padding rows zero in both
-  for (int i = tid; i < 2 * hd * Bp; i += nthr) {
-    const int buf = i / (hd * Bp), kb = i - buf * hd * Bp, k = kb / Bp, b = kb - k * Bp;
-    hbuf[i] = (buf == 0 && b < B) ? args.h0[(size_t)b * d + head * hd + k] : 0.f;
+  for (int i = tid; i < 2 * hd * ROWS; i += nthr) {
+    const int buf = i / (hd * ROWS), kb = i - buf * hd * ROWS, k = kb / ROWS, b = kb % ROWS;
+    hbuf[i] = (buf == 0 && b < B) ? h0[(size_t)b * d + head * hd + k] : 0.f;
   }
   for (int i = tid; i < B * E; i += nthr) {
     const int b = i / E, e = i - b * E;
     const size_t v = (size_t)b * d + col0 + e;
-    c_s[i] = args.c0[v];
-    n_s[i] = args.n0[v];
-    m_s[i] = args.m0[v];
+    c_s[i] = c0[v];
+    n_s[i] = n0[v];
+    m_s[i] = m0[v];
   }
   if (tid == 0) {
     mbar_init(bars, 1);
@@ -258,43 +277,36 @@ slstm_fwd(SlstmArgs args, int B, int C, int KS) {
   const int j_lo = min(n_peer, s * kl_peer), j_hi = min(n_peer, (s + 1) * kl_peer);
   const int kb_lo = j_lo, kb_hi = min(j_hi, own);                         // below
   const int ka_lo = max(j_lo, own) + E, ka_hi = max(j_hi, own) + E;       // above
-  const float* pre_q = args.pre + col0 + q;
+  const float* pre_q = args.pre + seq0 * 4 + col0 + q;
   const R* rp = r_s + 4 * q;
   float4* part4 = reinterpret_cast<float4*>(part);  // [KS][B][E] x 4 gates
   auto prefetch = [&](float* buf, int t) {
     for (int r = s; r < 4 * B; r += KS)
       cp_async4(buf + r * E + q, pre_q + (((size_t)(r >> 2) * Tn + t) * 4 + (r & 3)) * d);
   };
-  // acc[bb][x] += sum over k in [k0, k1) of h[k][b0 + bb] R_x[k][q]
-  auto matvec = [&](float (&acc)[4][4], const float* h, int b0, int k0, int k1) {
+  // acc[b][x] += sum over k in [k0, k1) of h[k][b] R_x[k][q]
+  auto matvec = [&](float (&acc)[ROWS][4], const float* h, int k0, int k1) {
 #pragma unroll 4
     for (int k = k0; k < k1; ++k) {
       const float4 rv = load4(rp + (size_t)k * W);
-      const float4 hv = *reinterpret_cast<const float4*>(h + k * Bp + b0);
-      const float hb[4] = {hv.x, hv.y, hv.z, hv.w};
+      const float4 hv = *reinterpret_cast<const float4*>(h + k * ROWS);
+      const float hb[ROWS] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        acc[bb][0] = fmaf(hb[bb], rv.x, acc[bb][0]);
-        acc[bb][1] = fmaf(hb[bb], rv.y, acc[bb][1]);
-        acc[bb][2] = fmaf(hb[bb], rv.z, acc[bb][2]);
-        acc[bb][3] = fmaf(hb[bb], rv.w, acc[bb][3]);
+      for (int b = 0; b < ROWS; ++b) {
+        acc[b][0] = fmaf(hb[b], rv.x, acc[b][0]);
+        acc[b][1] = fmaf(hb[b], rv.y, acc[b][1]);
+        acc[b][2] = fmaf(hb[b], rv.z, acc[b][2]);
+        acc[b][3] = fmaf(hb[b], rv.w, acc[b][3]);
       }
     }
-  };
-  auto store_part = [&](const float (&acc)[4][4], int b0) {
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb)
-      if (b0 + bb < B)
-        part4[((size_t)s * B + b0 + bb) * E + q] =
-            make_float4(acc[bb][0], acc[bb][1], acc[bb][2], acc[bb][3]);
   };
   prefetch(prebuf, 0);
   cp_async_commit();
   cluster_sync();  // every CTA of the cluster runs, its barriers initialized
 
   for (int t = 0; t < Tn; ++t) {
-    const float* h_cur = hbuf + (t & 1) * hd * Bp;
-    float* h_next = hbuf + ((t + 1) & 1) * hd * Bp;
+    const float* h_cur = hbuf + (t & 1) * hd * ROWS;
+    float* h_next = hbuf + ((t + 1) & 1) * hd * ROWS;
     // h_next's barrier: its peers' slices of h_t land there (waited on in
     // step t + 1).  Its previous phase was waited on in step t - 1.
     const uint32_t bar_next = bars + 8 * ((t + 1) & 1);
@@ -306,36 +318,16 @@ slstm_fwd(SlstmArgs args, int B, int C, int KS) {
     // slices have landed, theirs
     const uint32_t bar_cur = bars + 8 * (t & 1);
     const uint32_t parity = ((t - 1) >> 1) & 1;
-    if (B <= 4) {
-      float acc[4][4] = {};
-      matvec(acc, h_cur, 0, ko_lo, ko_hi);
-      if (t > 0) mbar_wait(bar_cur, parity);
-      matvec(acc, h_cur, 0, kb_lo, kb_hi);
-      matvec(acc, h_cur, 0, ka_lo, ka_hi);
-      store_part(acc, 0);
-    } else {
-      for (int b0 = 0; b0 < B; b0 += 4) {
-        float acc[4][4] = {};
-        matvec(acc, h_cur, b0, ko_lo, ko_hi);
-        store_part(acc, b0);
-      }
-      if (t > 0) mbar_wait(bar_cur, parity);
-      for (int b0 = 0; b0 < B; b0 += 4) {
-        float acc[4][4];
+    float acc[ROWS][4] = {};
+    matvec(acc, h_cur, ko_lo, ko_hi);
+    if (t > 0) mbar_wait(bar_cur, parity);
+    matvec(acc, h_cur, kb_lo, kb_hi);
+    matvec(acc, h_cur, ka_lo, ka_hi);
 #pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          const float4 p = b0 + bb < B ? part4[((size_t)s * B + b0 + bb) * E + q]
-                                       : make_float4(0.f, 0.f, 0.f, 0.f);
-          acc[bb][0] = p.x;
-          acc[bb][1] = p.y;
-          acc[bb][2] = p.z;
-          acc[bb][3] = p.w;
-        }
-        matvec(acc, h_cur, b0, kb_lo, kb_hi);
-        matvec(acc, h_cur, b0, ka_lo, ka_hi);
-        store_part(acc, b0);
-      }
-    }
+    for (int b = 0; b < ROWS; ++b)
+      if (b < B)
+        part4[((size_t)s * B + b) * E + q] =
+            make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
     cp_async_wait1();  // this thread's copies of step t's pre have landed
     __syncthreads();   // ... and every thread's, and every partial sum
 
@@ -362,17 +354,17 @@ slstm_fwd(SlstmArgs args, int B, int C, int KS) {
       const float c = c_s[i] * fdec + idec * z;
       const float n = n_s[i] * fdec + idec;
       const float h = o * c / fmaxf(n, 1.f);
-      float* dst = h_next + (own + q) * Bp + b;
+      float* dst = h_next + (own + q) * ROWS + b;
       *dst = h;  // this CTA's copy; the peers' by st.async on their barriers
       for (int p = 1; p < C; ++p) st_async(smem_addr(dst), bar_next, (rank + p) % C, h);
       c_s[i] = c;
       n_s[i] = n;
       m_s[i] = m_new;
       const size_t seq = ((size_t)b * Tn + t) * d + col0 + q;
-      args.hs[seq] = h;
-      args.cs[seq] = c;
-      args.ns[seq] = n;
-      args.ms[seq] = m_new;
+      hs[seq] = h;
+      cs[seq] = c;
+      ns[seq] = n;
+      ms[seq] = m_new;
     }
     __syncthreads();  // own h_t, the partials and pre_t: the CTA is done with them
   }
@@ -380,30 +372,32 @@ slstm_fwd(SlstmArgs args, int B, int C, int KS) {
   // any more
   mbar_wait(bars + 8 * (Tn & 1), ((Tn - 1) >> 1) & 1);
 
-  const float* h_fin = hbuf + (Tn & 1) * hd * Bp;
+  const float* h_fin = hbuf + (Tn & 1) * hd * ROWS;
   for (int b = s; b < B; b += KS) {
     const int i = b * E + q;
     const size_t v = (size_t)b * d + col0 + q;
-    args.cf[v] = c_s[i];
-    args.nf[v] = n_s[i];
-    args.mf[v] = m_s[i];
-    args.hf[v] = h_fin[(own + q) * Bp + b];
+    cf[v] = c_s[i];
+    nf[v] = n_s[i];
+    mf[v] = m_s[i];
+    hf[v] = h_fin[(own + q) * ROWS + b];
   }
   cluster_sync();  // no CTA leaves while a peer may still address it
 }
 
 template <typename R>
-int launch(const SlstmArgs& args, int B, int C, int KS, cudaStream_t stream) {
-  const Plan plan(B, args.hd, C, KS, (int)sizeof(R));
+int launch(const SlstmArgs& args, int B, int Bg, int C, int KS, size_t smem_plan,
+           cudaStream_t stream) {
+  const Plan plan(Bg, args.hd, C, KS, (int)sizeof(R));
   const size_t smem = plan.bytes();
   const int threads = plan.E * KS;
-  if (smem > MAX_SMEM || threads > MAX_THREADS || threads < 1)
+  if (Bg > ROWS || smem != smem_plan || smem > MAX_SMEM || threads > MAX_THREADS ||
+      threads < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       slstm_fwd<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(args.H * C);
+  cfg.gridDim = dim3(args.H * ((B + Bg - 1) / Bg) * C);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -414,22 +408,25 @@ int launch(const SlstmArgs& args, int B, int C, int KS, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, slstm_fwd<R>, args, B, C, KS);
+  err = cudaLaunchKernelEx(&cfg, slstm_fwd<R>, args, B, Bg, C, KS);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// r_dtype 0: float32, 1: bfloat16.  One cluster of C CTAs per head, E * KS
-// threads a CTA (E = hd / C); slstm_scan.cluster_plan chooses C and KS.
-// Returns the cudaError_t of the launch.
-extern "C" int slstm_scan_fwd(const SlstmArgs* args, int r_dtype, int B, int C, int KS,
-                              void* stream) {
-  if (args->hd < 1 || B < 1 || C < 1 || C > 8 || args->hd % C != 0 || KS < 1)
+// r_dtype 0: float32, 1: bfloat16.  One cluster of C CTAs per head and
+// group of at most Bg <= 4 batch rows, E * KS threads a CTA (E = hd / C), smem
+// bytes of shared memory a CTA; slstm_scan.cluster_plan chooses them all.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue where smem
+// is not this file's Plan of them).
+extern "C" int slstm_scan_fwd(const SlstmArgs* args, int r_dtype, int B, int Bg, int C,
+                              int KS, size_t smem, void* stream) {
+  if (args->hd < 1 || B < 1 || Bg < 1 || Bg > B || C < 1 || C > 8 ||
+      args->hd % C != 0 || KS < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (r_dtype == 0) return launch<float>(*args, B, C, KS, s);
-  if (r_dtype == 1) return launch<__nv_bfloat16>(*args, B, C, KS, s);
+  if (r_dtype == 0) return launch<float>(*args, B, Bg, C, KS, smem, s);
+  if (r_dtype == 1) return launch<__nv_bfloat16>(*args, B, Bg, C, KS, smem, s);
   return (int)cudaErrorInvalidValue;
 }

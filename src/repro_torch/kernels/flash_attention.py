@@ -146,30 +146,28 @@ def route(dtype: torch.dtype, D: int) -> str:
 
 
 def smem_bytes(dtype: torch.dtype, D: int) -> int:
-    """Dynamic shared memory of one CTA of the route for (dtype, D), as the
-    launcher asks for it: the tensor-core route holds Q (64 rows) and two
-    stages of K and V (64 keys), each in whole 64-column chunks, plus 1 KB
-    of alignment and its barriers; the f32 route two 32-key tiles (rows
-    padded by 4 floats) and 32 query rows."""
+    """Dynamic shared memory of one CTA of the route for (dtype, D): the
+    tensor-core route holds Q (64 rows) and two stages of K and V (64
+    keys), each in whole 64-column chunks, plus 1 KB of alignment and its
+    barriers; the f32 route two 32-key tiles (rows padded by 4 floats) and
+    32 query rows.  The wrapper passes it to the launch, which refuses it
+    unless the kernel's own count agrees."""
     if route(dtype, D) == "tensor_cores":
         nch = -(-D // 64)
         return (nch + 2 * 2 * nch) * _CHUNK_BYTES + 1024 + 64
     return 4 * (2 * 32 * (D + 4) + 32 * D)
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare ``flash_attention_fwd``'s C signature on a built library."""
-    lib.flash_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-    lib.flash_attention_fwd.restype = ctypes.c_int
-    return lib
-
-
 def _library():
     from . import _build
 
     lib = _build.load("flash_attention")
-    return lib if lib.flash_attention_fwd.argtypes is not None else bind(lib)
+    if lib.flash_attention_fwd.argtypes is None:
+        lib.flash_attention_fwd.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_size_t, ctypes.c_void_p])
+        lib.flash_attention_fwd.restype = ctypes.c_int
+    return lib
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -211,7 +209,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int | None = N
             *ptrs, o.data_ptr(), 0 if lse is None else lse.data_ptr(),
             _DTYPES[q.dtype], B, Hq, Hkv, T, S, D, int(causal),
             0 if window is None else int(window), float(sm_scale),
-            ctypes.c_void_p(stream))
+            smem_bytes(q.dtype, D), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -10,9 +10,9 @@ device:
   * CPU tensors go to :func:`slstm_scan_ref`, the plain PyTorch version,
     one step at a time;
   * CUDA tensors go to :func:`slstm_scan_cuda`, the hand-written Hopper
-    kernel ``csrc/slstm_scan.cu`` (one thread-block cluster per head, R
-    resident in the cluster's shared memory, :func:`cluster_plan`), or
-    raise.  Nothing falls back.
+    kernel ``csrc/slstm_scan.cu`` (one thread-block cluster per head and
+    group of batch rows, R resident in the cluster's shared memory,
+    :func:`cluster_plan`), or raise.  Nothing falls back.
 """
 from __future__ import annotations
 
@@ -71,19 +71,27 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 MAX_THREADS = 512
 #: Fewest channels a CTA of a cluster of two or more owns.
 MIN_CHANNELS = 8
+#: Most batch rows a cluster serves (``ROWS`` of the kernel: the rows a
+#: thread's accumulators hold).
+MAX_ROWS = 4
 
 
 @dataclass(frozen=True)
 class ClusterPlan:
-    """How ``csrc/slstm_scan.cu`` splits one head: a cluster of ``C`` CTAs,
-    CTA c owning channels [c E, (c + 1) E) of all four gates; ``KS`` groups
-    of E threads split the k-sum (``threads`` = E * KS); ``smem`` bytes of
-    shared memory a CTA (the kernel's ``Plan`` counts the same)."""
+    """How ``csrc/slstm_scan.cu`` splits the work: ``groups`` clusters a
+    head, each of ``C`` CTAs serving at most ``Bg`` (<= ``MAX_ROWS``)
+    batch rows, CTA c
+    owning channels [c E, (c + 1) E) of all four gates; ``KS`` groups of E
+    threads split the k-sum (``threads`` = E * KS); ``smem`` bytes of
+    shared memory a CTA (the kernel's ``Plan`` counts the same, and its
+    launch refuses another count)."""
 
     C: int
     E: int
     KS: int
     threads: int
+    Bg: int
+    groups: int
     smem: int
 
 
@@ -92,30 +100,42 @@ def _pow2_floor(x: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def cluster_plan(B: int, hd: int, r_dtype: torch.dtype) -> ClusterPlan:
-    """The largest cluster of ``CLUSTER_SIZES`` that divides ``hd``, leaves
-    each CTA at least ``MIN_CHANNELS`` channels and fits its R slice (4 x
-    hd x E in R's dtype) and buffers in ``SMEM_LIMIT``; raises where none
-    does.  The largest, not the smallest that fits: each CTA's share of a
-    step's products (4 hd E B FMAs) sets the chain's pace, so spreading
-    them wins (at xlstm-125m's prefill, 3.62, 2.85 and 2.29 us a step at
-    C = 2, 4, 8 on an H100: ``scripts/kernel_variants.py``)."""
+def cluster_plan(B: int, hd: int, r_dtype: torch.dtype,
+                 sizes: tuple = CLUSTER_SIZES) -> ClusterPlan:
+    """The largest cluster of ``sizes`` that divides ``hd``, leaves each
+    CTA at least ``MIN_CHANNELS`` channels and fits its R slice (4 x hd x E
+    in R's dtype) and the buffers of one batch row in ``SMEM_LIMIT``;
+    raises where none does.  The largest, not the smallest that fits: each
+    CTA's share of a step's products (4 hd E B FMAs) sets the chain's
+    pace, so spreading them wins (at xlstm-125m's prefill, 3.62, 2.85 and
+    2.29 us a step at C = 2, 4, 8 on an H100: ``chip_smoke.py``'s xl-full
+    phase).  B is cut into the fewest groups of balanced size of at most
+    ``MAX_ROWS`` rows that fit, one cluster each (one at the served B = 4;
+    eight of 4 at B = 32)."""
     if r_dtype not in _R_DTYPES:
         raise ValueError(f"R must be f32 or bf16, got {r_dtype}")
+    if B < 1:
+        raise ValueError(f"B must be at least 1, got {B}")
     r_size = r_dtype.itemsize
-    Bp = -(-B // 4) * 4
-    for C in sorted(CLUSTER_SIZES, reverse=True):
+    for C in sorted(sizes, reverse=True):
         E = hd // C
         if hd % C or E > MAX_THREADS or (E < MIN_CHANNELS and C > 1):
             continue
         KS = min(_pow2_floor(MAX_THREADS // E), _pow2_floor(hd), 16)
         r_bytes = -(-4 * hd * E * r_size // 16) * 16
-        floats = KS * B * 4 * E + 2 * hd * Bp + 2 * B * 4 * E + 3 * B * E
-        smem = r_bytes + 16 + 4 * floats  # + two mbarriers
-        if smem <= SMEM_LIMIT:
-            return ClusterPlan(C, E, KS, E * KS, smem)
-    raise ValueError(f"no cluster of {CLUSTER_SIZES} CTAs holds R (hd={hd}, "
-                     f"{r_dtype}) and the buffers of B={B} in {SMEM_LIMIT} B")
+
+        def smem(Bg):  # + two mbarriers
+            floats = KS * Bg * 4 * E + 2 * hd * MAX_ROWS + 2 * Bg * 4 * E + 3 * Bg * E
+            return r_bytes + 16 + 4 * floats
+
+        most = next((bg for bg in range(min(B, MAX_ROWS), 0, -1)
+                     if smem(bg) <= SMEM_LIMIT), 0)
+        if most:
+            groups = -(-B // most)
+            Bg = -(-B // groups)
+            return ClusterPlan(C, E, KS, E * KS, Bg, groups, smem(Bg))
+    raise ValueError(f"no cluster of {tuple(sizes)} CTAs holds R (hd={hd}, "
+                     f"{r_dtype}) and the buffers of one batch row in {SMEM_LIMIT} B")
 
 
 class _SlstmArgs(ctypes.Structure):
@@ -126,28 +146,25 @@ class _SlstmArgs(ctypes.Structure):
                 + [(k, ctypes.c_int) for k in ("T", "H", "hd")])
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare ``slstm_scan_fwd``'s C signature on a built library."""
-    lib.slstm_scan_fwd.argtypes = ([ctypes.POINTER(_SlstmArgs)] + [ctypes.c_int] * 4
-                                   + [ctypes.c_void_p])
-    lib.slstm_scan_fwd.restype = ctypes.c_int
-    return lib
-
-
 def _library():
     from . import _build
 
     lib = _build.load("slstm_scan")
-    return lib if lib.slstm_scan_fwd.argtypes is not None else bind(lib)
+    if lib.slstm_scan_fwd.argtypes is None:
+        lib.slstm_scan_fwd.argtypes = ([ctypes.POINTER(_SlstmArgs)] + [ctypes.c_int] * 5
+                                       + [ctypes.c_size_t, ctypes.c_void_p])
+        lib.slstm_scan_fwd.restype = ctypes.c_int
+    return lib
 
 
-def slstm_scan_cuda(r: dict, pre, carry0: tuple):
+def slstm_scan_cuda(r: dict, pre, carry0: tuple, *, plan: ClusterPlan | None = None):
     """Launch ``csrc/slstm_scan.cu`` on the current stream: one launch runs
-    all T steps, one cluster of :func:`cluster_plan`'s C CTAs per head with
-    R resident in their shared memory.  The four R matrices share one
-    dtype, bf16 or f32, and are made contiguous here; pre and the carry
-    are f32.  The four sequences and the final carry are views of one
-    allocation.  Raises for anything the kernel does not take."""
+    all T steps, with ``plan`` (by default :func:`cluster_plan`'s): a
+    cluster of C CTAs per head and group of batch rows, R resident in
+    their shared memory.  The four R matrices share one dtype, bf16 or
+    f32, and are made contiguous here; pre and the carry are f32.  The
+    four sequences and the final carry are views of one allocation.
+    Raises for anything the kernel does not take."""
     global launches
     dev = pre.device
     if dev.type != "cuda":
@@ -160,7 +177,8 @@ def slstm_scan_cuda(r: dict, pre, carry0: tuple):
     if r_dtype not in _R_DTYPES or H * hd != d or min(B, T) < 1:
         raise ValueError(f"r {r_dtype} (H={H}, hd={hd}) against d={d}: R must be "
                          "f32 or bf16 with H * hd == d")
-    plan = cluster_plan(B, hd, r_dtype)
+    if plan is None:
+        plan = cluster_plan(B, hd, r_dtype)
     f32 = torch.float32
     rs = [r[g].contiguous() for g in GATES]  # alive until the launch
     r_ptrs = [tensor_ptr(x, f"r_{g}", r_dtype, (H, hd, hd), dev)
@@ -176,7 +194,7 @@ def slstm_scan_cuda(r: dict, pre, carry0: tuple):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _library().slstm_scan_fwd(ctypes.byref(args), _R_DTYPES[r_dtype], B,
-                                       plan.C, plan.KS, stream)
+                                       plan.Bg, plan.C, plan.KS, plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"slstm_scan kernel launch failed: CUDA error {rc}")
     launches += 1

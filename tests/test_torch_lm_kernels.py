@@ -149,7 +149,10 @@ def test_rglru_shape_rule():
     (lm_checks.SLSTM_CASES[6], 128),   # xlstm-125m's width over 512 steps
     (lm_checks.SLSTM_CASES[7], 64),    # its width with R in f32
     (lm_checks.SLSTM_CASES[8], 64),    # one batch row
-    (lm_checks.SLSTM_CASES[9], 16)])   # five batch rows
+    (lm_checks.SLSTM_CASES[9], 16),    # five batch rows
+    (lm_checks.SLSTM_CASES[10], 64),   # 32 batch rows at xlstm-125m's width
+    (lm_checks.SLSTM_CASES[11], 32),   # 23 batch rows from a zero carry
+    (lm_checks.SLSTM_CASES[12], 16)])  # 64 batch rows
 def test_slstm_plain_matches_pallas_and_oracle(case, bt):
     r, pre, carry0 = lm_checks.slstm_inputs(case, seed=case[1], device="cpu")
     jdt = jnp.bfloat16 if case[4] == torch.bfloat16 else jnp.float32
