@@ -34,7 +34,9 @@ Phases (a failing phase raises, and the script exits non-zero):
              capacity 62): one epoch bit-exact against the plain version on
              a CPU copy; the kernel's and the plain version's times per
              simulated cycle on the card (medians over whole epochs) beside
-             the memory bound counted from the run's tensors and data; then
+             the memory bound counted from the run's tensors and data
+             (``cycle_bytes``; also the earlier count, which read the
+             inverse maps too); then
              ``Simulation.run(until=allreduce_done)`` through the kernel,
              with the launch count set to 0 just before and read just
              after, and every core's total checked against the global sum
@@ -48,14 +50,20 @@ Phases (a failing phase raises, and the script exits non-zero):
              state leaf equal after every epoch to completion, at
              (M, R, C) = (12, 8, 8) and (33, 17, 23) one tile and
              (12, 8, 8) and (33, 18, 24) 2x2 tiles (17 x 23 does not split
-             into 2x2 tiles), K = 2, 7 and 16; and an interior tile fed
-             only through its slabs with emission limits below K.
+             into 2x2 tiles), K = 2, 7 and 16, each under the default plan
+             (the tile in one CTA) and with blocks below the tile, 3
+             cycles a launch; and an interior tile fed only through its
+             slabs with emission limits below K.
   5. sys-full  the full-width systolic matmul (1,048,576 cores, M = 1024,
              K = 62): set-up seconds; one mid-run epoch bit-exact against
-             the plain version on the card; the kernel's and the plain
-             version's times per simulated cycle (medians over whole
-             epochs) beside the memory bound counted from the run's
-             tensors; ``Simulation.run(until=every south cell collected M
+             the plain version on the card; the kernel's plan (block, k,
+             shared memory); for k = 1, 2, 4, 8 and 16, the kernel's call
+             bit-exact against the plain version's call on the next
+             epoch's input and its time per simulated cycle (medians over
+             whole epochs); the plain version's time; the bound of one
+             call (each input of the K-cycle call read once, each output
+             written once) beside the per-cycle streaming count of the
+             one-launch-a-cycle design; ``Simulation.run(until=every south cell collected M
              outputs)`` through the kernel with the launch count set to 0
              just before and read just after, Y held against the f64
              product under the rounding bound of in-order FMA sums,
@@ -221,7 +229,8 @@ def sends_x2(local) -> int:
     return int(local.block_states[0].fires.sum(dtype=torch.int64)) + held
 
 
-def cycle_bytes(local, consts, program, pushes: float) -> dict:
+def cycle_bytes(local, consts, program, pushes: float,
+                inverse_maps: bool = False) -> dict:
     """The least bytes one simulated cycle must move, each input read once
     and each output written once, counted from this run's tensors and data:
 
@@ -232,15 +241,16 @@ def cycle_bytes(local, consts, program, pushes: float) -> dict:
         and tail written;
       * the payload of each packet pushed (``pushes`` per cycle, counted in
         the timed window);
-      * the port and inverse tables, read;
+      * the port tables ``rx_idx`` and ``tx_idx``, read;
       * per epoch, amortized over its cycles: each exchange reads its tables
         and reads and writes its credits.  The packets an exchange moves
         between boundary rows are left out (``xchg_payload_max`` is the most
         they could add).
 
-    The per-cycle scratch that carries ``pay``/``val``/``rr`` from the step
-    launch to the commit launch is the kernel's, not the function's, and is
-    not counted."""
+    Tables derived from the port tables (the inverse maps, the consumer
+    table) are a kernel's choice, as scratch is, and are left out; with
+    ``inverse_maps`` the inverse maps are counted too, as the earlier
+    count of the two-launch design did."""
     def nb(x):
         return x.numel() * x.element_size()
 
@@ -254,9 +264,10 @@ def cycle_bytes(local, consts, program, pushes: float) -> dict:
     rows = q.head.numel() if q.buf.shape[0] > 1 else 0
     queues = rows * (2 * (q.head.element_size() + q.tail.element_size()) + word)
     packets = pushes * W * word
-    tables = (sum(nb(x) for x in consts.rx_idx) + sum(nb(x) for x in consts.tx_idx)
-              + nb(consts.inv_tx) + nb(consts.inv_tx_mask) + nb(consts.inv_rx)
-              + nb(consts.inv_rx_mask))
+    tables = sum(nb(x) for x in consts.rx_idx) + sum(nb(x) for x in consts.tx_idx)
+    if inverse_maps:
+        tables += (nb(consts.inv_tx) + nb(consts.inv_tx_mask) + nb(consts.inv_rx)
+                   + nb(consts.inv_rx_mask))
     n_cycles = sum(a for op, a in program if op == "C")
     xchg = xchg_payload = 0
     for op, t in program:
@@ -288,8 +299,8 @@ def time_reps(fn, reps: int) -> list:
     return [start.elapsed_time(stop) for start, stop in events]
 
 
-KERNEL_NAMES = ("manycore_step", "fused_commit", "exchange_drain",
-                "exchange_fill", "exchange_credit")
+KERNEL_NAMES = ("granule_cycle", "exchange_drain", "exchange_fill",
+                "exchange_credit")
 
 
 def traced_run(run, names=KERNEL_NAMES) -> dict:
@@ -390,6 +401,8 @@ def phase_full(result: dict) -> None:
     kern_ms, plain_ms = statistics.median(k_times), statistics.median(p_times)
     nbytes = cycle_bytes(local, consts, program, pushes)
     bound_ms = nbytes["per_cycle"] / HBM_BYTES_PER_S * 1e3
+    old_count = cycle_bytes(local, consts, program, pushes, inverse_maps=True)
+    old_ms = old_count["per_cycle"] / HBM_BYTES_PER_S * 1e3
     per_core = {k: nbytes[k] / (R * C) for k in
                 ("per_cycle", "block", "regs", "queues", "packets", "tables")}
     log(f"[full] per simulated cycle at {R * C} cores (median over {reps} "
@@ -403,6 +416,9 @@ def phase_full(result: dict) -> None:
         + f" ({pushes / (R * C):.4f} packets pushed a core and cycle); "
         f"exchange payloads left out, at most "
         f"{nbytes['xchg_payload_max'] / nbytes['per_cycle']:.2%} of the bound")
+    log(f"[full] the earlier count (the inverse maps counted too): "
+        f"{old_count['per_cycle'] / (R * C):.2f} B a core, {old_ms:.5f} ms a "
+        f"cycle, kernel at {kern_ms / old_ms:.2f}x it")
     del carry, ref_carry, local, start, plain, kern
 
     # the main path: Simulation.run(until=allreduce_done) through the kernel
@@ -466,6 +482,7 @@ def phase_full(result: dict) -> None:
 SYS_M = SYS_R = SYS_C = 1024  # the paper's grid; the full product Y = A @ B
 SYS_K = 62  # the paper's queue depth, the largest K of the JAX K-sweep
 SYS_SEED = 0
+SYS_SWEEP = (1, 2, 4, 8, 16)  # cycles a launch of systolic_step's sweep
 
 
 def sys_operands(M, R, C, seed):
@@ -487,6 +504,7 @@ def sys_graph(A, B):
 
 
 def phase_sys_small() -> None:
+    from repro_torch.kernels import systolic_step as sk
     from repro_torch.kernels.systolic_checks import (
         check_engine, check_interior_tile, check_mac)
 
@@ -499,11 +517,17 @@ def phase_sys_small() -> None:
     cases = [((12, 8, 8), (1, 1)), ((33, 17, 23), (1, 1)),
              ((12, 8, 8), (2, 2)), ((33, 18, 24), (2, 2))]
     for (M, R, C), tiles in cases:
+        Tr, Tc = R // tiles[0], C // tiles[1]
         for K in (2, 7, 16):
-            epochs, cycles = check_engine(M, R, C, K, tiles, M + R + C + K)
-            log(f"[sys-small] (M, R, C)={(M, R, C)} tiles={tiles} K={K}: "
-                f"{epochs} epochs ({cycles} cycles) bit-exact against the "
-                f"plain version; Y within the bound")
+            # the default plan (the tile in one CTA, one launch a call), and
+            # blocks below the tile with a halo, 3 cycles a launch
+            for plan in (None, sk.tile_plan(Tr, Tc, K, k=3,
+                                            block=(max(1, Tr // 3), max(1, Tc // 2)))):
+                epochs, cycles = check_engine(M, R, C, K, tiles, M + R + C + K, plan)
+                shown = plan or sk.tile_plan(Tr, Tc, K)
+                log(f"[sys-small] (M, R, C)={(M, R, C)} tiles={tiles} K={K}, blocks "
+                    f"{shown.block} k={shown.k}: {epochs} epochs ({cycles} cycles) "
+                    f"bit-exact against the plain version; Y within the bound")
 
     # an interior tile fed only through its slabs, limits below K
     emitted = check_interior_tile((3, 2))
@@ -513,8 +537,9 @@ def phase_sys_small() -> None:
 
 def sys_cycle_bytes(cell: dict, d_west_fires: int, d_collects: int,
                     n_cycles: int) -> dict:
-    """The least bytes one simulated cycle must move, each input read once
-    and each output written once, counted from this run's tensors and data:
+    """The per-cycle streaming count: the bytes one simulated cycle moves
+    when every leaf is read and written every cycle (the design of one
+    launch a cycle), counted from this run's tensors and data:
 
       * per cell read: ``b``, ``a_reg``, ``a_v``, ``p_reg``, ``p_v`` and the
         four flags; written: both registers and both valid flags;
@@ -540,6 +565,24 @@ def sys_cycle_bytes(cell: dict, d_west_fires: int, d_collects: int,
             "per_cycle": reads + writes + edges}
 
 
+def sys_call_bytes(cell: dict, d_west_fires: int, d_collects: int,
+                   n_calls: int) -> float:
+    """The least bytes one K-cycle call must move, each input of the call
+    read once and each output written once (the bound of a kernel that
+    keeps the cells on chip across cycles), from this run's tensors and
+    data: ``b``, the registers, valid flags and four flags of every cell
+    read and the registers and valid flags written; ``a_idx`` read and
+    written on the ``is_west`` cells and ``y_idx`` on the ``is_south``
+    cells; the ``a_buf`` elements the call streams and the ``y_buf``
+    elements it collects (counted over ``n_calls`` timed calls).  The
+    slabs are left out: with one tile nothing crosses them."""
+    c = sys_cycle_bytes(cell, 0, 0, 1)
+    idx = (int(cell["is_west"].sum()) * cell["a_idx"].element_size()
+           + int(cell["is_south"].sum()) * cell["y_idx"].element_size())
+    stream = (d_west_fires + d_collects) * cell["a_buf"].element_size() / n_calls
+    return c["reads"] + c["writes"] + 2 * idx + stream
+
+
 def phase_sys_full(result: dict) -> None:
     import gc
     import statistics
@@ -550,7 +593,8 @@ def phase_sys_full(result: dict) -> None:
     from repro_torch.core.fastgrid import RegisterGridEngine
     from repro_torch.hw.systolic import matmul_error_bound
     from repro_torch.kernels import systolic_step as sk
-    from repro_torch.kernels.systolic_checks import assert_states_equal, clone_state
+    from repro_torch.kernels.systolic_checks import (
+        assert_states_equal, check_call, clone_state)
 
     M, R, C, K = SYS_M, SYS_R, SYS_C, SYS_K
     t0 = time.perf_counter()
@@ -582,46 +626,65 @@ def phase_sys_full(result: dict) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # times per simulated cycle: kernel vs plain PyTorch, the median of each
-    # over whole epochs, continuing the run
-    st = kern
-    kstate = dict(st.cell, west_slab=st.west_slab, west_cnt=st.west_cnt,
-                  north_slab=st.north_slab, north_cnt=st.north_cnt,
-                  east_limit=torch.clamp(st.credit_e, max=K),
-                  south_limit=torch.clamp(st.credit_s, max=K))
+    # the plan, and each k of the sweep: bit-exact against the plain
+    # version's call on this epoch's input, then timed per simulated cycle
+    # (the median over whole epochs, continuing the run from here)
+    Tr, Tc = eng.Tr, eng.Tc
+    plan0 = sk.tile_plan(Tr, Tc, K)
+    log(f"[sys-full] plan: blocks of {plan0.block[0]}x{plan0.block[1]} cells, "
+        f"k = {plan0.k} cycles a launch, {plan0.smem} B of shared memory a CTA, "
+        f"{plan0.launches} launches a call of {K} cycles")
+    inp = eng.step_input(kern)
+    del kern
+    want = sk.systolic_step_ref(inp, K)
     n_before = sk.launches
-
-    def kernel():  # each epoch continues from the last one's results
-        out = sk.systolic_step_cuda(kstate, K)
-        kstate.update({k: out[k] for k in sk.CELL_OUT})
-
-    kernel()  # warm-up
-    torch.cuda.synchronize()
     reps = 10
-    total = lambda k: int(kstate[k].sum(dtype=torch.int64))  # noqa: E731
-    a0, y0 = total("a_idx"), total("y_idx")
-    k_times = [t / K for t in time_reps(kernel, reps)]
-    d_fires, d_collects = total("a_idx") - a0, total("y_idx") - y0
-    sk.launches = n_before  # timing launches are not the main path
+    total = lambda st, k: int(st[k].sum(dtype=torch.int64))  # noqa: E731
+    sweep = {}
+    for plan in (sk.tile_plan(Tr, Tc, K, k=k) for k in SYS_SWEEP):
+        check_call(inp, K, plan, want)
+        kstate = {key: v if key == "a_buf" else v.clone() for key, v in inp.items()}
+
+        def kernel(plan=plan, kstate=kstate):  # each epoch continues the last
+            out = sk.systolic_step_cuda(kstate, K, plan)
+            kstate.update({key: out[key] for key in sk.CELL_OUT})
+
+        kernel()  # warm-up
+        torch.cuda.synchronize()
+        a0, y0 = total(kstate, "a_idx"), total(kstate, "y_idx")
+        times = [t / K for t in time_reps(kernel, reps)]
+        sweep[plan.k] = (plan, times, total(kstate, "a_idx") - a0,
+                    total(kstate, "y_idx") - y0)
+        log(f"[sys-full] k = {plan.k}: blocks {plan.block[0]}x{plan.block[1]}, "
+            f"{plan.smem} B a CTA, {plan.launches} launches a call; bit-exact "
+            f"against the plain version's call; median {statistics.median(times):.5f} "
+            f"ms a cycle ({min(times):.5f}-{max(times):.5f}, {reps} calls)")
+        del kstate
+    sk.launches = n_before  # checking and timing launches are not the main path
+    del want
+    _, k_times, d_fires, d_collects = sweep[plan0.k]
     plain_reps = 3
-    sk.systolic_step_ref(kstate, K)  # warm-up
-    p_times = [t / K for t in time_reps(lambda: sk.systolic_step_ref(kstate, K),
+    sk.systolic_step_ref(inp, K)  # warm-up
+    p_times = [t / K for t in time_reps(lambda: sk.systolic_step_ref(inp, K),
                                         plain_reps)]
     kern_ms, plain_ms = statistics.median(k_times), statistics.median(p_times)
-    nbytes = sys_cycle_bytes(kstate, d_fires, d_collects, reps * K)
-    bound_ms = nbytes["per_cycle"] / HBM_BYTES_PER_S * 1e3
-    log(f"[sys-full] per simulated cycle at {R * C} cores (median over {reps} "
-        f"kernel and {plain_reps} plain epochs of {K} cycles): kernel "
+    stream = sys_cycle_bytes(inp, d_fires, d_collects, reps * K)
+    stream_ms = stream["per_cycle"] / HBM_BYTES_PER_S * 1e3
+    call = sys_call_bytes(inp, d_fires, d_collects, reps)
+    bound_ms = call / K / HBM_BYTES_PER_S * 1e3
+    log(f"[sys-full] per simulated cycle at {R * C} cores (k = {plan0.k}, median "
+        f"over {reps} kernel and {plain_reps} plain epochs of {K} cycles): kernel "
         f"{kern_ms:.5f} ms ({min(k_times):.5f}-{max(k_times):.5f}), plain "
         f"PyTorch on the card {plain_ms:.4f} ms ({min(p_times):.4f}-"
-        f"{max(p_times):.4f}), {plain_ms / kern_ms:.1f}x the kernel; memory "
-        f"bound {bound_ms:.5f} ms, kernel at {kern_ms / bound_ms:.2f}x it")
-    log("[sys-full] bound per core and cycle: " + ", ".join(
-        f"{k} {nbytes[k] / (R * C):.3f} B" for k in ("per_cycle", "reads",
-                                                      "writes", "edges"))
-        + f" ({d_fires} stream reads and {d_collects} collects in "
-        f"{reps * K} timed cycles)")
-    del st, kern, kstate
+        f"{max(p_times):.4f}), {plain_ms / kern_ms:.1f}x the kernel")
+    log(f"[sys-full] bound of one call (each input of the {K}-cycle call read "
+        f"once, each output written once): {call / (R * C):.3f} B a core a call, "
+        f"{bound_ms:.6f} ms a cycle, kernel at {kern_ms / bound_ms:.1f}x it; the "
+        f"per-cycle streaming count (every leaf read and written every cycle): "
+        f"{stream['per_cycle'] / (R * C):.3f} B a core a cycle, {stream_ms:.5f} ms, "
+        f"kernel at {kern_ms / stream_ms:.2f}x it ({d_fires} stream reads and "
+        f"{d_collects} collects in {reps * K} timed cycles)")
+    del inp
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -658,7 +721,7 @@ def phase_sys_full(result: dict) -> None:
     # the same until-run again under the profiler
     sim.reset()
     sim.block_until_ready()
-    trace = traced_run(lambda: sim.run(until=eng.y_done), ("systolic_cycle",))
+    trace = traced_run(lambda: sim.run(until=eng.y_done), ("systolic_window",))
     sk.launches = launches
     if sim.cycle != cycles:
         raise AssertionError(f"the traced run stopped at cycle {sim.cycle}, "

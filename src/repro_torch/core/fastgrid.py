@@ -247,6 +247,18 @@ class RegisterGridEngine:
         return self.K
 
     # ----------------------------------------------------------------- epoch
+    def step_input(self, st: RegGridState) -> dict:
+        """The dict an epoch's ``systolic_step`` call takes: the cells, the
+        ingress slabs, and emission limits of the credits capped at K."""
+        K = self.K
+        return dict(
+            st.cell,
+            west_slab=st.west_slab, west_cnt=st.west_cnt,
+            north_slab=st.north_slab, north_cnt=st.north_cnt,
+            east_limit=torch.clamp(st.credit_e, max=K),
+            south_limit=torch.clamp(st.credit_s, max=K),
+        )
+
     def _epoch(self, st: RegGridState,
                step: Callable | None = None) -> RegGridState:
         """One epoch of every tile: ``step`` (``systolic_step`` unless a
@@ -255,15 +267,7 @@ class RegisterGridEngine:
         credits).  On a CUDA state the kernel updates the cell tensors in
         place."""
         step = sk.systolic_step if step is None else step
-        K = self.K
-        kstate = dict(
-            st.cell,
-            west_slab=st.west_slab, west_cnt=st.west_cnt,
-            north_slab=st.north_slab, north_cnt=st.north_cnt,
-            east_limit=torch.clamp(st.credit_e, max=K),
-            south_limit=torch.clamp(st.credit_s, max=K),
-        )
-        out = step(kstate, K)
+        out = step(self.step_input(st), self.K)
 
         # emission was credit-bounded inside the kernel; send everything
         slab_e_in = _shift(out["east_slab"], 1, +1)
@@ -285,7 +289,7 @@ class RegisterGridEngine:
             west_slab=west_slab, west_cnt=west_cnt,
             north_slab=north_slab, north_cnt=north_cnt,
             credit_e=credit_e, credit_s=credit_s,
-            cycle=st.cycle + K, epoch=st.epoch + 1,
+            cycle=st.cycle + self.K, epoch=st.epoch + 1,
         )
 
     # ------------------------------------------------------------------- run

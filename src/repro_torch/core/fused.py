@@ -113,6 +113,7 @@ class FusedEngine(GraphEngine):
         self._build_fused_tables()
         self._build_flat_tables()
         self._program_cache: dict[int, tuple] = {}
+        self._cons_cache: dict[torch.device, torch.Tensor] = {}
 
     # ------------------------------------------------- host-side lowering
     def _build_fused_tables(self) -> None:
@@ -502,6 +503,19 @@ class FusedEngine(GraphEngine):
             self._program_cache[t0] = program
         return self._program_cache[t0]
 
+    def _cons_table(self, dev: torch.device) -> torch.Tensor | None:
+        """The CUDA program's consumer table (``granule_step.consumer_table``),
+        derived once per device; None where the kernel does not run (the
+        CPU, or more than one group)."""
+        if dev.type != "cuda" or len(self.graph.groups) != 1:
+            return None
+        if dev not in self._cons_cache:
+            self._cons_cache[dev] = torch.as_tensor(granule_step.consumer_table(
+                self._tx_flat[0], self._inv_tx_flat, self._inv_tx_mask_flat,
+                self._inv_rx_flat, self._inv_rx_mask_flat, self.B * self.n_reg,
+            ), device=dev)
+        return self._cons_cache[dev]
+
     def _consts(self, tb: FusedTables) -> granule_step.ProgramConsts:
         """The read-only tables of the resident program (local view)."""
         return granule_step.ProgramConsts(
@@ -511,6 +525,7 @@ class FusedEngine(GraphEngine):
             send_idx=tb.send_idx, send_mask=tb.send_mask,
             recv_idx=tb.recv_idx, recv_mask=tb.recv_mask,
             bat_fwd=tb.bat_fwd, bat_rev=tb.bat_rev,
+            cons=self._cons_table(tb.inv_tx.device),
             blocks=tuple(g.block for g in self.graph.groups),
             depths=self.E_tiers, n_q=self.n_q,
         )

@@ -9,17 +9,24 @@
 // What it computes: one call of granule_program() walks an op program on
 // the flat batched layout of repro_torch.core.fused (all B batch rows in
 // each launch) on the caller's stream:
-//   ("C", n)  n cycles; each cycle is two launches —
-//             step:   one thread per flat block slot: pre-cycle fronts,
-//                     valids and readies through rx_idx/tx_idx, the
-//                     ManycoreCell step, the new block state in place, and
-//                     pay/val/rr to scratch;
-//             commit: one thread per combined channel id: the depth-1
-//                     register commit and the ring handshake of the
-//                     boundary queues through inv_tx/inv_rx; thread 0
-//                     advances the shared cycle counter.
-//             The launch boundary is the barrier between the pre-cycle
-//             snapshot and the commit.
+//   ("C", n)  n cycles, ONE launch each (granule_cycle): one thread per
+//             flat block slot reads the slot's pre-cycle inputs, runs the
+//             ManycoreCell step and commits everything the slot owns:
+//               * each register it produces: the push is its own valid &&
+//                 the register was empty before the cycle (the payload
+//                 goes straight into reg_val); the pop is the consumer's
+//                 readiness, recomputed here from the consumer's pre-cycle
+//                 state through the consumer table `cons` (ManycoreCell:
+//                 en && may_accept && the port matches its phase, which
+//                 needs the consumer's phase, sent, rcvd, fwd_v and the
+//                 readiness of the consumer's own active output channel);
+//               * each boundary or external queue row it touches: an
+//                 egress row is pushed by its producer (head), an ingress
+//                 row popped by its consumer (tail); the other end of a
+//                 row moves only in the exchange launches (the wrapper
+//                 checks that every row has at most one local side).
+//             No payload, valid or ready goes through device memory
+//             between threads.
 //   ("X", t)  tier t's exchange: drain, move-and-fill, credit return —
 //             three launches over (batch row, slot).
 //   ("XI", t) / ("XC", t)  the issue (drain) and commit (move-and-fill,
@@ -27,19 +34,30 @@
 // Ops run in program order, so the result is bit-identical to the plain
 // PyTorch version (repro_torch.kernels.granule_step.epoch_program_ref).
 //
-// What bounds it: device memory.  At 1M cores a cycle must read 29 B and
-// write 25 B of block state a core (value is never touched; own and total
-// change only at the two phase ends), read each register's valid flag and
-// payload word 0 and write its flag (~12 B a core), write the payload of
-// each packet pushed (~4 B a core), and read the port and inverse tables
-// (~36 B a core): ~110 MB per cycle, far over the 50 MB L2, against ~100
-// integer and select operations a core.  The
-// TPU kernel kept the whole granule in VMEM; one Hopper SM has 227 KB of
-// shared memory and a 256x512 granule's state is several MB, so this
-// design streams the state through device memory every cycle with
-// coalesced per-slot and per-channel accesses and no atomics.  Keeping
-// state on chip across cycles (a persistent kernel over tiles with halo
-// exchange) is later work.
+// The pre-cycle snapshot, by parity: every leaf that another thread reads
+// within a cycle — phase, sent, rcvd, fwd_v, reg_v and the queue heads —
+// is read from buffer s = cycle parity and written to buffer s ^ 1 (every
+// cycle, also where it does not change).  reg_val needs no second buffer:
+// a producer writes a register only when it was empty before the cycle,
+// and a consumer reads it only when it was full.  Leaves only their owner
+// touches (acc, fwd, own, total, fires, the queue tails) stay in place.
+// The cycle counter is read as base + offset (the offset is a launch
+// argument) and advanced once at the end of the program; after an odd
+// number of cycles the buffer-1 leaves are copied back, so the results
+// are always in the carry's own tensors.
+//
+// What bounds it now: device memory.  A cycle reads ~29 B of block state a
+// slot and writes ~25 B, reads the port tables (16 B) and the consumer
+// table (8 B), the register flags on the slot's ports and, through the
+// consumer table, its neighbours' pre-cycle state (mostly from L1/L2: the
+// east neighbour is the next slot), and writes the payload of each push:
+// ~80-90 B a core against ~100 integer operations.  The first design
+// (two launches a cycle: a step that wrote pay/val/rr for both output
+// ports to scratch, and a commit over the channels through the inverse
+// maps) moved ~160 B a core and ran at 0.0744-0.0758 ms a cycle at 1M
+// cores on an H100 80GB HBM3 at 700 W (42.8 us step, 27.9 us commit); this
+// design drops the scratch round trip, the inverse maps and the second
+// launch.
 //
 // Exactness: every value is an exact integer in f32 and the only float
 // arithmetic is one add per accepted packet (no multiply, so no FMA
@@ -47,40 +65,35 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Field order must match repro_torch.kernels.granule_step._ProgramArgs.
 struct ProgramArgs {
   // register file (flat: row b's registers at b*n_reg_row + c)
   float* reg_val;        // (n_reg, W)
-  uint8_t* reg_v;        // (n_reg,)
+  uint8_t* reg_v[2];     // (n_reg,), by cycle parity
   // boundary queues (flat rows b*n_q_row + k)
   float* q_buf;          // (n_qrows, cap, W)
-  int32_t* q_head;       // (n_qrows,)
+  int32_t* q_head[2];    // (n_qrows,), by cycle parity
   int32_t* q_tail;       // (n_qrows,)
-  // ManycoreCell state leaves, (n_slot,) each, CoreState field order
-  float* value;
+  // ManycoreCell state leaves, (n_slot,) each; `value` is never touched
   float* own;
   float* acc;
   float* total;
-  int32_t* phase;
-  int32_t* sent;
-  int32_t* rcvd;
+  int32_t* phase[2];     // by cycle parity
+  int32_t* sent[2];
+  int32_t* rcvd[2];
   float* fwd;
-  uint8_t* fwd_v;
+  uint8_t* fwd_v[2];
   int32_t* fires;
   // port tables in combined ids: [0, n_reg) registers, then queue rows
-  const int32_t* rx_idx;       // (n_slot, 2)
-  const int32_t* tx_idx;       // (n_slot, 2)
-  const int32_t* inv_tx;       // (n_reg + n_qrows_all,)
-  const uint8_t* inv_tx_mask;
-  const int32_t* inv_rx;
-  const uint8_t* inv_rx_mask;
-  // per-cycle scratch
-  float* pay;            // (n_slot * 2, W) producer payloads
-  uint8_t* val;          // (n_slot * 2,) producer valids
-  uint8_t* rr;           // (n_slot * 2,) consumer readies
-  int32_t* cycle;        // () shared cycle counter (rows run in lockstep)
+  const int32_t* rx_idx;  // (n_slot, 2)
+  const int32_t* tx_idx;  // (n_slot, 2)
+  // consumer of each output port: slot * 2 + port, -1 for none (a queue
+  // row), -2 where the port drives no channel (a sentinel)
+  const int32_t* cons;    // (n_slot, 2)
+  int32_t* cycle;         // () cycle counter at the program's start
   int32_t n_reg;
-  int32_t n_qrows;       // queue rows in the carry (1 when have_q == 0)
-  int32_t n_q_row;       // queue rows per batch row
+  int32_t n_qrows;        // queue rows in the carry (1 when have_q == 0)
+  int32_t n_q_row;        // queue rows per batch row
   int32_t cap;
   int32_t have_q;
   int32_t n_slot;
@@ -114,54 +127,69 @@ __device__ __forceinline__ int ring(int x, int cap) {
   return r < 0 ? r + cap : r;
 }
 
-__device__ __forceinline__ int qsize(const ProgramArgs& a, int k) {
-  return ring(a.q_head[k] - a.q_tail[k], a.cap);
+// Pre-cycle readiness of output channel c (a register or an egress row,
+// whose tail moves only in the exchanges).
+__device__ __forceinline__ bool chan_ready(const ProgramArgs& a, int s, int c) {
+  if (c < a.n_reg) return a.reg_v[s][c] == 0;
+  const int k = c - a.n_reg;
+  return ring(a.q_head[s][k] - a.q_tail[k], a.cap) < a.cap - 1;
 }
 
-// Pre-cycle view of combined channel c: front word 0 and valid.
-__device__ __forceinline__ void chan_front(const ProgramArgs& a, int c,
-                                           float* word0, bool* valid) {
-  if (c < a.n_reg) {
-    *word0 = a.reg_val[(int64_t)c * a.W];
-    *valid = a.reg_v[c] != 0;
-  } else {
-    int k = c - a.n_reg;
-    int64_t slot = (int64_t)k * a.cap + a.q_tail[k];
-    *word0 = a.q_buf[slot * a.W];
-    *valid = a.q_head[k] != a.q_tail[k];
-  }
+// ManycoreCell's readiness on in port pj of slot j this cycle, from j's
+// pre-cycle state (the caller ANDs the clock enable): may_accept && the
+// port is the one of j's phase.
+__device__ __forceinline__ bool consumer_ready(const ProgramArgs& a, int s,
+                                               int j, int pj) {
+  const int phase = a.phase[s][j];
+  const bool in_row = phase == 0;
+  if (phase >= 2 || (pj == 0) != in_row) return false;
+  const int rcvd = a.rcvd[s][j];
+  const int need = in_row ? a.C - 1 : a.R - 1;
+  if (rcvd >= need) return false;
+  if (rcvd >= need - 1 || a.fwd_v[s][j] == 0) return true;  // !will_fwd || !fwd_v
+  // the forward register is busy: j accepts only if it frees it by
+  // sending a forward this cycle (can_send with fwd_v set, sent > 0)
+  const int sent = a.sent[s][j];
+  if (sent <= 0 || sent >= need) return false;
+  return chan_ready(a, s, a.tx_idx[2 * j + (in_row ? 0 : 1)]);
 }
 
-__device__ __forceinline__ bool chan_ready(const ProgramArgs& a, int c) {
-  if (c < a.n_reg) return a.reg_v[c] == 0;
-  return qsize(a, c - a.n_reg) < a.cap - 1;
-}
-
-// ManycoreCell.step (repro_torch/hw/manycore.py) for slot i.
-__global__ void manycore_step(ProgramArgs a) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+// One cycle of every slot: ManycoreCell.step (repro_torch/hw/manycore.py)
+// and the commit of every channel end the slot owns.
+__global__ void __launch_bounds__(kThreads)
+granule_cycle(const ProgramArgs a, const int s, const int off) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n_slot) return;
-  const bool en = (a.cycle[0] % a.divider) == 0;
+  const int d = s ^ 1;
+  const bool en = a.divider == 1 || ((a.cycle[0] + off) % a.divider) == 0;
 
-  float w0, n0;
-  bool wv, nv;
-  chan_front(a, a.rx_idx[2 * i], &w0, &wv);
-  chan_front(a, a.rx_idx[2 * i + 1], &n0, &nv);
-  const bool e_rdy = chan_ready(a, a.tx_idx[2 * i]);
-  const bool s_rdy = chan_ready(a, a.tx_idx[2 * i + 1]);
-
-  const int phase = a.phase[i], sent = a.sent[i], rcvd = a.rcvd[i];
-  const float own = a.own[i], acc = a.acc[i], fwd = a.fwd[i];
-  const bool fwd_v = a.fwd_v[i] != 0;
+  const int2 rx = reinterpret_cast<const int2*>(a.rx_idx)[i];
+  const int2 tx = reinterpret_cast<const int2*>(a.tx_idx)[i];
+  const int2 cn = reinterpret_cast<const int2*>(a.cons)[i];
+  const int phase = a.phase[s][i], sent = a.sent[s][i], rcvd = a.rcvd[s][i];
+  const bool fwd_v = a.fwd_v[s][i] != 0;
 
   const bool in_row = phase == 0;
   const bool live = phase < 2;
   const int need = in_row ? a.C - 1 : a.R - 1;
-  const float in_val = in_row ? w0 : n0;
-  const bool in_valid = live && (in_row ? wv : nv);
-  const bool out_ready = in_row ? e_rdy : s_rdy;
 
-  const float out_val = sent == 0 ? own : fwd;
+  // the active in port's pre-cycle front and valid (queue rows: ingress
+  // or external-in, whose head this thread also carries to buffer d)
+  const int c_in = in_row ? rx.x : rx.y;
+  bool in_valid_raw;
+  float in_val = 0.0f;
+  if (c_in < a.n_reg) {
+    in_valid_raw = a.reg_v[s][c_in] != 0;
+    if (in_valid_raw) in_val = a.reg_val[(int64_t)c_in * a.W];
+  } else {
+    const int k = c_in - a.n_reg;
+    const int t = a.q_tail[k];
+    in_valid_raw = a.q_head[s][k] != t;
+    if (in_valid_raw) in_val = a.q_buf[((int64_t)k * a.cap + t) * a.W];
+  }
+  const bool out_ready = chan_ready(a, s, in_row ? tx.x : tx.y);
+  const bool in_valid = live && in_valid_raw;
+
   const bool can_send = live && sent < need && (sent == 0 || fwd_v);
   const bool did_send = can_send && out_ready;
   const bool fwd_freed = did_send && sent > 0;
@@ -170,83 +198,85 @@ __global__ void manycore_step(ProgramArgs a) {
   const bool may_accept = live && rcvd < need && (!will_fwd || !fwd_v || fwd_freed);
   const bool accept = may_accept && in_valid;
 
+  // ---- in ports: pop the active ingress row; carry every row's head
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int c = p == 0 ? rx.x : rx.y;
+    if (c < a.n_reg) continue;
+    const int k = c - a.n_reg;
+    a.q_head[d][k] = a.q_head[s][k];
+    if (c == c_in && en && may_accept && in_valid_raw)
+      a.q_tail[k] = ring(a.q_tail[k] + 1, a.cap);
+  }
+
+  // ---- out ports: payload [out_val, sent] on the port of the phase
+  const float out_val = did_send ? (sent == 0 ? a.own[i] : a.fwd[i]) : 0.0f;
+  const float tag = (float)sent;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int c = p == 0 ? tx.x : tx.y;
+    const int cons = p == 0 ? cn.x : cn.y;
+    if (cons == -2) continue;
+    const bool val = en && did_send && (p == 0 ? in_row : !in_row);
+    if (c < a.n_reg) {
+      const bool v = a.reg_v[s][c] != 0;
+      const bool push = val && !v;
+      const bool pop = v && en && cons >= 0 && consumer_ready(a, s, cons >> 1, cons & 1);
+      if (push) {
+        a.reg_val[(int64_t)c * a.W] = out_val;
+        a.reg_val[(int64_t)c * a.W + 1] = tag;
+      }
+      a.reg_v[d][c] = ((v && !pop) || push) ? 1 : 0;
+    } else {
+      const int k = c - a.n_reg;
+      const int h = a.q_head[s][k];
+      const int h1 = ring(h + 1, a.cap);
+      if (val && h1 != a.q_tail[k]) {
+        const int64_t slot = ((int64_t)k * a.cap + h) * a.W;
+        a.q_buf[slot] = out_val;
+        a.q_buf[slot + 1] = tag;
+        a.q_head[d][k] = h1;
+      } else {
+        a.q_head[d][k] = h;
+      }
+    }
+  }
+
+  // ---- the slot's own state (a divided clock holds it on this cycle)
+  if (!en) {
+    a.phase[d][i] = phase;
+    a.sent[d][i] = sent;
+    a.rcvd[d][i] = rcvd;
+    a.fwd_v[d][i] = fwd_v ? 1 : 0;
+    return;
+  }
   const int sent2 = sent + (did_send ? 1 : 0);
   const int rcvd2 = rcvd + (accept ? 1 : 0);
-  const float acc2 = __fadd_rn(acc, accept ? in_val : 0.0f);
+  const float acc2 = __fadd_rn(a.acc[i], accept ? in_val : 0.0f);
   const bool fwd_v2 = (fwd_v && !fwd_freed) || (accept && will_fwd);
-  const float fwd2 = (accept && will_fwd) ? in_val : fwd;
-
   const bool done_phase = live && sent2 == need && rcvd2 == need;
-  const bool finishing = done_phase && phase == 1;
 
-  // outputs: ports e_out (0) and s_out (1), payload [out_val, sent]
-  const int64_t p0 = 2 * (int64_t)i;
-  const float tag = (float)sent;
-  a.pay[p0 * a.W] = out_val;
-  a.pay[p0 * a.W + 1] = tag;
-  a.pay[(p0 + 1) * a.W] = out_val;
-  a.pay[(p0 + 1) * a.W + 1] = tag;
-  a.val[p0] = (en && did_send && in_row) ? 1 : 0;
-  a.val[p0 + 1] = (en && did_send && !in_row) ? 1 : 0;
-  a.rr[p0] = (en && may_accept && in_row) ? 1 : 0;
-  a.rr[p0 + 1] = (en && may_accept && !in_row) ? 1 : 0;
-
-  if (!en) return;  // a divided clock holds its state on this cycle
   if (done_phase) a.own[i] = acc2;
   a.acc[i] = acc2;
-  if (finishing) a.total[i] = acc2;
-  a.phase[i] = phase + (done_phase ? 1 : 0);
-  a.sent[i] = done_phase ? 0 : sent2;
-  a.rcvd[i] = done_phase ? 0 : rcvd2;
-  a.fwd[i] = fwd2;
-  a.fwd_v[i] = fwd_v2 ? 1 : 0;
-  a.fires[i] += (did_send ? 1 : 0) + (accept ? 1 : 0);
-}
-
-// Register commit and queue ring handshake for combined channel c.
-__global__ void fused_commit(ProgramArgs a, int n_tot) {
-  int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c == 0) a.cycle[0] += 1;
-  if (c >= n_tot) return;
-  const int tx = a.inv_tx[c], rx = a.inv_rx[c];
-  const bool push_v = a.inv_tx_mask[c] && a.val[tx];
-  const bool pop_r = a.inv_rx_mask[c] && a.rr[rx];
-  if (c < a.n_reg) {
-    // depth-1 register: accepts only when empty before the cycle, so a
-    // packet never enters and leaves one register in the same cycle
-    const bool v = a.reg_v[c] != 0;
-    const bool push = push_v && !v;
-    const bool pop = pop_r && v;
-    if (push) {
-      for (int w = 0; w < a.W; ++w)
-        a.reg_val[(int64_t)c * a.W + w] = a.pay[(int64_t)tx * a.W + w];
-    }
-    a.reg_v[c] = ((v && !pop) || push) ? 1 : 0;
-  } else {
-    const int k = c - a.n_reg;
-    const int h = a.q_head[k], t = a.q_tail[k];
-    const bool full = ring(h + 1, a.cap) == t;
-    const bool empty = h == t;
-    if (push_v && !full) {
-      const int64_t slot = (int64_t)k * a.cap + h;
-      for (int w = 0; w < a.W; ++w)
-        a.q_buf[slot * a.W + w] = a.pay[(int64_t)tx * a.W + w];
-      a.q_head[k] = ring(h + 1, a.cap);
-    }
-    if (pop_r && !empty) a.q_tail[k] = ring(t + 1, a.cap);
-  }
+  if (done_phase && phase == 1) a.total[i] = acc2;
+  if (accept && will_fwd) a.fwd[i] = in_val;
+  if (did_send || accept) a.fires[i] += (did_send ? 1 : 0) + (accept ? 1 : 0);
+  a.phase[d][i] = phase + (done_phase ? 1 : 0);
+  a.sent[d][i] = done_phase ? 0 : sent2;
+  a.rcvd[d][i] = done_phase ? 0 : rcvd2;
+  a.fwd_v[d][i] = fwd_v2 ? 1 : 0;
 }
 
 // Issue half: credit-bounded drain of every egress row into the slab.
 // Rows whose count is 0 (padding, or no credit) are not written at all.
-__global__ void exchange_drain(ProgramArgs a, TierArgs t) {
+__global__ void exchange_drain(ProgramArgs a, TierArgs t, const int s) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= t.B * t.S) return;
   const int b = j / t.S;
   const int limit = t.send_mask[j] ? t.credits[j] : 0;
   const int row = b * a.n_q_row + t.send_idx[j];
   const int tl = a.q_tail[row];
-  int n = qsize(a, row);
+  int n = ring(a.q_head[s][row] - tl, a.cap);
   n = n < t.E ? n : t.E;
   n = n < limit ? n : limit;
   for (int e = 0; e < n; ++e) {
@@ -261,15 +291,15 @@ __global__ void exchange_drain(ProgramArgs a, TierArgs t) {
 // Commit half, part 1: gather the slab from its source batch row
 // (bat_fwd), fill the ingress row up to its free space, and record the
 // receiver's new free space as the credit to return.
-__global__ void exchange_fill(ProgramArgs a, TierArgs t) {
+__global__ void exchange_fill(ProgramArgs a, TierArgs t, const int s) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= t.B * t.S) return;
-  const int b = j / t.S, s = j % t.S;
+  const int b = j / t.S, sl = j % t.S;
   const bool live = t.recv_mask[j] != 0;
-  const int sj = t.bat_fwd[j] * t.S + s;
+  const int sj = t.bat_fwd[j] * t.S + sl;
   const int row = b * a.n_q_row + t.recv_idx[j];
-  const int h = a.q_head[row];
-  const int fr = (a.cap - 1) - qsize(a, row);
+  const int h = a.q_head[s][row];
+  const int fr = (a.cap - 1) - ring(h - a.q_tail[row], a.cap);
   int n = live ? t.cnt[sj] : 0;
   n = n < fr ? n : fr;
   for (int e = 0; e < n; ++e) {
@@ -277,7 +307,7 @@ __global__ void exchange_fill(ProgramArgs a, TierArgs t) {
     const int64_t src = (int64_t)sj * t.E + e;
     for (int w = 0; w < a.W; ++w) a.q_buf[dst * a.W + w] = t.slab[src * a.W + w];
   }
-  if (n > 0) a.q_head[row] = ring(h + n, a.cap);
+  if (n > 0) a.q_head[s][row] = ring(h + n, a.cap);
   t.cred[j] = live ? fr - n : 0;
 }
 
@@ -288,6 +318,9 @@ __global__ void exchange_credit(TierArgs t) {
   t.credits[j] = t.cred[t.bat_rev[j] * t.S + j % t.S];
 }
 
+// The program's cycles, added once at its end.
+__global__ void advance_cycle(int32_t* cycle, int n) { cycle[0] += n; }
+
 static inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 enum Op { kCycles = 0, kExchange = 1, kIssue = 2, kCommit = 3 };
@@ -297,15 +330,15 @@ extern "C" int granule_program(const ProgramArgs* args, const TierArgs* tiers,
                                void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const ProgramArgs a = *args;
-  const int n_tot = a.n_reg + (a.have_q ? a.n_qrows : 0);
+  if (a.W != 2 || a.n_slot <= 0 || a.divider < 1 || a.cap < 1)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
+  int s = 0, done = 0;
   for (int i = 0; i < n_ops; ++i) {
     const int op = ops[2 * i], arg = ops[2 * i + 1];
     if (op == kCycles) {
-      for (int c = 0; c < arg; ++c) {
-        manycore_step<<<blocks_for(a.n_slot), kThreads, 0, stream>>>(a);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-        fused_commit<<<blocks_for(n_tot), kThreads, 0, stream>>>(a, n_tot);
+      for (int c = 0; c < arg; ++c, ++done, s ^= 1) {
+        granule_cycle<<<blocks_for(a.n_slot), kThreads, 0, stream>>>(a, s, done);
         if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
       }
       continue;
@@ -315,15 +348,32 @@ extern "C" int granule_program(const ProgramArgs* args, const TierArgs* tiers,
     const int n = t.B * t.S;
     if (n == 0) continue;
     if (op == kExchange || op == kIssue) {
-      exchange_drain<<<blocks_for(n), kThreads, 0, stream>>>(a, t);
+      exchange_drain<<<blocks_for(n), kThreads, 0, stream>>>(a, t, s);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
     if (op == kExchange || op == kCommit) {
-      exchange_fill<<<blocks_for(n), kThreads, 0, stream>>>(a, t);
+      exchange_fill<<<blocks_for(n), kThreads, 0, stream>>>(a, t, s);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
       exchange_credit<<<blocks_for(n), kThreads, 0, stream>>>(t);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
+  }
+  if (s == 1) {  // an odd cycle count: the results sit in buffer 1
+    const size_t slots = (size_t)a.n_slot;
+    struct { void* dst; const void* src; size_t n; } copies[] = {
+        {a.phase[0], a.phase[1], slots * 4}, {a.sent[0], a.sent[1], slots * 4},
+        {a.rcvd[0], a.rcvd[1], slots * 4},   {a.fwd_v[0], a.fwd_v[1], slots},
+        {a.reg_v[0], a.reg_v[1], (size_t)a.n_reg},
+        {a.q_head[0], a.q_head[1], (size_t)a.n_qrows * 4},
+    };
+    for (const auto& cp : copies) {
+      err = cudaMemcpyAsync(cp.dst, cp.src, cp.n, cudaMemcpyDeviceToDevice, stream);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  if (done > 0) {
+    advance_cycle<<<1, 1, 0, stream>>>(a.cycle, done);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

@@ -12,11 +12,13 @@ are the issue and commit halves of that exchange (see
     exchange functions — generic over block types;
   * on CUDA tensors, the hand-written Hopper kernel
     ``csrc/granule_step.cu``.  A kernel cannot trace a Python cycle
-    function as Pallas does, so it carries the fused cycle itself
-    (gathers through the inverse port maps, the depth-1 register commit,
-    the boundary ring handshake, the credit-bounded slab exchange) and
-    each block type's step as a device function.  ``ManycoreCell`` is the
-    one block type with a device step so far; any other raises
+    function as Pallas does, so it carries the fused cycle itself and
+    each block type's step as a device function: one launch a cycle, in
+    which each slot steps and commits the channel ends it owns (the
+    registers it produces, with the consumer's readiness recomputed
+    through :func:`consumer_table`; the boundary rows it pushes or pops),
+    and the credit-bounded slab exchange between cycles.  ``ManycoreCell``
+    is the one block type with a device step so far; any other raises
     ``NotImplementedError`` on a CUDA state.  The kernel updates the
     carry's tensors in place and returns the same carry.
 
@@ -28,6 +30,7 @@ import ctypes
 import os
 from typing import Any, Callable, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core.struct import static_field, tensor_dataclass
@@ -158,6 +161,7 @@ class ProgramConsts:
     recv_mask: tuple
     bat_fwd: tuple  # per tier: (B, S_t) int32 source batch row
     bat_rev: tuple
+    cons: Any = None  # (B*n_slot, 2) int32 consumer table (CUDA only)
     blocks: tuple = static_field(default=())  # per group: the Block
     depths: tuple = static_field(default=())  # per tier: slab depth E_t
     n_q: int = static_field(default=1)  # queue rows per batch row
@@ -234,11 +238,45 @@ def epoch_program(
 
 
 # ------------------------------------------------------------- the kernel
-_PROGRAM_PTRS = (
-    "reg_val", "reg_v", "q_buf", "q_head", "q_tail",
-    "value", "own", "acc", "total", "phase", "sent", "rcvd", "fwd", "fwd_v",
-    "fires", "rx_idx", "tx_idx", "inv_tx", "inv_tx_mask", "inv_rx",
-    "inv_rx_mask", "pay", "val", "rr", "cycle",
+def consumer_table(tx_idx, inv_tx, inv_tx_mask, inv_rx, inv_rx_mask,
+                   n_reg: int):
+    """The kernel's consumer table of one group: ``(n_slot, n_out)``
+    int32, the flat consumer ``slot * n_in + port`` of the channel each
+    output port drives, -1 where that channel has no local consumer (a
+    boundary or external queue row), -2 where the port drives no channel
+    (a sentinel).  Arguments are the flat tables (numpy, any leading
+    size-1 dims): ``tx_idx`` ``(n_slot, n_out)`` and the inverse maps
+    over the combined ids.
+
+    Raises ``NotImplementedError`` for a queue row with a local producer
+    and a local consumer (the kernel commits each row on its one local
+    side), and ``ValueError`` where a port's channel names another
+    producer."""
+    tx = np.asarray(tx_idx).reshape(np.asarray(tx_idx).shape[-2:]).astype(np.int64)
+    inv_tx = np.asarray(inv_tx).reshape(-1).astype(np.int64)
+    inv_rx = np.asarray(inv_rx).reshape(-1).astype(np.int64)
+    tx_m = np.asarray(inv_tx_mask).reshape(-1).astype(bool)
+    rx_m = np.asarray(inv_rx_mask).reshape(-1).astype(bool)
+    both = np.nonzero(tx_m[n_reg:] & rx_m[n_reg:])[0]
+    if both.size:
+        raise NotImplementedError(
+            f"queue rows {both[:8].tolist()} have a local producer and a local "
+            "consumer: the CUDA cycle commits each boundary row on its one "
+            "local side")
+    n_slot, n_out = tx.shape
+    own = np.arange(n_slot * n_out).reshape(n_slot, n_out)
+    driven = tx_m[tx]
+    if not (inv_tx[tx] == own)[driven].all():
+        raise ValueError("a port's channel names another producer (not SPSC)")
+    cons = np.where(rx_m[tx], inv_rx[tx], -1)
+    return np.where(driven, cons, -2).astype(np.int32)
+
+
+_PAIRED = ("reg_v", "q_head", "phase", "sent", "rcvd", "fwd_v")
+_PROGRAM_FIELDS = (
+    "reg_val", "reg_v", "q_buf", "q_head", "q_tail", "own", "acc", "total",
+    "phase", "sent", "rcvd", "fwd", "fwd_v", "fires", "rx_idx", "tx_idx",
+    "cons", "cycle",
 )
 _PROGRAM_INTS = (
     "n_reg", "n_qrows", "n_q_row", "cap", "have_q", "n_slot", "R", "C",
@@ -252,7 +290,10 @@ _TIER_INTS = ("B", "S", "E")
 
 
 class _ProgramArgs(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_void_p) for n in _PROGRAM_PTRS]
+    """``ProgramArgs`` of ``csrc/granule_step.cu``, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p * 2 if n in _PAIRED else ctypes.c_void_p)
+                 for n in _PROGRAM_FIELDS]
                 + [(n, ctypes.c_int32) for n in _PROGRAM_INTS])
 
 
@@ -262,10 +303,9 @@ class _TierArgs(ctypes.Structure):
 
 
 _CORE_FIELDS = {
-    "value": torch.float32, "own": torch.float32, "acc": torch.float32,
-    "total": torch.float32, "phase": torch.int32, "sent": torch.int32,
-    "rcvd": torch.int32, "fwd": torch.float32, "fwd_v": torch.bool,
-    "fires": torch.int32,
+    "own": torch.float32, "acc": torch.float32, "total": torch.float32,
+    "phase": torch.int32, "sent": torch.int32, "rcvd": torch.int32,
+    "fwd": torch.float32, "fwd_v": torch.bool, "fires": torch.int32,
 }
 
 
@@ -285,7 +325,10 @@ def _library():
 def epoch_program_cuda(carry: Tree, program: Program,
                        consts: ProgramConsts) -> Tree:
     """Launch ``csrc/granule_step.cu`` on the carry, in place, on the
-    current stream.  Raises for anything the kernel does not take."""
+    current stream: one launch a simulated cycle.  Every leaf that another
+    thread reads within a cycle gets a second buffer here, the kernel
+    alternates the two by cycle parity, and the results end in the
+    carry's own tensors.  Raises for anything the kernel does not take."""
     from ..hw.manycore import CoreState, ManycoreCell
 
     global launches
@@ -309,32 +352,38 @@ def epoch_program_cuda(carry: Tree, program: Program,
     n_qrows, cap = q.buf.shape[0], q.capacity
     have_q = n_qrows > 1
     B = consts.send_idx[0].shape[0] if consts.send_idx else 1
-    n_tot = consts.inv_tx.shape[0]
+    if consts.cons is None:
+        raise ValueError("consts.cons is missing: the CUDA program needs the "
+                         "consumer table (granule_step.consumer_table)")
 
     ptr = {
         "reg_val": tensor_ptr(reg_val, "reg_val", torch.float32, (n_reg, W), dev),
-        "reg_v": tensor_ptr(reg_v, "reg_v", torch.bool, (n_reg,), dev),
         "q_buf": tensor_ptr(q.buf, "queues.buf", torch.float32, (n_qrows, cap, W), dev),
-        "q_head": tensor_ptr(q.head, "queues.head", torch.int32, (n_qrows,), dev),
         "q_tail": tensor_ptr(q.tail, "queues.tail", torch.int32, (n_qrows,), dev),
         "rx_idx": tensor_ptr(consts.rx_idx[0], "rx_idx", torch.int32, (n_slot, 2), dev),
         "tx_idx": tensor_ptr(consts.tx_idx[0], "tx_idx", torch.int32, (n_slot, 2), dev),
-        "inv_tx": tensor_ptr(consts.inv_tx, "inv_tx", torch.int32, (n_tot,), dev),
-        "inv_tx_mask": tensor_ptr(consts.inv_tx_mask, "inv_tx_mask", torch.bool, (n_tot,), dev),
-        "inv_rx": tensor_ptr(consts.inv_rx, "inv_rx", torch.int32, (n_tot,), dev),
-        "inv_rx_mask": tensor_ptr(consts.inv_rx_mask, "inv_rx_mask", torch.bool, (n_tot,), dev),
+        "cons": tensor_ptr(consts.cons, "cons", torch.int32, (n_slot, 2), dev),
         "cycle": tensor_ptr(cycle, "cycle", torch.int32, (), dev),
     }
+    first = {"reg_v": (reg_v, torch.bool, (n_reg,)),
+             "q_head": (q.head, torch.int32, (n_qrows,))}
     for name, dtype in _CORE_FIELDS.items():
-        ptr[name] = tensor_ptr(getattr(st, name), f"block_states.0.{name}", dtype,
-                           (n_slot,), dev)
-    if n_tot != n_reg + B * consts.n_q or (have_q and n_qrows != B * consts.n_q):
-        raise ValueError("inverse tables do not match the register/queue carry")
-    # scratch: producer payloads/valids and consumer readies of one cycle
-    pay = torch.empty((2 * n_slot, W), dtype=torch.float32, device=dev)
-    val = torch.empty((2 * n_slot,), dtype=torch.uint8, device=dev)
-    rr = torch.empty((2 * n_slot,), dtype=torch.uint8, device=dev)
-    ptr.update(pay=pay.data_ptr(), val=val.data_ptr(), rr=rr.data_ptr())
+        first[name] = (getattr(st, name), dtype, (n_slot,))
+    if have_q and n_qrows != B * consts.n_q:
+        raise ValueError("queue rows do not match the batch of the exchange tables")
+    # the second buffer of each paired leaf: every slot writes its own
+    # every cycle, so those start empty; registers and queue heads that no
+    # thread commits (the sentinels, rows only the exchanges move) must
+    # read the same in both, so those start as copies
+    keep = []
+    for name, (x, dtype, shape) in first.items():
+        p0 = tensor_ptr(x, name, dtype, shape, dev)
+        if name in _PAIRED:
+            x1 = x.clone() if name in ("reg_v", "q_head") else torch.empty_like(x)
+            keep.append(x1)
+            ptr[name] = (ctypes.c_void_p * 2)(p0, x1.data_ptr())
+        else:
+            ptr[name] = p0
     args = _ProgramArgs(
         **ptr, n_reg=n_reg, n_qrows=n_qrows, n_q_row=consts.n_q, cap=cap,
         have_q=int(have_q), n_slot=n_slot, R=cell.R, C=cell.C,
@@ -343,8 +392,7 @@ def epoch_program_cuda(carry: Tree, program: Program,
 
     n_tiers = len(consts.send_idx)
     tiers = (_TierArgs * max(n_tiers, 1))()
-    keep = []  # every tier's scratch stays referenced until the launches are queued
-    for t in range(n_tiers):
+    for t in range(n_tiers):  # the scratch stays referenced until queued
         S, E = consts.send_idx[t].shape[1], consts.depths[t]
         shp = (B, S)
         slab = torch.empty((B, S, E, W), dtype=torch.float32, device=dev)
@@ -378,7 +426,7 @@ def epoch_program_cuda(carry: Tree, program: Program,
 
 
 __all__ = [
-    "Program", "ProgramConsts", "epoch_program", "epoch_program_ref",
-    "epoch_program_cuda", "overlap_program", "resolve_overlap",
-    "validate_program",
+    "Program", "ProgramConsts", "consumer_table", "epoch_program",
+    "epoch_program_ref", "epoch_program_cuda", "overlap_program",
+    "resolve_overlap", "validate_program",
 ]

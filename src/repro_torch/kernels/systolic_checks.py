@@ -63,12 +63,13 @@ def check_mac(n: int, seed: int) -> int:
 
 
 def check_engine(M: int, R: int, C: int, K: int, tiles: tuple[int, int],
-                 seed: int) -> tuple[int, int]:
-    """The register engine's epochs through the kernel and through the
-    plain version, both on the card, from ``A``, ``B`` drawn from ``seed``:
-    every state leaf equal after every epoch, through completion, one
-    kernel launch an epoch, and ``Y`` within ``matmul_error_bound`` of the
-    f64 product.  Returns (epochs, cycles)."""
+                 seed: int, plan: sk.TilePlan | None = None) -> tuple[int, int]:
+    """The register engine's epochs through the kernel (under ``plan``,
+    ``tile_plan``'s by default) and through the plain version, both on the
+    card, from ``A``, ``B`` drawn from ``seed``: every state leaf equal
+    after every epoch, through completion, one kernel call an epoch, and
+    ``Y`` within ``matmul_error_bound`` of the f64 product.  Returns
+    (epochs, cycles)."""
     from ..core.fastgrid import RegisterGridEngine
 
     rng = np.random.RandomState(seed)
@@ -76,12 +77,13 @@ def check_engine(M: int, R: int, C: int, K: int, tiles: tuple[int, int],
     eng = RegisterGridEngine(R, C, K=K, m_stream=M, tiles=tiles, device="cuda")
     gpu = eng.init(A, B)
     plain = clone_state(gpu)
+    step = lambda s, k: sk.systolic_step_cuda(s, k, plan)  # noqa: E731
     before = sk.launches
     epochs = 0
     while not eng.tiles_done(gpu.cell, eng.y_done):
         if epochs > 4 * (2 * M + R + C):
             raise AssertionError(f"{(M, R, C)} K={K} tiles={tiles} did not finish")
-        gpu = eng._epoch(gpu)
+        gpu = eng._epoch(gpu, step=step)
         plain = eng._epoch(plain, step=sk.systolic_step_ref)
         torch.cuda.synchronize()
         assert_states_equal(gpu, plain)
@@ -93,6 +95,20 @@ def check_engine(M: int, R: int, C: int, K: int, tiles: tuple[int, int],
         raise AssertionError(f"{(M, R, C)} K={K} tiles={tiles}: Y off the f64 "
                              f"product by {err.max()}")
     return epochs, int(gpu.cycle.reshape(-1)[0])
+
+
+def check_call(state: dict, K: int, plan: sk.TilePlan | None = None,
+               want: dict | None = None) -> None:
+    """One ``K``-cycle kernel call under ``plan`` on a copy of ``state``
+    against the plain version's call on the same state (``want``, computed
+    here unless given), both on the card: every output key bit-equal."""
+    if want is None:
+        want = sk.systolic_step_ref(dict(state), K)
+    got = sk.systolic_step_cuda(
+        {k: v if k == "a_buf" else v.clone() for k, v in state.items()}, K, plan)
+    torch.cuda.synchronize()
+    keys = sk.CELL_OUT + sk.EDGE_OUT
+    assert_states_equal({k: got[k] for k in keys}, {k: want[k] for k in keys})
 
 
 def check_interior_tile(limits: tuple[int, int] | None, seed: int = 1,
@@ -139,5 +155,5 @@ def check_interior_tile(limits: tuple[int, int] | None, seed: int = 1,
     return emitted
 
 
-__all__ = ["assert_states_equal", "check_engine", "check_interior_tile",
-           "check_mac", "clone_state"]
+__all__ = ["assert_states_equal", "check_call", "check_engine",
+           "check_interior_tile", "check_mac", "clone_state"]

@@ -29,11 +29,16 @@ call.  :func:`systolic_step` dispatches by device:
     which follows the reference's op order with its one-hot sums and the
     same fused multiply-add (``hw.systolic.mac``);
   * CUDA tensors go to :func:`systolic_step_cuda`, the hand-written Hopper
-    kernel ``csrc/systolic_step.cu``, or raise.  Nothing falls back.
+    kernel ``csrc/systolic_step.cu``, or raise.  Nothing falls back.  The
+    kernel runs a call as ``ceil(K / k)`` launches, each of which keeps a
+    window of cells (a block and a halo of k cells) in shared memory for k
+    cycles; :func:`tile_plan` chooses the block and k.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -42,8 +47,8 @@ from ..hw.systolic import mac
 from ..obs.registry import REGISTRY
 from ._build import tensor_ptr
 
-#: Launches of the CUDA kernel (one per :func:`systolic_step_cuda` call,
-#: which runs all K cycles).  A plain integer, so a run can show that its
+#: Calls of the CUDA kernel (one per :func:`systolic_step_cuda` call,
+#: which runs all K cycles in ``tile_plan(...).launches`` launches).  A plain integer, so a run can show that its
 #: main path went through the kernel; set it to 0 before the run.
 launches = 0
 
@@ -176,6 +181,73 @@ def systolic_step(state: dict, k_cycles: int) -> dict:
 
 
 # ------------------------------------------------------------- the kernel
+#: Shared memory a CTA may use on Hopper (232,448 B of an SM's 256 KB).
+SMEM_LIMIT = 232_448
+#: Cycles a launch and block shape of the plan at a tile larger than one
+#: block.
+PLAN_K = 8
+PLAN_BLOCK = (64, 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How ``csrc/systolic_step.cu`` runs a call: CTAs of ``block`` cells
+    (rows, columns) of a tile, each keeping its block and a halo of ``k``
+    cells in shared memory (``smem`` bytes) for ``k`` cycles a launch;
+    a call of ``K`` cycles is ``launches`` launches."""
+
+    block: tuple
+    k: int
+    smem: int
+    launches: int
+
+
+def window_smem(R: int, C: int, block: tuple, k: int) -> int:
+    """Shared-memory bytes of a launch (the kernel's ``window_smem``): the
+    largest window, ``min(R, br + 2k)`` rows of ``min(C, bc + 2k)`` cells,
+    each row 3 slots more rounded up to a multiple of 4 (so the interior
+    falls into aligned groups of 4), at 26 B a slot (``a_reg``, ``p_reg``,
+    ``b``, ``a_in``, ``y``, ``a_idx``, the packed flags and the fire byte),
+    plus four int32 counters a window row and column."""
+    wr, wc = min(R, block[0] + 2 * k), min(C, block[1] + 2 * k)
+    return wr * ((wc + 6) // 4 * 4) * 26 + (2 * wr + 2 * wc) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(R: int, C: int, K: int, *, k: int | None = None,
+              block: tuple | None = None) -> TilePlan:
+    """The plan of a call of ``K`` cycles on ``R x C`` tiles.
+
+    By default a tile that fits in one CTA with no halo is one block run
+    for all K cycles in one launch; a larger tile is cut into blocks of up
+    to ``PLAN_BLOCK`` cells run ``PLAN_K`` cycles a launch.  ``k`` and
+    ``block`` override those choices (the k sweep, tests).  The block is
+    halved (its longer side first) until the window fits in
+    ``SMEM_LIMIT``; k is never cut below what was asked, and a plan that
+    cannot fit raises ``ValueError``."""
+    if min(R, C) < 1 or K < 0:
+        raise ValueError(f"no plan for R={R} C={C} K={K}")
+    if block is None and k is None and window_smem(R, C, (R, C), 0) <= SMEM_LIMIT:
+        block, k = (R, C), max(K, 1)
+    if k is None:
+        k = min(max(K, 1), PLAN_K)
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    br, bc = block or PLAN_BLOCK
+    br, bc = min(br, R), min(bc, C)
+    if min(br, bc) < 1:
+        raise ValueError(f"empty block {block}")
+    while window_smem(R, C, (br, bc), k) > SMEM_LIMIT:
+        if max(br, bc) == 1:
+            raise ValueError(f"no block fits k={k} in {SMEM_LIMIT} B of shared memory")
+        if br >= bc:
+            br = (br + 1) // 2
+        else:
+            bc = (bc + 1) // 2
+    return TilePlan(block=(br, bc), k=k, smem=window_smem(R, C, (br, bc), k),
+                    launches=-(-K // k))
+
+
 _PAIRED = ("a_reg", "a_v", "p_reg", "p_v", "a_idx", "widx", "nidx",
            "east_cnt", "south_cnt")
 _SINGLE = ("b", "is_west", "is_north", "is_south", "is_east", "a_buf",
@@ -198,8 +270,8 @@ def _library():
 
     lib = _build.load("systolic_step")
     if lib.systolic_step.argtypes is None:
-        lib.systolic_step.argtypes = [ctypes.POINTER(_StepArgs), ctypes.c_int,
-                                      ctypes.c_void_p]
+        lib.systolic_step.argtypes = [ctypes.POINTER(_StepArgs)] + [
+            ctypes.c_int] * 4 + [ctypes.c_int64, ctypes.c_void_p]
         lib.systolic_step.restype = ctypes.c_int
         lib.systolic_mac.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64,
                                                              ctypes.c_void_p]
@@ -207,14 +279,16 @@ def _library():
     return lib
 
 
-def systolic_step_cuda(state: dict, k_cycles: int) -> dict:
-    """Launch ``csrc/systolic_step.cu`` on the current stream: one launch
-    runs ``k_cycles`` cycles of every tile.  Returns a new dict with the
-    updated per-cell leaves (``a_reg``, ``a_v``, ``p_reg``, ``p_v``,
-    ``a_idx``, ``y_idx``, ``y_buf``) and fresh ``widx``/``nidx`` and egress
-    slabs.  The kernel overwrites those leaves of ``state``: ``y_idx`` and
-    ``y_buf`` are updated in place, the double-buffered ones end in the
-    input tensor after an even ``k_cycles`` and in a new one after an odd.
+def systolic_step_cuda(state: dict, k_cycles: int,
+                       plan: TilePlan | None = None) -> dict:
+    """Run ``csrc/systolic_step.cu`` on the current stream: ``k_cycles``
+    cycles of every tile in ``plan.launches`` launches (``plan`` defaults
+    to :func:`tile_plan`).  Returns a new dict with the updated per-cell
+    leaves (``a_reg``, ``a_v``, ``p_reg``, ``p_v``, ``a_idx``, ``y_idx``,
+    ``y_buf``) and fresh ``widx``/``nidx`` and egress slabs.  The kernel
+    overwrites those leaves of ``state``: ``y_idx`` and ``y_buf`` are
+    updated in place, the double-buffered ones end in the input tensor
+    after an even number of launches and in a new one after an odd.
     Raises for anything the kernel does not take."""
     global launches
     b = state["b"]
@@ -229,6 +303,10 @@ def systolic_step_cuda(state: dict, k_cycles: int) -> dict:
     if min(R, C, M, W) < 1 or k_cycles < 0:
         raise ValueError(f"empty tile or slab: R={R} C={C} M={M} W={W}, "
                          f"k_cycles={k_cycles}")
+    if plan is None:
+        plan = tile_plan(R, C, int(k_cycles))
+    if plan.launches != -(-int(k_cycles) // plan.k):
+        raise ValueError(f"{plan} does not run {k_cycles} cycles")
     e_lim, s_lim = _limits(state)
     f32, i32, u8 = torch.float32, torch.int32, torch.bool
     cell, cm = lead + (R, C), lead + (R, C, M)
@@ -253,11 +331,11 @@ def systolic_step_cuda(state: dict, k_cycles: int) -> dict:
     }
     ptr["east_slab"] = out["east_slab"].data_ptr()
     ptr["south_slab"] = out["south_slab"].data_ptr()
-    # the second buffer of every leaf a neighbour reads within a cycle:
-    # cycle i reads buffer i % 2 and writes the other, so the results sit
-    # in buffer k_cycles % 2.  Freeing the other when this returns is safe:
-    # the caching allocator reuses its memory only for later work on the
-    # same stream.
+    # the second buffer of every leaf another CTA reads at a launch's
+    # start: launch j reads buffer j % 2 and writes the other, so the
+    # results sit in buffer plan.launches % 2.  Freeing the other when this
+    # returns is safe: the caching allocator reuses its memory only for
+    # later work on the same stream.
     pair = {}
     for k in _PAIRED:
         first = state[k] if k in CELL_OUT else out[k]
@@ -272,13 +350,14 @@ def systolic_step_cuda(state: dict, k_cycles: int) -> dict:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.systolic_step(ctypes.byref(args), int(k_cycles),
+                               plan.block[0], plan.block[1], plan.k, plan.smem,
                                ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"systolic_step kernel launch failed: CUDA error {rc}")
     launches += 1
     REGISTRY.inc("systolic_step.launches")
     new = dict(state)  # y_idx and y_buf were updated in place
-    new.update({k: p[k_cycles & 1] for k, p in pair.items()})
+    new.update({k: p[plan.launches & 1] for k, p in pair.items()})
     new.update(east_slab=out["east_slab"], south_slab=out["south_slab"])
     return new
 
@@ -300,5 +379,5 @@ def mac_cuda(p: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-__all__ = ["launches", "mac_cuda", "systolic_step", "systolic_step_cuda",
-           "systolic_step_ref"]
+__all__ = ["TilePlan", "launches", "mac_cuda", "systolic_step",
+           "systolic_step_cuda", "systolic_step_ref", "tile_plan", "window_smem"]

@@ -1,0 +1,237 @@
+"""The one-pass cycle of ``csrc/granule_step.cu``, emulated in plain
+PyTorch on the CPU, against ``FusedEngine._cycle_body`` (the plain
+version, held against the JAX engine in ``tests/test_torch_fused.py``).
+
+The kernel runs one thread a slot and no scratch between threads: each
+register is committed by its producer, with the consumer's readiness
+recomputed from the consumer's pre-cycle state through
+``granule_step.consumer_table``; each boundary queue row is committed by
+its one local side (an egress row's head by its producer, an ingress
+row's tail by its consumer).  ``one_pass_cycle`` below does the same with
+whole-tensor ops and is held bit-exact against the plain cycle on every
+cycle of a run to convergence.  Tolerance is bit-exact: integer logic
+over exact f32 adds.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import ChannelGraph, tiered_grid_partition
+from repro_torch.core.fused import FusedEngine
+from repro_torch.core.struct import tree_paths
+from repro_torch.hw.manycore import ManycoreCell, make_core_params
+from repro_torch.kernels import granule_step
+
+
+class _HalfRateCell(ManycoreCell):
+    """A many-core cell stepped every other base-clock cycle."""
+
+    clock_divider = 2
+
+
+def _values(R, C):
+    return ((np.arange(R * C) % 8) + 1).astype(np.float32).reshape(R, C)
+
+
+def _torus(R, C, cap, cell_cls=ManycoreCell):
+    return ChannelGraph.torus(cell_cls(R, C), R, C,
+                              params=make_core_params(_values(R, C)), capacity=cap)
+
+
+def _batched(R=16, C=16, cap=4):
+    """8 granules batched on one device, tiers (2, 4): boundary queues."""
+    return FusedEngine(_torus(R, C, cap),
+                       tiered_grid_partition(R, C, [(2, 1), (2, 2)]), None,
+                       tiers=[(("pod",), 2), (("g",), 4)],
+                       batch_axes={"pod": 2, "g": 4}, device="cpu")
+
+
+def _single(cell_cls=ManycoreCell, R=8, C=8):
+    """One granule: registers only, no boundary queues."""
+    return FusedEngine(_torus(R, C, 4, cell_cls), None, None, K=4, device="cpu")
+
+
+ENGINES = {"torus16_8granules": _batched, "one_granule": _single,
+           "divided_clock": lambda: _single(_HalfRateCell)}
+
+
+def _cons(eng):
+    table = granule_step.consumer_table(
+        eng._tx_flat[0], eng._inv_tx_flat, eng._inv_tx_mask_flat,
+        eng._inv_rx_flat, eng._inv_rx_mask_flat, eng.B * eng.n_reg)
+    assert table.dtype == np.int32
+    return torch.as_tensor(table).long()
+
+
+def consumer_ready(st, j, pj, chan_ready, cell, tx):
+    """ManycoreCell's readiness on in port ``pj`` of slots ``j`` from their
+    pre-cycle state (the kernel's ``consumer_ready``, clock enable aside);
+    ``tx`` is the slots' output port table."""
+    phase, sent, rcvd, fwd_v = st.phase[j], st.sent[j], st.rcvd[j], st.fwd_v[j]
+    in_row = phase == 0
+    need = torch.where(in_row, cell.C - 1, cell.R - 1)
+    port_ok = (phase < 2) & ((pj == 0) == in_row) & (rcvd < need)
+    will_fwd = rcvd < need - 1
+    out_c = torch.where(in_row, 0, 1)
+    # j frees its forward register only by sending a forward this cycle
+    frees = (sent > 0) & (sent < need) & chan_ready(tx[j, out_c])
+    return port_ok & (~will_fwd | ~fwd_v | frees)
+
+
+def one_pass_cycle(eng, carry, tb, cons):
+    """One cycle as the kernel runs it: every slot steps, then commits the
+    registers it produces (consumer readiness recomputed through ``cons``)
+    and the boundary rows on its one local side."""
+    reg_val, reg_v, q, states, cycle = carry
+    blk = eng.graph.groups[0].block
+    st = states[0]
+    n_reg = reg_val.shape[0]
+    rx, tx = tb.rx_idx[0].long(), tb.tx_idx[0].long()
+    have_q = q.buf.shape[0] > 1
+    size = (q.head - q.tail) % q.capacity
+
+    def chan_valid(c):
+        ok = reg_v[c.clamp(max=n_reg - 1)]
+        if have_q:
+            k = (c - n_reg).clamp(min=0)
+            ok = torch.where(c < n_reg, ok, size[k] > 0)
+        return ok
+
+    def chan_front(c):
+        w = reg_val[c.clamp(max=n_reg - 1)]
+        if have_q:
+            k = (c - n_reg).clamp(min=0)
+            w = torch.where((c < n_reg)[:, None], w, q.buf[k, q.tail[k].long()])
+        return w
+
+    def chan_ready(c):
+        ok = ~reg_v[c.clamp(max=n_reg - 1)]
+        if have_q:
+            k = (c - n_reg).clamp(min=0)
+            ok = torch.where(c < n_reg, ok, size[k] < q.capacity - 1)
+        return ok
+
+    rxd = {p: (chan_front(rx[:, i]), chan_valid(rx[:, i]))
+           for i, p in enumerate(blk.in_ports)}
+    txr = {p: chan_ready(tx[:, i]) for i, p in enumerate(blk.out_ports)}
+    new_st, rr, txo = blk.step(st, rxd, txr)
+    en = (cycle % blk.clock_divider) == 0
+    if blk.clock_divider > 1:
+        new_st = type(st)(**{f: torch.where(en, getattr(new_st, f), getattr(st, f))
+                             for f in st._data_fields})
+
+    reg_val2, reg_v2 = reg_val.clone(), reg_v.clone()
+    head2, tail2, buf2 = q.head.clone(), q.tail.clone(), q.buf.clone()
+    for i, port in enumerate(blk.out_ports):
+        c, cn = tx[:, i], cons[:, i]
+        pay, val = txo[port]
+        val = val & en
+        is_reg = (cn != -2) & (c < n_reg)
+        ci = c[is_reg]
+        v = reg_v[ci]
+        push = val[is_reg] & ~v
+        has_cons = cn[is_reg] >= 0
+        j, pj = cn[is_reg].clamp(min=0) // 2, cn[is_reg].clamp(min=0) % 2
+        pop = v & en & has_cons & consumer_ready(st, j, pj, chan_ready, blk, tx)
+        reg_v2[ci] = (v & ~pop) | push
+        reg_val2[ci] = torch.where(push[:, None], pay[is_reg].to(reg_val.dtype),
+                                   reg_val[ci])
+        if have_q:
+            egress = (cn != -2) & (c >= n_reg)
+            assert (cn[egress] == -1).all()
+            k = c[egress] - n_reg
+            h = q.head[k]
+            ok = val[egress] & ((h + 1) % q.capacity != q.tail[k])
+            buf2[k[ok], h[ok].long()] = pay[egress][ok].to(q.buf.dtype)
+            head2[k] = torch.where(ok, (h + 1) % q.capacity, h)
+    if have_q:
+        for i, port in enumerate(blk.in_ports):
+            c = rx[:, i]
+            ingress = c >= n_reg
+            k = c[ingress] - n_reg
+            pop = rr[port][ingress] & en & (size[k] > 0)
+            tail2[k] = torch.where(pop, (q.tail[k] + 1) % q.capacity, q.tail[k])
+    q2 = q.replace(buf=buf2, head=head2, tail=tail2)
+    return (reg_val2, reg_v2, q2, (new_st,), cycle + 1)
+
+
+def _leaves(carry):
+    return dict(tree_paths(carry))
+
+
+@pytest.mark.parametrize("which", list(ENGINES))
+def test_one_pass_cycle_matches_plain_cycle(which):
+    """Every leaf bit-exact after every cycle, exchanges between the cycle
+    blocks as the engine's program places them, to convergence."""
+    eng = ENGINES[which]()
+    cons = _cons(eng)
+    local = eng._local_view(eng.init(0))
+    tb = eng._consts(local.tables)
+    carry = (local.reg_val, local.reg_v, local.queues, local.block_states,
+             local.cycle, local.credits)
+    program = eng._resident_program(0)
+    cycles = pops = 0
+    for epoch in range(200):
+        for op, arg in program:
+            if op == "X":
+                carry = eng._resident_exchange(carry, arg, tb)
+                continue
+            for _ in range(arg):
+                want = eng._cycle_body(carry[:5], tb)
+                got = one_pass_cycle(eng, carry[:5], tb, cons)
+                a, b = _leaves(got), _leaves(want)
+                assert sorted(a) == sorted(b)
+                for k in a:
+                    assert torch.equal(a[k], b[k]), (which, cycles, k)
+                pops += int((carry[1] & ~want[1]).sum())
+                carry = want + (carry[5],)
+                cycles += 1
+        if bool((carry[3][0].phase == 2).all()):
+            break
+    assert bool((carry[3][0].phase == 2).all()), f"{which} did not converge"
+    assert pops > 0
+    total = float(_values(eng.graph.groups[0].block.R,
+                          eng.graph.groups[0].block.C).sum())
+    assert bool((carry[3][0].total == total).all())
+
+
+@pytest.mark.parametrize("which", list(ENGINES))
+def test_consumer_table(which):
+    """Each output port's consumer is the slot and in port whose input is
+    the same channel; queue rows have no local consumer, and a row with two
+    local sides raises."""
+    eng = ENGINES[which]()
+    cons = _cons(eng)
+    rx, tx = eng._rx_flat[0][0], eng._tx_flat[0][0]
+    n_reg = eng.B * eng.n_reg
+    n_slot = tx.shape[0]
+    assert cons.shape == (n_slot, 2)
+    for i in range(n_slot):
+        for p in range(2):
+            c, cn = int(tx[i, p]), int(cons[i, p])
+            if cn >= 0:
+                assert c < n_reg and int(rx[cn // 2, cn % 2]) == c
+            elif cn == -1:
+                assert c >= n_reg  # a boundary egress row
+            else:
+                assert cn == -2 and c < n_reg and c % eng.n_reg < 2
+    # torus cores drive every port: the registers all have a consumer
+    assert int((cons == -2).sum()) == 0
+    assert (eng.B > 1) == bool((cons == -1).any())
+    if eng.B > 1:
+        # an egress row given a local consumer too breaks the rule
+        inv_rx_mask = eng._inv_rx_mask_flat.copy()
+        row = int(tx[(cons == -1).nonzero()[0, 0], (cons == -1).nonzero()[0, 1]])
+        inv_rx_mask[0, row] = True
+        with pytest.raises(NotImplementedError, match="one local side"):
+            granule_step.consumer_table(
+                eng._tx_flat[0], eng._inv_tx_flat, eng._inv_tx_mask_flat,
+                eng._inv_rx_flat, inv_rx_mask, n_reg)
+    # a port whose channel names another producer is not SPSC
+    inv_tx = eng._inv_tx_flat.copy()
+    c0 = int(tx[0, 0])
+    inv_tx[0, c0] = inv_tx[0, int(tx[1, 0])]
+    with pytest.raises(ValueError, match="another producer"):
+        granule_step.consumer_table(
+            eng._tx_flat[0], inv_tx, eng._inv_tx_mask_flat,
+            eng._inv_rx_flat, eng._inv_rx_mask_flat, n_reg)

@@ -21,6 +21,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import granule_step, lm_checks, systolic_checks
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import slstm_scan as sl
+from repro_torch.kernels import systolic_step as sk
 from repro_torch.models import model as lm
 from repro_torch.hw.manycore import ManycoreCell, make_core_params
 
@@ -94,6 +95,66 @@ def test_kernel_single_granule_and_divided_clock(cuda, cell_cls):
         for k in a:
             assert np.array_equal(a[k], b[k]), (ep, k)
     assert (eng.gather_group(gpu, 0).total == vals.sum()).all()
+
+
+def test_kernel_odd_cycle_program(cuda):
+    """Three cycles an epoch: every program ends on buffer 1 of the
+    parity-buffered leaves, which must come back to the carry's tensors;
+    bit-exact after every epoch through convergence."""
+    eng = _engine(16, 16, [(("pod",), 1), (("g",), 3)], 4, False)
+    assert sum(a for op, a in eng._resident_program(0) if op == "C") == 3
+    gpu = eng.init(0)
+    cpu = tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, gpu)
+    for ep in range(400):
+        gpu, cpu = eng.run_epochs(gpu, 1), eng.run_epochs(cpu, 1)
+        a, b = fused_state_to_numpy(gpu), fused_state_to_numpy(cpu)
+        for k in a:
+            assert np.array_equal(a[k], b[k]), (ep, k)
+        if (eng.gather_group(cpu, 0).phase == 2).all():
+            break
+    assert (eng.gather_group(gpu, 0).total == ((np.arange(256) % 8) + 1).sum()).all()
+
+
+def _sys_input(M, R, C, tiles, K, epochs, seed):
+    """The kernel's input at epoch ``epochs`` of the register engine on
+    the card."""
+    from repro_torch.core.fastgrid import RegisterGridEngine
+
+    rng = np.random.RandomState(seed)
+    A, B = rng.randn(M, R).astype(np.float32), rng.randn(R, C).astype(np.float32)
+    eng = RegisterGridEngine(R, C, K=K, m_stream=M, tiles=tiles, device="cuda")
+    st = eng.run_epochs(eng.init(A, B), epochs)
+    return eng.step_input(st)
+
+
+@pytest.mark.parametrize("K", [1, 3])
+def test_systolic_call_shorter_than_the_plan(cuda, K):
+    """K = 1, and K below the plan's k (one launch of K cycles), with
+    blocks and halos inside the tile: the call equals the plain version's."""
+    st = _sys_input(12, 16, 12, (1, 1), 8, 2, seed=3)
+    plan = sk.tile_plan(16, 12, K, k=8, block=(5, 4))
+    assert plan.launches == 1
+    systolic_checks.check_call(st, K, plan)
+
+
+def test_systolic_blocks_below_the_tile(cuda):
+    """(M, R, C) = (33, 17, 23), one tile cut into 5 x 8 blocks (dividing
+    neither side), 3 cycles a launch: bit-exact through completion."""
+    plan = sk.tile_plan(17, 23, 7, k=3, block=(5, 8))
+    assert plan.block == (5, 8) and plan.launches == 3
+    epochs, cycles = systolic_checks.check_engine(33, 17, 23, 7, (1, 1), seed=7,
+                                                  plan=plan)
+    assert epochs > 0 and cycles == epochs * 7
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+def test_systolic_k_sweep(cuda, k):
+    """Every k of the full-width sweep at 2x2 tiles of 9 x 12 cells in 4 x 5
+    blocks, K = 16: bit-exact through completion."""
+    plan = sk.tile_plan(9, 12, 16, k=k, block=(4, 5))
+    epochs, _ = systolic_checks.check_engine(33, 18, 24, 16, (2, 2), seed=k,
+                                             plan=plan)
+    assert epochs > 0
 
 
 def test_systolic_mac_is_one_rounding(cuda):
