@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-Three paths, each through the entry points a user calls:
+Four paths, each through the entry points a user calls:
 
   * the paper's wafer-scale torus: 1024x1024 ``ManycoreCell`` cores running
     a two-phase ring allreduce, partitioned over 2 pods x 2x2 granules with
@@ -15,17 +15,22 @@ Three paths, each through the entry points a user calls:
     -> ``Simulation``, whose epoch of K = 62 cycles is one call of the
     hand-written ``systolic_step`` kernel
     (``src/repro_torch/kernels/csrc/systolic_step.cu``);
+  * the same matmul on the generic fused engine: ``FusedEngine.grid`` of
+    1024x1024 ``SystolicCell``s -> ``Simulation``, whose epoch of K = 62
+    cycles is one call of ``granule_step``, stepping the cells with the
+    kernel's SystolicCell device step (the kernel also runs programs of
+    several groups and of both block types in one launch a cycle);
   * LM serving: ``launch.serve.serve`` -> ``models.model.init_params`` ->
-    ``prefill`` -> greedy ``decode_step``s for recurrentgemma-2b and
-    xlstm-125m at their published widths (batch 4, a 3,072-token prompt,
-    16 tokens), whose prefill runs the hand-written ``flash_attention``,
-    ``rglru_scan`` and ``slstm_scan`` kernels
-    (``src/repro_torch/kernels/csrc/{flash_attention,rglru_scan,
+    ``prefill`` -> greedy ``decode_step``s for recurrentgemma-2b,
+    xlstm-125m and the dense llama3.2-1b at their published widths (batch
+    4, a 3,072-token prompt, 16 tokens), whose prefill runs the
+    hand-written ``flash_attention``, ``rglru_scan`` and ``slstm_scan``
+    kernels (``src/repro_torch/kernels/csrc/{flash_attention,rglru_scan,
     slstm_scan}.cu``; the sLSTM kernel also serves every decode step).
 
 Phases (a failing phase raises, and the script exits non-zero):
 
-  1. build   compile both kernels from the checkout's sources (nvcc,
+  1. build   compile every kernel from the checkout's sources (nvcc,
              sm_90a; one nvcc for each source, started together).
   2. small   a 32x32 torus, 8 granules, tiers (2, 4), capacity 4: the
              kernel against the plain PyTorch version on a CPU copy, every
@@ -70,14 +75,42 @@ Phases (a failing phase raises, and the script exits non-zero):
              gamma_R * (|A| @ |B|) (``hw.systolic.matmul_error_bound``); a traced
              repeat of that run; and the same run at 4x4 tiles, whose Y
              must equal the one-tile Y bit for bit.
-  6. lm-small  each LM kernel against its plain version on the card, at
+  6. fsys-small  ``granule_step`` through the fused engine against the plain
+             version (``epoch_program_ref``, called by name on a copy on the
+             card), every state leaf bit-exact after every epoch to the end
+             of the run (``kernels.fused_checks``): ``FusedEngine.grid`` of
+             SystolicCells at (M, R, C) = (6, 4, 4) and (33, 17, 23), K = 1,
+             3 and 62, Y within the bound; a grid of two SystolicCell
+             groups; a ManycoreCell torus with SystolicCell relays in its
+             rings beside a systolic grid (two block types, three groups),
+             on one granule and on two batched ones.
+  7. fsys-full  ``FusedEngine.grid(SystolicCell(1024), 1024, 1024, K=62)``
+             on the sys-full operands: set-up seconds; one mid-run epoch
+             bit-exact against ``epoch_program_ref`` on a copy on the card;
+             the kernel's and the plain version's times per simulated cycle
+             (medians over whole epochs from mid-run) beside the bound
+             counted from the run's tensors and fires
+             (``fsys_cycle_bytes``); ``Simulation.run(until=every south
+             cell collected M outputs)`` with the launch count set to 0
+             just before and read just after, Y bit-identical to
+             ``RegisterGridEngine``'s Y on the same operands and within
+             gamma_R * (|A| @ |B|), core-cycles/s and peak memory; a traced
+             repeat of that run (idle share, us a cycle).
+  8. lm-small  each LM kernel against its plain version on the card, at
              the CPU tests' shapes (``kernels.lm_checks``): attention MHA,
              GQA and MQA, causal with and without a window, f32 (the
              CUDA-core route) and bf16 (the tensor-core route; each case
              must take its dtype's route), D up to 256, T not a multiple
              of 128; the RG-LRU with and without h0; the sLSTM at T = 1
              and longer, R in f32 and bf16, up to xlstm-125m's width.
-  7. rg-full   recurrentgemma-2b at full width (26 layers, d 2560, 8 local
+  9. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
+             size, on the card); then llama3.2-1b at full width (16 layers,
+             d 2048, GQA 32/8, head dim 64) through ``serve`` with the flash
+             launch count set to 0 just before and read just after (16,
+             all on the tensor-core route), every logit finite, and the
+             first layer's flash call held against the plain version at the
+             run's own inputs.
+  10. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
              attention layers, window 2048): ``serve`` with every kernel's
              launch count set to 0 just before and read just after (8
              ``flash_attention``, all on the tensor-core route, 18
@@ -90,7 +123,7 @@ Phases (a failing phase raises, and the script exits non-zero):
              and the kernel's ratios to both; last, a warm prefill and one
              decode step under ``torch.profiler``: device idle share and
              time by kernel.
-  8. xl-full   xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
+  11. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
              prefill, 6 in each of the 15 decode steps), at the first
              decode step's inputs and the first prefill's: the cluster
              plan, the T = 1 call by CUDA events and the wrapper's host
@@ -103,7 +136,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases build,small,sys-small
-    python3 chip_smoke.py --phases build,lm-small,rg-full,xl-full
+    python3 chip_smoke.py --phases build,fsys-small,fsys-full
+    python3 chip_smoke.py --phases build,lm-small,lm-dense,rg-full,xl-full
 """
 from __future__ import annotations
 
@@ -123,8 +157,8 @@ BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores (NVIDIA data sheet)
 KERNELS = ("granule_step", "systolic_step", "flash_attention", "rglru_scan",
            "slstm_scan")
-PHASES = ("build", "small", "full", "sys-small", "sys-full", "lm-small",
-          "rg-full", "xl-full")
+PHASES = ("build", "small", "full", "sys-small", "sys-full", "fsys-small",
+          "fsys-full", "lm-small", "lm-dense", "rg-full", "xl-full")
 
 
 def log(msg: str) -> None:
@@ -148,28 +182,6 @@ def to_cpu(tree):
     )
 
 
-def compare(a, b) -> float:
-    """Max |a - b| over every state leaf (tables excluded); raises unless
-    every leaf is bit-exact."""
-    import numpy as np
-    from repro_torch.convert import fused_state_to_numpy
-
-    na, nb = fused_state_to_numpy(a), fused_state_to_numpy(b)
-    if sorted(na) != sorted(nb):
-        raise AssertionError(f"leaf sets differ: {sorted(na)} vs {sorted(nb)}")
-    worst = 0.0
-    bad = []
-    for k in na:
-        if na[k].shape != nb[k].shape or not np.array_equal(na[k], nb[k]):
-            bad.append(k)
-        if na[k].size:
-            d = np.abs(na[k].astype(np.float64) - nb[k].astype(np.float64))
-            worst = max(worst, float(d.max()))
-    if bad:
-        raise AssertionError(f"kernel and plain version differ in {bad}")
-    return worst
-
-
 def wafer_engine(R, C, k_outer, k_inner, capacity, overlap, device):
     import numpy as np
     from repro_torch.core import ChannelGraph, tiered_grid_partition
@@ -191,6 +203,7 @@ def wafer_engine(R, C, k_outer, k_inner, capacity, overlap, device):
 
 def phase_small() -> None:
     import torch
+    from repro_torch.kernels.fused_checks import compare
 
     for overlap in (False, True):
         eng, _ = wafer_engine(32, 32, 2, 4, 4, overlap, "cuda")
@@ -341,9 +354,9 @@ def phase_full(result: dict) -> None:
     import torch
     from repro_torch.configs.manycore import CONFIG
     from repro_torch.core import Simulation
-    from repro_torch.core.struct import tree_map
     from repro_torch.hw.manycore import allreduce_done
     from repro_torch.kernels import granule_step
+    from repro_torch.kernels.fused_checks import clone, compare
 
     R, C = CONFIG.grid_rows, CONFIG.grid_cols
     t0 = time.perf_counter()
@@ -357,8 +370,6 @@ def phase_full(result: dict) -> None:
         f"{eng._resident_program(0)}; set-up {setup_s:.2f} s")
 
     # one epoch: the kernel against the plain version on a CPU copy
-    clone = lambda s: tree_map(  # noqa: E731
-        lambda x: x.clone() if isinstance(x, torch.Tensor) else x, s)
     start = clone(sim.state)
     t1 = time.perf_counter()
     plain = eng.run_epochs(to_cpu(start), 1)
@@ -473,6 +484,7 @@ def phase_full(result: dict) -> None:
         name="granule_step", route="cuda",
         source="src/repro_torch/kernels/csrc/granule_step.cu",
         replaces="src/repro/kernels/granule_step.py:306",
+        block_type="ManycoreCell", block_types=["ManycoreCell", "SystolicCell"],
         launches=launches, max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by="bytes", library_ms=None,
     )
@@ -761,6 +773,253 @@ def phase_sys_full(result: dict) -> None:
         bound_ms=bound_ms, bound_by="bytes", library_ms=None,
     )
 
+# ---------------------------------------------- the fused engine beyond the wafer
+FSYS_SMALL = ((6, 4, 4), (33, 17, 23))
+FSYS_K = (1, 3, 62)
+
+
+def phase_fsys_small() -> None:
+    import numpy as np
+    from repro_torch.core.fused import FusedEngine
+    from repro_torch.hw.systolic import (SystolicCell, make_cell_params,
+                                         matmul_error_bound)
+    from repro_torch.kernels import fused_checks as fc
+
+    for M, R, C in FSYS_SMALL:
+        for K in FSYS_K:
+            A, B = fc.operands(M, R, C, seed=M + K)
+            eng = FusedEngine.grid(SystolicCell(M), R, C, K=K,
+                                   params=make_cell_params(A, B))
+            epochs, st = fc.check_engine(eng, fc.network_done(eng), 1000)
+            Y = fc.grid_result(eng, st, 0, R, C, M)
+            err = np.abs(Y - A.astype(np.float64) @ B.astype(np.float64))
+            if not (err <= matmul_error_bound(A, B)).all():
+                raise AssertionError(f"[fsys-small] {(M, R, C)} K={K}: Y off the bound")
+            log(f"[fsys-small] FusedEngine.grid (M, R, C)={(M, R, C)} K={K}: "
+                f"{epochs} epochs ({int(st.cycle.reshape(-1)[0])} cycles) bit-exact "
+                f"against epoch_program_ref on the card; Y within the bound")
+    A, B = fc.operands(9, 6, 5, seed=5)
+    nets = {
+        "two SystolicCell groups": (fc.two_group_systolic(A, B, capacity=4)[0], {}),
+        "ManycoreCell torus with SystolicCell relays + systolic grid": (
+            fc.mixed_network(A, B, 4, 5, capacity=4)[0], {}),
+        "the same on 2 batched granules": (
+            fc.mixed_network(A, B, 4, 5, capacity=4)[0],
+            dict(partition=np.arange(54) % 2, tiers=[(("g",), 3)],
+                 batch_axes={"g": 2})),
+    }
+    for name, (net, kw) in nets.items():
+        eng = net.build(engine="fused", session=False, device="cuda",
+                        **{"K": 3, **kw})
+        epochs, st = fc.check_engine(eng, fc.network_done(eng), 1000)
+        types = [type(g.block).__name__ for g in eng.graph.groups]
+        log(f"[fsys-small] {name}: groups {types}, {eng.B} granule(s): {epochs} "
+            f"epochs bit-exact against epoch_program_ref on the card")
+
+
+def fsys_cycle_bytes(local, consts, fired, n_cycles: int) -> dict:
+    """The least bytes one simulated cycle of the SystolicCell grid must
+    move, each input read once and each output written once, counted from
+    this run's tensors and data (``fired``: each cell's fires over the
+    ``n_cycles`` timed cycles, on the card):
+
+      * every cell: ``b`` and the four flags read; the port tables
+        ``rx_idx`` and ``tx_idx`` read;
+      * every register: its valid flag read and written;
+      * west cells: ``a_idx`` read (their ``a_valid``);
+      * per fire: ``fires`` read and written; a west fire reads its
+        ``a_buf`` element and writes ``a_idx``; a south fire reads and
+        writes ``y_idx`` and writes its ``y_buf`` element; a fire pops
+        ``[a, tag]`` from a west register and ``psum`` from a north one
+        (where they are not synthesized) and pushes ``[a, tag]`` east and
+        ``[y, tag]`` south (where not dropped).
+
+    The consumer table is a kernel's choice and is left out, as in
+    ``cycle_bytes``.  With one granule there are no queue rows."""
+    import torch
+
+    st = local.block_states[0]
+    word = local.reg_val.element_size()
+    n = st.b.numel()
+    per_cell = (st.b.element_size() + 4 * st.is_west.element_size()
+                + (consts.rx_idx[0].element_size() + consts.tx_idx[0].element_size()) * 2)
+    regs = local.reg_v.numel() * 2 * local.reg_v.element_size()
+    west = int(st.is_west.sum()) * st.a_idx.element_size()
+    f = fired.to(torch.int64)
+
+    def fires(mask):
+        return int(f[mask].sum())
+
+    total = int(f.sum())
+    per_fire = (2 * st.fires.element_size() * total
+                + (word + st.a_idx.element_size()) * fires(st.is_west)
+                + (2 * st.y_idx.element_size() + word) * fires(st.is_south)
+                + 2 * word * fires(~st.is_west) + word * fires(~st.is_north)
+                + 2 * word * fires(~st.is_east) + 2 * word * fires(~st.is_south))
+    per_cycle = n * per_cell + regs + west + per_fire / n_cycles
+    return {"per_cycle": per_cycle, "cells": n * per_cell, "regs": regs,
+            "fires": per_fire / n_cycles, "fire_rate": total / n / n_cycles}
+
+
+def phase_fsys_full(result: dict) -> None:
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.core import Simulation
+    from repro_torch.core.fastgrid import RegisterGridEngine
+    from repro_torch.core.fused import FusedEngine
+    from repro_torch.hw.systolic import (SystolicCell, make_cell_params,
+                                         matmul_error_bound)
+    from repro_torch.kernels import fused_checks as fc
+    from repro_torch.kernels import granule_step
+
+    M, R, C, K = SYS_M, SYS_R, SYS_C, SYS_K
+    A, B = sys_operands(M, R, C, SYS_SEED)
+    # the register engine's Y on the same operands, the yardstick of (c)
+    reg = RegisterGridEngine.from_graph(sys_graph(A, B), K=K)
+    rsim = Simulation(reg).reset()
+    rsim.run(until=reg.y_done)
+    Y_reg, reg_cycles = reg.result(rsim.state), rsim.cycle
+    del reg, rsim
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    eng = FusedEngine.grid(SystolicCell(m_stream=M), R, C, K=K,
+                           params=make_cell_params(A, B))
+    sim = Simulation(eng).reset(0)
+    sim.block_until_ready()
+    setup_s = time.perf_counter() - t0
+    done = fc.network_done(eng)
+    log(f"[fsys-full] FusedEngine.grid: {R}x{C} SystolicCells = {R * C} cores, "
+        f"M={M}, K={K}, {eng.G} granule, program {eng._resident_program(0)}; "
+        f"{eng.n_reg} registers; set-up {setup_s:.2f} s")
+
+    # (a) one mid-run epoch: the kernel against epoch_program_ref on a copy,
+    # both on the card
+    n0 = (2 * M + R + C) // (2 * K)
+    sim.run(epochs=n0)
+    sim.block_until_ready()
+    t1 = time.perf_counter()
+    plain = fc.plain_epochs(eng, fc.clone(sim.state))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    kern = eng.run_epochs(fc.clone(sim.state), 1)
+    torch.cuda.synchronize()
+    err = fc.compare(kern, plain)
+    log(f"[fsys-full] epoch {n0 + 1} (cycles {n0 * K}-{(n0 + 1) * K}) bit-exact "
+        f"against epoch_program_ref on a copy on the card (max |diff| {err}; the "
+        f"plain epoch took {plain_s:.2f} s)")
+    del plain, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) ms a simulated cycle: the kernel (CUDA events, whole epochs from
+    # mid-run on) and the plain version on the card, beside the bound
+    local = eng._local_view(sim.state)
+    carry = (local.reg_val, local.reg_v, local.queues, local.block_states,
+             local.cycle, local.credits)
+    program = eng._resident_program(0)
+    consts = eng._consts(local.tables)
+    n_cyc = sum(a for op, a in program if op == "C")
+    n_before = granule_step.launches
+    kernel = lambda: granule_step.epoch_program_cuda(carry, program, consts)  # noqa: E731
+    kernel()  # warm-up
+    torch.cuda.synchronize()
+    reps = 10
+    f0 = local.block_states[0].fires.clone()
+    k_times = [t / n_cyc for t in time_reps(kernel, reps)]
+    fired = local.block_states[0].fires - f0
+    granule_step.launches = n_before  # timing launches are not the main path
+    ref_carry = carry
+
+    def run_ref():
+        nonlocal ref_carry
+        ref_carry = granule_step.epoch_program_ref(
+            eng._resident_cycle, ref_carry, program, consts=consts)
+
+    run_ref()  # warm-up
+    p_times = [t / n_cyc for t in time_reps(run_ref, 2)]
+    kern_ms, plain_ms = statistics.median(k_times), statistics.median(p_times)
+    nbytes = fsys_cycle_bytes(local, consts, fired, reps * n_cyc)
+    bound_ms = nbytes["per_cycle"] / HBM_BYTES_PER_S * 1e3
+    log(f"[fsys-full] per simulated cycle at {R * C} cores (median over {reps} "
+        f"kernel and {len(p_times)} plain epochs of {n_cyc} cycles): kernel "
+        f"{kern_ms:.5f} ms ({min(k_times):.5f}-{max(k_times):.5f}), plain PyTorch "
+        f"on the card {plain_ms:.4f} ms ({min(p_times):.4f}-{max(p_times):.4f}), "
+        f"{plain_ms / kern_ms:.1f}x the kernel; memory bound {bound_ms:.5f} ms "
+        f"({nbytes['per_cycle'] / (R * C):.2f} B a core: cells "
+        f"{nbytes['cells'] / (R * C):.2f}, registers {nbytes['regs'] / (R * C):.2f}, "
+        f"per fire {nbytes['fires'] / (R * C):.2f} at {nbytes['fire_rate']:.4f} "
+        f"fires a core and cycle), kernel at {kern_ms / bound_ms:.2f}x it")
+    del carry, ref_carry, local, f0, fired
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the main path: Simulation.run(until=every south cell collected M
+    # outputs) through the kernel
+    sim.reset(0)
+    sim.block_until_ready()
+    torch.cuda.reset_peak_memory_stats()
+    granule_step.launches = 0
+    t2 = time.perf_counter()
+    sim.run(until=done, max_epochs=1000)
+    sim.block_until_ready()
+    run_s = time.perf_counter() - t2
+    launches = granule_step.launches
+    if launches <= 0:
+        raise AssertionError("the fused systolic run launched granule_step 0 times")
+    cycles, epochs = sim.cycle, sim.epoch
+    peak = torch.cuda.max_memory_allocated()
+    # (c) Y: bit-identical to the register engine's, within the bound
+    Y = fc.grid_result(eng, sim.state, 0, R, C, M)
+    Y64 = A.astype(np.float64) @ B.astype(np.float64)
+    tol = matmul_error_bound(A, B)
+    err_y = np.abs(Y - Y64)
+    if Y.shape != (M, C) or not np.isfinite(Y).all() or not (err_y <= tol).all():
+        raise AssertionError(f"Y off the f64 product: max |err| {err_y.max()}, "
+                             f"max err/bound {(err_y / tol).max()}")
+    if not np.array_equal(Y.view(np.uint32), Y_reg.view(np.uint32)):
+        raise AssertionError("the fused engine's Y differs from the register engine's")
+    log(f"[fsys-full] done: every south cell collected {M} outputs after {cycles} "
+        f"cycles ({epochs} epochs; the register engine: {reg_cycles}); Y "
+        f"bit-identical to RegisterGridEngine's and within gamma_R*(|A|@|B|) (max "
+        f"err/bound {(err_y / tol).max():.4f}); run {run_s:.3f} s wall, set-up "
+        f"{setup_s:.2f} s; {R * C * cycles / run_s:.4e} core-cycles/s; granule_step "
+        f"launches {launches}; device memory peak {peak / 2**20:.1f} MiB")
+
+    # the same until-run again under the profiler
+    sim.reset(0)
+    sim.block_until_ready()
+    trace = traced_run(lambda: sim.run(until=done, max_epochs=1000), ("granule_cycle",))
+    granule_step.launches = launches
+    if sim.cycle != cycles:
+        raise AssertionError(f"the traced run stopped at cycle {sim.cycle}, "
+                             f"the main run at {cycles}")
+    if trace["busy"] is None:
+        log("[fsys-trace] device idle share: not measured (the trace holds no "
+            "device event)")
+    else:
+        log(f"[fsys-trace] traced repeat of the until-run: {trace['wall']:.3f} s "
+            f"wall, device busy {trace['busy']:.3f} s over {trace['events']} "
+            f"device events, idle share {1.0 - trace['busy'] / trace['wall']:.4f}; "
+            f"granule_cycle {trace['per_kernel']['granule_cycle'] / cycles * 1e6:.2f} "
+            f"us a simulated cycle")
+    sim._state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    result.update(
+        name="granule_step[SystolicCell]", route="cuda",
+        source="src/repro_torch/kernels/csrc/granule_step.cu",
+        replaces="src/repro/kernels/granule_step.py:306",
+        block_type="SystolicCell", block_types=["ManycoreCell", "SystolicCell"],
+        launches=launches, max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+    )
+
+
 # ------------------------------------------------------------ LM serving
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 3072, 16
 
@@ -787,6 +1046,34 @@ def phase_lm_small() -> None:
         err = lc.check_slstm(case)
         log(f"[lm-small] slstm_scan (B, T, d, H, R dtype, carry) = {case}: "
             f"kernel == plain version (max |diff| {err:.3e})")
+
+
+def phase_lm_dense() -> None:
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lm_checks as lc
+    from repro_torch.launch.serve import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = serve(verbose=False)  # the defaults: llama3.2-1b, smoke size, the card
+    if not r["finite"] or r["tokens"].shape != (4, 16):
+        raise AssertionError(f"[lm-dense] serve(): tokens {r['tokens'].shape}, "
+                             f"finite {r['finite']}")
+    log(f"[lm-dense] serve() with no arguments: llama3.2-1b at the smoke size on "
+        f"the card, every logit finite, first tokens {r['tokens'][:, :6].tolist()}")
+    captured: dict = {}
+    _, routes = serve_full("llama3.2-1b", "lm-dense", {"flash_attention": fa},
+                           {"flash_attention": 16}, captured)
+    if routes["flash_attention"] != {"tensor_cores": 16, "cuda_cores": 0}:
+        raise AssertionError(f"[lm-dense] flash routes {routes['flash_attention']}: "
+                             "all 16 served launches must take the tensor cores")
+    (q, k, v), kw = captured.pop(("flash_attention_cuda", None))
+    mkw = dict(causal=kw["causal"], window=kw["window"], sm_scale=kw["sm_scale"])
+    err = lc.compare_flash(q.contiguous(), k.contiguous(), v.contiguous(), **mkw)
+    log(f"[lm-dense] flash_attention at the first layer's q {tuple(q.shape)}, k/v "
+        f"{tuple(k.shape)} {q.dtype} (D = {q.shape[-1]}, {fa.route(q.dtype, q.shape[-1])} "
+        f"route), {mkw}: kernel == plain version within one bf16 ulp (max |diff| "
+        f"{err:.3e})")
 
 
 def attention_pairs(T: int, S: int, causal: bool, window) -> int:
@@ -1174,13 +1461,16 @@ def main(argv=None) -> int:
                                        "Performance Loss", "setmaxnreg")):
                 log(f"[build] {line.strip()}")
     log(f"[build] {time.perf_counter() - t0:.2f} s wall for all {len(KERNELS)}")
-    kernels = [{}, {}]
+    kernels = [{}, {}, {}]
     lm_kernels: list = []
     for phase, run in (("small", phase_small),
                        ("full", lambda: phase_full(kernels[0])),
                        ("sys-small", phase_sys_small),
                        ("sys-full", lambda: phase_sys_full(kernels[1])),
+                       ("fsys-small", phase_fsys_small),
+                       ("fsys-full", lambda: phase_fsys_full(kernels[2])),
                        ("lm-small", phase_lm_small),
+                       ("lm-dense", phase_lm_dense),
                        ("rg-full", lambda: phase_rg_full(lm_kernels)),
                        ("xl-full", lambda: phase_xl_full(lm_kernels))):
         if phase in phases:

@@ -1,9 +1,10 @@
 """Architecture registry of the port, as ``repro.configs.registry``.
 
 ``get_config`` and ``ALIASES`` work as in the JAX package for the
-architectures the port serves (recurrentgemma-2b, xlstm-125m, and the
-manycore wafer); every other assigned architecture raises
-``NotImplementedError`` naming the ROADMAP item it waits for.
+architectures the port serves (the dense llama3.2-1b/3b and gemma-2b/7b,
+recurrentgemma-2b, xlstm-125m, and the manycore wafer); every other
+assigned architecture raises ``NotImplementedError`` naming the ROADMAP
+item it waits for.
 """
 from __future__ import annotations
 
@@ -38,14 +39,11 @@ ALIASES = {
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
-PORTED = ("recurrentgemma_2b", "xlstm_125m", "manycore")
+PORTED = ("llama3_2_1b", "llama3_2_3b", "gemma_7b", "gemma_2b",
+          "recurrentgemma_2b", "xlstm_125m", "manycore")
 
 #: What each architecture not yet ported waits for (ROADMAP Queue 1 item 11).
 WAITS = {
-    "llama3_2_1b": "the dense configs",
-    "llama3_2_3b": "the dense configs",
-    "gemma_7b": "the dense configs",
-    "gemma_2b": "the dense configs",
     "qwen3_moe_235b_a22b": "models/moe.py",
     "llama4_maverick_400b_a17b": "models/moe.py",
     "qwen2_vl_72b": "M-RoPE and the embeddings input",

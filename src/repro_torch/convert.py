@@ -10,7 +10,9 @@ nothing of JAX:
     engine state to and from a dict of numpy arrays keyed by dotted field
     path (``"reg_val"``, ``"queues.buf"``, ``"block_states.0.acc"``,
     ``"credits.0"``, ``"cycle"``, ``"epoch"``), all in the global view —
-    the layout the JAX ``FusedEngine`` keeps with ``batch_axes``;
+    the layout the JAX ``FusedEngine`` keeps with ``batch_axes``; a grid
+    engine built without params (the JAX ``FusedEngine.grid``) takes its
+    group params as well;
   * ``register_state_from_numpy`` / ``register_state_to_numpy`` do the
     same for a register engine state (``"cell.a_reg"``, ``"west_slab"``,
     ``"credit_e"``, ``"cycle"``, ...), leaves with leading ``(Dr, Dc)``
@@ -138,11 +140,15 @@ def fused_state_to_numpy(state: FusedState) -> dict[str, np.ndarray]:
 
 
 def fused_state_from_numpy(engine: FusedEngine,
-                           arrays: Mapping[str, np.ndarray]) -> FusedState:
+                           arrays: Mapping[str, np.ndarray],
+                           group_params: dict | None = None) -> FusedState:
     """A state of ``engine`` holding ``arrays`` (see ``fused_state_to_numpy``
     for the keys), on the engine's device.  Every leaf must be present with
-    the engine's shape; extra keys (e.g. the source's tables) are ignored."""
-    template = engine.init(0)
+    the engine's shape; extra keys (e.g. the source's tables) are ignored.
+    ``group_params`` are the ``init`` overrides of an engine whose IR holds
+    no params (the JAX ``FusedEngine.grid``'s stacked cell params, from
+    ``params_from_numpy``)."""
+    template = engine.init(0, group_params=group_params)
     body = _from_numpy(template.replace(tables=None), arrays, engine.device)
     return body.replace(tables=template.tables)
 

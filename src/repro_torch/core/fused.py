@@ -22,17 +22,19 @@ epoch:
     :meth:`FusedEngine._cycle_body` and the exchange halves below.
 
 Correctness contract (held against the JAX ``FusedEngine`` in
-``tests/test_torch_fused.py``): after every epoch the state equals the JAX
-engine's leaf for leaf, for any partition tree and per-tier rates, with
-``overlap`` on or off; with ``capacity=2`` and K=(1,1) the engine tracks
-the single-netlist ``NetworkSim`` cycle by cycle.
+``tests/test_torch_fused.py`` and, for the ``grid`` preset and networks of
+several groups and block types, ``tests/test_torch_fused_grid.py``): after
+every epoch the state equals the JAX engine's leaf for leaf, for any
+partition tree and per-tier rates, with ``overlap`` on or off; with
+``capacity=2`` and K=(1,1) the engine tracks the single-netlist
+``NetworkSim`` cycle by cycle.
 
 The JAX package splits the flat state into per-row carries for XLA:CPU's
 caches; that split changes nothing in the results and is not ported.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -42,7 +44,7 @@ from ..kernels import granule_step
 from ..obs.registry import REGISTRY
 from .device import group_generator, to_tensor
 from .distributed import GraphEngine
-from .graph import _rank_within
+from .graph import ChannelGraph, _rank_within, grid_partition
 from .struct import tensor_dataclass, tree_map
 
 Tree = Any
@@ -113,7 +115,27 @@ class FusedEngine(GraphEngine):
         self._build_fused_tables()
         self._build_flat_tables()
         self._program_cache: dict[int, tuple] = {}
-        self._cons_cache: dict[torch.device, torch.Tensor] = {}
+        self._cons_cache: dict[torch.device, tuple] = {}
+
+    # ---------------------------------------------------- uniform-grid preset
+    @classmethod
+    def grid(cls, cell, R: int, C: int, mesh=None, K: int = 1,
+             payload_words: int = 2, capacity: int = qmod.DEFAULT_CAPACITY,
+             dtype: Any = torch.float32, axis_r: str = "gr", axis_c: str = "gc",
+             *, params=None, batch_axes=None, **kw) -> "FusedEngine":
+        """Uniform R×C grid preset over ``ChannelGraph.grid`` and
+        ``grid_partition``, as the JAX ``FusedEngine.grid``.  The granule
+        grid is ``Dr x Dc``, each the axis's size in ``batch_axes`` (a
+        mapping) or ``mesh``, 1 where neither names it; ``params`` are the
+        cells' stacked params (else pass ``group_params`` to ``init``)."""
+        sizes = {**(mesh or {}),
+                 **(batch_axes if isinstance(batch_axes, Mapping) else {})}
+        Dr, Dc = int(sizes.get(axis_r, 1)), int(sizes.get(axis_c, 1))
+        graph = ChannelGraph.grid(cell, R, C, params=params,
+                                  payload_words=payload_words, dtype=dtype,
+                                  capacity=capacity)
+        return cls(graph, grid_partition(R, C, Dr, Dc), mesh, K=K,
+                   axes=(axis_r, axis_c), batch_axes=batch_axes, **kw)
 
     # ------------------------------------------------- host-side lowering
     def _build_fused_tables(self) -> None:
@@ -503,17 +525,18 @@ class FusedEngine(GraphEngine):
             self._program_cache[t0] = program
         return self._program_cache[t0]
 
-    def _cons_table(self, dev: torch.device) -> torch.Tensor | None:
-        """The CUDA program's consumer table (``granule_step.consumer_table``),
-        derived once per device; None where the kernel does not run (the
-        CPU, or more than one group)."""
-        if dev.type != "cuda" or len(self.graph.groups) != 1:
+    def _cons_table(self, dev: torch.device) -> tuple | None:
+        """The CUDA program's consumer tables, one a group
+        (``granule_step.consumer_table``), derived once per device; None
+        on the CPU, where the kernel does not run."""
+        if dev.type != "cuda":
             return None
         if dev not in self._cons_cache:
-            self._cons_cache[dev] = torch.as_tensor(granule_step.consumer_table(
-                self._tx_flat[0], self._inv_tx_flat, self._inv_tx_mask_flat,
-                self._inv_rx_flat, self._inv_rx_mask_flat, self.B * self.n_reg,
-            ), device=dev)
+            self._cons_cache[dev] = tuple(
+                torch.as_tensor(t, device=dev) for t in granule_step.consumer_table(
+                    self._tx_flat, self._inv_tx_flat, self._inv_tx_mask_flat,
+                    self._inv_rx_flat, self._inv_rx_mask_flat, self.B * self.n_reg,
+                ))
         return self._cons_cache[dev]
 
     def _consts(self, tb: FusedTables) -> granule_step.ProgramConsts:
@@ -559,13 +582,15 @@ class FusedEngine(GraphEngine):
         carry, pending = self._resident_exchange_issue(carry, t, consts)
         return self._resident_exchange_commit(carry, t, pending, consts)
 
-    def _epoch(self, local: FusedState) -> FusedState:
+    def _epoch(self, local: FusedState, program=None) -> FusedState:
         """One outermost epoch: the resident program of every tier, then
-        the epoch counter.  On a CUDA state the kernel updates the carry's
-        tensors in place."""
+        the epoch counter.  ``program`` (``granule_step.epoch_program``
+        unless a caller holds a version against another) runs it; on a
+        CUDA state the kernel updates the carry's tensors in place."""
+        program = granule_step.epoch_program if program is None else program
         carry = (local.reg_val, local.reg_v, local.queues, local.block_states,
                  local.cycle, local.credits)
-        out = granule_step.epoch_program(
+        out = program(
             self._resident_cycle, carry, self._resident_program(0),
             exchange_fn=self._resident_exchange,
             issue_fn=self._resident_exchange_issue,

@@ -31,6 +31,16 @@ from ..core.struct import tensor_dataclass
 
 PAYLOAD_WORDS = 2  # [value, hop tag]
 
+#: The state leaves the device step takes, with their dtypes (``value`` is
+#: never touched), and those other threads read within a cycle (the kernel
+#: keeps two buffers of each, by cycle parity).
+DEVICE_LEAVES = {
+    "own": torch.float32, "acc": torch.float32, "total": torch.float32,
+    "phase": torch.int32, "sent": torch.int32, "rcvd": torch.int32,
+    "fwd": torch.float32, "fwd_v": torch.bool, "fires": torch.int32,
+}
+PAIRED_LEAVES = ("phase", "sent", "rcvd", "fwd_v")
+
 
 @tensor_dataclass
 class CoreState:

@@ -24,7 +24,9 @@ Packet payload: 2 words — [value, tag], the tag being the A-row index.
 ``psum + a_val * b`` into one FMA (a single rounding), so every MAC of the
 port goes through :func:`mac`; a separate multiply and add would round
 twice and drift from the reference.  ``kernels/csrc/systolic_step.cu``
-writes the same MAC as ``__fmaf_rn``.
+writes the same MAC as ``__fmaf_rn``, and so does the fused engine's
+device step of this cell in ``kernels/csrc/granule_step.cu``; any change
+to :meth:`SystolicCell.step` must be made there too.
 """
 from __future__ import annotations
 
@@ -36,6 +38,19 @@ from ..core.network import Network
 from ..core.struct import tensor_dataclass, tree_map
 
 PAYLOAD_WORDS = 2  # [value, tag]
+
+#: The state leaves the fused engine's device step takes, with their dtypes
+#: (``a_buf`` and ``y_buf`` are ``(n, M)``, the rest ``(n,)``), and those
+#: other threads read within a cycle: the producer of a west cell's
+#: ``n_in`` reads its ``a_idx`` (its ``a_valid``), so the kernel keeps two
+#: buffers of it, by cycle parity.
+DEVICE_LEAVES = {
+    "b": torch.float32, "is_west": torch.bool, "is_north": torch.bool,
+    "is_south": torch.bool, "is_east": torch.bool, "a_buf": torch.float32,
+    "a_idx": torch.int32, "y_buf": torch.float32, "y_idx": torch.int32,
+    "fires": torch.int32,
+}
+PAIRED_LEAVES = ("a_idx",)
 
 
 def mac(p: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

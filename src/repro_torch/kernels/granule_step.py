@@ -18,9 +18,12 @@ are the issue and commit halves of that exchange (see
     registers it produces, with the consumer's readiness recomputed
     through :func:`consumer_table`; the boundary rows it pushes or pops),
     and the credit-bounded slab exchange between cycles.  ``ManycoreCell``
-    is the one block type with a device step so far; any other raises
-    ``NotImplementedError`` on a CUDA state.  The kernel updates the
-    carry's tensors in place and returns the same carry.
+    and ``SystolicCell`` have a device step (:func:`device_step_type`);
+    a program of up to :data:`MAX_GROUPS` groups of them, of either type
+    and any mix, runs in one launch a cycle, each group on its own warps.
+    Any other block type raises ``NotImplementedError`` on a CUDA state.
+    The kernel updates the carry's tensors in place and returns the same
+    carry.
 
 Nothing falls back: a CUDA carry either launches the kernel or raises.
 """
@@ -161,7 +164,7 @@ class ProgramConsts:
     recv_mask: tuple
     bat_fwd: tuple  # per tier: (B, S_t) int32 source batch row
     bat_rev: tuple
-    cons: Any = None  # (B*n_slot, 2) int32 consumer table (CUDA only)
+    cons: Any = None  # per group: (B*n_slot, 2) int32 consumer table (CUDA only)
     blocks: tuple = static_field(default=())  # per group: the Block
     depths: tuple = static_field(default=())  # per tier: slab depth E_t
     n_q: int = static_field(default=1)  # queue rows per batch row
@@ -238,21 +241,22 @@ def epoch_program(
 
 
 # ------------------------------------------------------------- the kernel
-def consumer_table(tx_idx, inv_tx, inv_tx_mask, inv_rx, inv_rx_mask,
+def consumer_table(tx_tables, inv_tx, inv_tx_mask, inv_rx, inv_rx_mask,
                    n_reg: int):
-    """The kernel's consumer table of one group: ``(n_slot, n_out)``
-    int32, the flat consumer ``slot * n_in + port`` of the channel each
-    output port drives, -1 where that channel has no local consumer (a
+    """The kernel's consumer tables: for each group, ``(n_slot, n_out)``
+    int32, the flat consumer of the channel each output port drives — the
+    inverse map's id, ``in_base + slot * n_in + port`` with the groups'
+    in ports laid end to end in group order, so the consumer may sit in
+    another group — -1 where that channel has no local consumer (a
     boundary or external queue row), -2 where the port drives no channel
-    (a sentinel).  Arguments are the flat tables (numpy, any leading
-    size-1 dims): ``tx_idx`` ``(n_slot, n_out)`` and the inverse maps
-    over the combined ids.
+    (a sentinel).  Arguments are the flat tables (numpy, any leading size-1
+    dims): ``tx_tables`` one ``(n_slot, n_out)`` port table per group and
+    the inverse maps over the combined ids.
 
     Raises ``NotImplementedError`` for a queue row with a local producer
     and a local consumer (the kernel commits each row on its one local
     side), and ``ValueError`` where a port's channel names another
     producer."""
-    tx = np.asarray(tx_idx).reshape(np.asarray(tx_idx).shape[-2:]).astype(np.int64)
     inv_tx = np.asarray(inv_tx).reshape(-1).astype(np.int64)
     inv_rx = np.asarray(inv_rx).reshape(-1).astype(np.int64)
     tx_m = np.asarray(inv_tx_mask).reshape(-1).astype(bool)
@@ -263,25 +267,63 @@ def consumer_table(tx_idx, inv_tx, inv_tx_mask, inv_rx, inv_rx_mask,
             f"queue rows {both[:8].tolist()} have a local producer and a local "
             "consumer: the CUDA cycle commits each boundary row on its one "
             "local side")
-    n_slot, n_out = tx.shape
-    own = np.arange(n_slot * n_out).reshape(n_slot, n_out)
-    driven = tx_m[tx]
-    if not (inv_tx[tx] == own)[driven].all():
-        raise ValueError("a port's channel names another producer (not SPSC)")
-    cons = np.where(rx_m[tx], inv_rx[tx], -1)
-    return np.where(driven, cons, -2).astype(np.int32)
+    out, off = [], 0
+    for tbl in tx_tables:
+        tx = np.asarray(tbl).reshape(np.asarray(tbl).shape[-2:]).astype(np.int64)
+        n_slot, n_out = tx.shape
+        own = off + np.arange(n_slot * n_out).reshape(n_slot, n_out)
+        off += n_slot * n_out
+        driven = tx_m[tx]
+        if not (inv_tx[tx] == own)[driven].all():
+            raise ValueError("a port's channel names another producer (not SPSC)")
+        cons = np.where(rx_m[tx], inv_rx[tx], -1)
+        out.append(np.where(driven, cons, -2).astype(np.int32))
+    return tuple(out)
 
 
-_PAIRED = ("reg_v", "q_head", "phase", "sent", "rcvd", "fwd_v")
-_PROGRAM_FIELDS = (
-    "reg_val", "reg_v", "q_buf", "q_head", "q_tail", "own", "acc", "total",
-    "phase", "sent", "rcvd", "fwd", "fwd_v", "fires", "rx_idx", "tx_idx",
-    "cons", "cycle",
-)
-_PROGRAM_INTS = (
-    "n_reg", "n_qrows", "n_q_row", "cap", "have_q", "n_slot", "R", "C",
-    "divider", "W",
-)
+#: Most groups one CUDA program steps (``kMaxGroups`` of the kernel).
+MAX_GROUPS = 4
+_PTR, _PAIR, _I32 = ctypes.c_void_p, ctypes.c_void_p * 2, ctypes.c_int32
+
+
+class _CoreLeaves(ctypes.Structure):
+    """``CoreLeaves`` of ``csrc/granule_step.cu`` (``ManycoreCell``)."""
+
+    _fields_ = [("own", _PTR), ("acc", _PTR), ("total", _PTR),
+                ("phase", _PAIR), ("sent", _PAIR), ("rcvd", _PAIR),
+                ("fwd", _PTR), ("fwd_v", _PAIR), ("fires", _PTR),
+                ("R", _I32), ("C", _I32)]
+
+
+class _CellLeaves(ctypes.Structure):
+    """``CellLeaves`` of ``csrc/granule_step.cu`` (``SystolicCell``)."""
+
+    _fields_ = [("b", _PTR), ("is_west", _PTR), ("is_north", _PTR),
+                ("is_south", _PTR), ("is_east", _PTR), ("a_buf", _PTR),
+                ("a_idx", _PAIR), ("y_buf", _PTR), ("y_idx", _PTR),
+                ("fires", _PTR), ("M", _I32)]
+
+
+class _Leaves(ctypes.Union):
+    _fields_ = [("core", _CoreLeaves), ("cell", _CellLeaves)]
+
+
+class _Group(ctypes.Structure):
+    _fields_ = [("type", _I32), ("base", _I32), ("n_slot", _I32),
+                ("in_base", _I32), ("divider", _I32), ("rx_idx", _PTR),
+                ("tx_idx", _PTR), ("cons", _PTR), ("u", _Leaves)]
+
+
+class _ProgramArgs(ctypes.Structure):
+    """``ProgramArgs`` of ``csrc/granule_step.cu``, field for field."""
+
+    _fields_ = ([("reg_val", _PTR), ("reg_v", _PAIR), ("q_buf", _PTR),
+                 ("q_head", _PAIR), ("q_tail", _PAIR), ("cycle", _PTR)]
+                + [(n, _I32) for n in ("n_reg", "n_qrows", "n_q_row", "cap",
+                                       "have_q", "W", "n_groups", "n_threads")]
+                + [("g", _Group * MAX_GROUPS)])
+
+
 _TIER_PTRS = (
     "send_idx", "send_mask", "recv_idx", "recv_mask", "bat_fwd", "bat_rev",
     "credits", "slab", "cnt", "cred",
@@ -289,24 +331,23 @@ _TIER_PTRS = (
 _TIER_INTS = ("B", "S", "E")
 
 
-class _ProgramArgs(ctypes.Structure):
-    """``ProgramArgs`` of ``csrc/granule_step.cu``, field for field."""
-
-    _fields_ = ([(n, ctypes.c_void_p * 2 if n in _PAIRED else ctypes.c_void_p)
-                 for n in _PROGRAM_FIELDS]
-                + [(n, ctypes.c_int32) for n in _PROGRAM_INTS])
-
-
 class _TierArgs(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_void_p) for n in _TIER_PTRS]
-                + [(n, ctypes.c_int32) for n in _TIER_INTS])
+    _fields_ = ([(n, _PTR) for n in _TIER_PTRS]
+                + [(n, _I32) for n in _TIER_INTS])
 
 
-_CORE_FIELDS = {
-    "own": torch.float32, "acc": torch.float32, "total": torch.float32,
-    "phase": torch.int32, "sent": torch.int32, "rcvd": torch.int32,
-    "fwd": torch.float32, "fwd_v": torch.bool, "fires": torch.int32,
-}
+def device_step_type(block) -> int | None:
+    """The kernel's type code of ``block`` (0 ``ManycoreCell``, 1
+    ``SystolicCell``), or None where the kernel has no step for it.  A
+    subclass counts only where it keeps its base's ``step`` (a clock
+    divider, say): any other step has no device function."""
+    from ..hw.manycore import ManycoreCell
+    from ..hw.systolic import SystolicCell
+
+    for code, cls in enumerate((ManycoreCell, SystolicCell)):
+        if isinstance(block, cls) and type(block).step is cls.step:
+            return code
+    return None
 
 
 def _library():
@@ -315,6 +356,10 @@ def _library():
     lib = _build.load("granule_step")
     fn = lib.granule_program
     if fn.argtypes is None:
+        size = lib.granule_args_size()
+        if size != ctypes.sizeof(_ProgramArgs):
+            raise RuntimeError(f"ProgramArgs is {size} B in the kernel, "
+                               f"{ctypes.sizeof(_ProgramArgs)} B here")
         fn.argtypes = [ctypes.POINTER(_ProgramArgs), ctypes.POINTER(_TierArgs),
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_void_p]
@@ -322,72 +367,102 @@ def _library():
     return fn
 
 
+def _group_leaves(code: int, block, st, n_slot: int, dev, keep: list):
+    """The state leaves of one group for the kernel, checked; each paired
+    leaf gets its second buffer (kept alive in ``keep``)."""
+    from ..hw import manycore, systolic
+
+    mod, cls = ((manycore, manycore.CoreState) if code == 0
+                else (systolic, systolic.CellState))
+    if not isinstance(st, cls):
+        raise TypeError(f"{type(block).__name__}: expected {cls.__name__}, "
+                        f"got {type(st).__name__}")
+    ptr = {}
+    for name, dtype in mod.DEVICE_LEAVES.items():
+        x = getattr(st, name)
+        shape = (n_slot,) + ((block.m_stream,) if name in ("a_buf", "y_buf") else ())
+        p0 = tensor_ptr(x, name, dtype, shape, dev)
+        if name in mod.PAIRED_LEAVES:
+            # ManycoreCell's paired leaves are written by every slot every
+            # cycle; a_idx only by west cells, so its copy starts equal
+            x1 = x.clone() if code == 1 else torch.empty_like(x)
+            keep.append(x1)
+            ptr[name] = _PAIR(p0, x1.data_ptr())
+        else:
+            ptr[name] = p0
+    if code == 0:
+        return _Leaves(core=_CoreLeaves(**ptr, R=block.R, C=block.C))
+    return _Leaves(cell=_CellLeaves(**ptr, M=block.m_stream))
+
+
 def epoch_program_cuda(carry: Tree, program: Program,
                        consts: ProgramConsts) -> Tree:
     """Launch ``csrc/granule_step.cu`` on the carry, in place, on the
-    current stream: one launch a simulated cycle.  Every leaf that another
-    thread reads within a cycle gets a second buffer here, the kernel
-    alternates the two by cycle parity, and the results end in the
-    carry's own tensors.  Raises for anything the kernel does not take."""
-    from ..hw.manycore import CoreState, ManycoreCell
-
+    current stream: one launch a simulated cycle over every slot of every
+    group, each group by its block type's device step.  Every leaf that
+    another thread reads within a cycle gets a second buffer here, the
+    kernel alternates the two by cycle parity, and the results end in the
+    carry's own tensors.  Raises for anything the kernel does not take:
+    ``NotImplementedError`` for a block type with no device step."""
     global launches
     program = validate_program(program)
     reg_val, reg_v, q, block_states, cycle, credits = carry
     dev = reg_val.device
-    if len(consts.blocks) != 1 or not isinstance(consts.blocks[0], ManycoreCell):
+    codes = [device_step_type(b) for b in consts.blocks]
+    if None in codes or not 1 <= len(codes) <= MAX_GROUPS:
         names = ", ".join(type(b).__name__ for b in consts.blocks)
         raise NotImplementedError(
             f"no device step for block types [{names}]: the CUDA epoch "
-            "program runs one group of ManycoreCell"
+            f"program steps up to {MAX_GROUPS} groups of ManycoreCell and "
+            "SystolicCell"
         )
-    cell = consts.blocks[0]
-    st = block_states[0]
-    if not isinstance(st, CoreState):
-        raise TypeError(f"expected CoreState, got {type(st).__name__}")
     n_reg, W = reg_val.shape
     if W != 2:
-        raise ValueError(f"ManycoreCell packets are 2 words, carry has {W}")
-    n_slot = st.phase.shape[0]
+        raise ValueError(f"the device steps take 2-word packets, carry has {W}")
     n_qrows, cap = q.buf.shape[0], q.capacity
     have_q = n_qrows > 1
     B = consts.send_idx[0].shape[0] if consts.send_idx else 1
-    if consts.cons is None:
-        raise ValueError("consts.cons is missing: the CUDA program needs the "
-                         "consumer table (granule_step.consumer_table)")
-
-    ptr = {
-        "reg_val": tensor_ptr(reg_val, "reg_val", torch.float32, (n_reg, W), dev),
-        "q_buf": tensor_ptr(q.buf, "queues.buf", torch.float32, (n_qrows, cap, W), dev),
-        "q_tail": tensor_ptr(q.tail, "queues.tail", torch.int32, (n_qrows,), dev),
-        "rx_idx": tensor_ptr(consts.rx_idx[0], "rx_idx", torch.int32, (n_slot, 2), dev),
-        "tx_idx": tensor_ptr(consts.tx_idx[0], "tx_idx", torch.int32, (n_slot, 2), dev),
-        "cons": tensor_ptr(consts.cons, "cons", torch.int32, (n_slot, 2), dev),
-        "cycle": tensor_ptr(cycle, "cycle", torch.int32, (), dev),
-    }
-    first = {"reg_v": (reg_v, torch.bool, (n_reg,)),
-             "q_head": (q.head, torch.int32, (n_qrows,))}
-    for name, dtype in _CORE_FIELDS.items():
-        first[name] = (getattr(st, name), dtype, (n_slot,))
+    if consts.cons is None or len(consts.cons) != len(codes):
+        raise ValueError("consts.cons is missing: the CUDA program needs a "
+                         "consumer table a group (granule_step.consumer_table)")
     if have_q and n_qrows != B * consts.n_q:
         raise ValueError("queue rows do not match the batch of the exchange tables")
-    # the second buffer of each paired leaf: every slot writes its own
-    # every cycle, so those start empty; registers and queue heads that no
-    # thread commits (the sentinels, rows only the exchanges move) must
-    # read the same in both, so those start as copies
-    keep = []
-    for name, (x, dtype, shape) in first.items():
-        p0 = tensor_ptr(x, name, dtype, shape, dev)
-        if name in _PAIRED:
-            x1 = x.clone() if name in ("reg_v", "q_head") else torch.empty_like(x)
-            keep.append(x1)
-            ptr[name] = (ctypes.c_void_p * 2)(p0, x1.data_ptr())
-        else:
-            ptr[name] = p0
+
+    keep: list = []
+
+    def paired(x, name, dtype, shape):
+        x1 = x.clone()  # no thread commits the sentinels or idle rows
+        keep.append(x1)
+        return _PAIR(tensor_ptr(x, name, dtype, shape, dev), x1.data_ptr())
+
+    groups = (_Group * MAX_GROUPS)()
+    base = in_base = 0
+    for gi, (code, block, st) in enumerate(zip(codes, consts.blocks, block_states)):
+        n_slot = consts.rx_idx[gi].shape[0]
+        tables = {}
+        for name, t in (("rx_idx", consts.rx_idx[gi]), ("tx_idx", consts.tx_idx[gi]),
+                        ("cons", consts.cons[gi])):
+            tables[name] = tensor_ptr(t, f"{name}.{gi}", torch.int32, (n_slot, 2), dev)
+            if tables[name] % 8:
+                raise ValueError(f"{name}.{gi}: the kernel loads int2 pairs, "
+                                 "the table must be 8-byte aligned")
+        groups[gi] = _Group(
+            type=code, base=base, n_slot=n_slot, in_base=in_base,
+            divider=int(block.clock_divider),
+            u=_group_leaves(code, block, st, n_slot, dev, keep), **tables)
+        base += -(-n_slot // 32) * 32  # the next group starts on a warp boundary
+        in_base += 2 * n_slot
     args = _ProgramArgs(
-        **ptr, n_reg=n_reg, n_qrows=n_qrows, n_q_row=consts.n_q, cap=cap,
-        have_q=int(have_q), n_slot=n_slot, R=cell.R, C=cell.C,
-        divider=int(cell.clock_divider), W=W,
+        reg_val=tensor_ptr(reg_val, "reg_val", torch.float32, (n_reg, W), dev),
+        reg_v=paired(reg_v, "reg_v", torch.bool, (n_reg,)),
+        q_buf=tensor_ptr(q.buf, "queues.buf", torch.float32, (n_qrows, cap, W), dev),
+        q_head=paired(q.head, "queues.head", torch.int32, (n_qrows,)),
+        q_tail=paired(q.tail, "queues.tail", torch.int32, (n_qrows,)),
+        cycle=tensor_ptr(cycle, "cycle", torch.int32, (), dev),
+        n_reg=n_reg, n_qrows=n_qrows, n_q_row=consts.n_q, cap=cap,
+        have_q=int(have_q), W=W, n_groups=len(codes),
+        n_threads=groups[len(codes) - 1].base + groups[len(codes) - 1].n_slot,
+        g=groups,
     )
 
     n_tiers = len(consts.send_idx)
@@ -426,7 +501,8 @@ def epoch_program_cuda(carry: Tree, program: Program,
 
 
 __all__ = [
-    "Program", "ProgramConsts", "consumer_table", "epoch_program",
+    "MAX_GROUPS", "Program", "ProgramConsts", "consumer_table",
+    "device_step_type", "epoch_program",
     "epoch_program_ref", "epoch_program_cuda", "overlap_program",
     "resolve_overlap", "validate_program",
 ]

@@ -22,7 +22,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(arch: str = "recurrentgemma-2b", smoke: bool = True, batch: int = 4,
+def serve(arch: str = "llama3.2-1b", smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen: int = 16, seed: int = 0,
           verbose: bool = True, device="cuda") -> dict:
     """Random weights from ``seed``, prompts from a generator seeded with
@@ -82,7 +82,7 @@ def serve(arch: str = "recurrentgemma-2b", smoke: bool = True, batch: int = 4,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--batch", type=int, default=4)

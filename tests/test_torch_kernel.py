@@ -1,6 +1,7 @@
 """The hand-written kernels (``granule_step``, ``systolic_step``,
 ``flash_attention``, ``rglru_scan``, ``slstm_scan``) against their plain
-PyTorch versions, on the card.  These tests need a CUDA device and skip
+PyTorch versions, on the card (``granule_step`` for ManycoreCell,
+SystolicCell and programs of several groups).  These tests need a CUDA device and skip
 without one (run them there with
 ``python -m pytest -q -m cuda tests/test_torch_kernel.py``);
 ``chip_smoke.py`` makes the same checks, through the same
@@ -18,12 +19,13 @@ from repro_torch.core import ChannelGraph, tiered_grid_partition
 from repro_torch.core.fused import FusedEngine
 from repro_torch.core.struct import tree_map
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import granule_step, lm_checks, systolic_checks
+from repro_torch.kernels import fused_checks, granule_step, lm_checks, systolic_checks
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import slstm_scan as sl
 from repro_torch.kernels import systolic_step as sk
 from repro_torch.models import model as lm
 from repro_torch.hw.manycore import ManycoreCell, make_core_params
+from repro_torch.hw.systolic import SystolicCell, make_cell_params, matmul_error_bound
 
 pytestmark = pytest.mark.cuda
 
@@ -113,6 +115,56 @@ def test_kernel_odd_cycle_program(cuda):
         if (eng.gather_group(cpu, 0).phase == 2).all():
             break
     assert (eng.gather_group(gpu, 0).total == ((np.arange(256) % 8) + 1).sum()).all()
+
+
+class _HalfRateMac(SystolicCell):
+    """A systolic cell stepped every other base-clock cycle."""
+
+    clock_divider = 2
+
+
+@pytest.mark.parametrize("M,R,C,K,tiles", [
+    (6, 4, 4, 1, (1, 1)), (33, 17, 23, 3, (1, 1)), (33, 17, 23, 62, (1, 1)),
+    (12, 8, 8, 3, (2, 2))])
+def test_fused_grid_kernel_matches_plain_version(cuda, M, R, C, K, tiles):
+    """``FusedEngine.grid`` of SystolicCells through the kernel against the
+    plain version on the card, every leaf bit-exact after every epoch, to
+    the end: one-cycle and odd-length calls (each program ends on the
+    other parity buffer), a call longer than the run, and 2x2 granules
+    batched (boundary queues between SystolicCells); Y within the bound."""
+    A, B = fused_checks.operands(M, R, C, seed=M + K)
+    eng = FusedEngine.grid(SystolicCell(M), R, C, K=K, capacity=4,
+                           params=make_cell_params(A, B),
+                           batch_axes={"gr": tiles[0], "gc": tiles[1]})
+    epochs, st = fused_checks.check_engine(eng, fused_checks.network_done(eng), 400)
+    assert epochs > 0
+    Y = fused_checks.grid_result(eng, st, 0, R, C, M)
+    Y64 = A.astype(np.float64) @ B.astype(np.float64)
+    assert (np.abs(Y - Y64) <= matmul_error_bound(A, B)).all()
+
+
+@pytest.mark.parametrize("which", ["two_group", "two_group_half_rate", "mixed",
+                                   "mixed_2granules"])
+def test_several_groups_kernel_matches_plain_version(cuda, which):
+    """Programs of several groups in one launch a cycle: two SystolicCell
+    groups (the south one on a divided clock, so a producer's pop follows
+    its consumer's clock), and ManycoreCell with SystolicCell (two types
+    dispatched in one launch, channels between them both ways), on one
+    granule and on two batched ones; bit-exact after every epoch."""
+    A, B = fused_checks.operands(9, 6, 5, seed=5)
+    kw = dict(K=3)
+    if which.startswith("two_group"):
+        net, _ = fused_checks.two_group_systolic(
+            A, B, capacity=4,
+            south_cls=_HalfRateMac if which.endswith("half_rate") else None)
+    else:
+        net, *_ = fused_checks.mixed_network(A, B, 4, 5, capacity=4)
+        if which == "mixed_2granules":
+            kw.update(partition=np.arange(54) % 2, tiers=[(("g",), 3)],
+                      batch_axes={"g": 2})
+    eng = net.build(engine="fused", session=False, device="cuda", **kw)
+    done = fused_checks.network_done(eng)
+    assert fused_checks.check_engine(eng, done, 400)[0] > 0
 
 
 def _sys_input(M, R, C, tiles, K, epochs, seed):

@@ -4,12 +4,14 @@ Both packages start from the JAX ``init_params`` weights (carried across
 by ``convert.lm_params_from_numpy``) and the same prompts, then run
 ``prefill`` and greedy ``decode_step``s: the logits must agree within 1e-4
 (f32; they reach ~60 in magnitude, and differ by ~1e-5 from sums taken in
-other orders) and the greedy tokens must be identical.  Four configs: each
-architecture's ``SMOKE`` (no kernel route but the sLSTM's) and a
+other orders) and the greedy tokens must be identical.  Six configs: each
+recurrent architecture's ``SMOKE`` (no kernel route but the sLSTM's) and a
 kernel-aligned variant (``use_kernels``, a 256-token prompt; for
 recurrentgemma ``rnn_width`` 256 and a 96-token window, so the ring cache
 wraps and the prefill rolls it), whose prefill takes the flash attention
-and RG-LRU kernel modules (their plain versions, on the CPU).
+and RG-LRU kernel modules (their plain versions, on the CPU); and the
+dense llama3.2-1b (GQA, SwiGLU) and gemma-2b (MQA, GeGLU, the embedding
+scale) at ``SMOKE``.
 """
 import dataclasses
 
@@ -40,6 +42,8 @@ CONFIGS = {
                   dict(use_kernels=True, rnn_width=256, attn_window=96), (1, 4, 0)),
     "xl-smoke": ("xlstm-125m", 32, {}, (0, 0, 1 + GEN)),
     "xl-kernel": ("xlstm-125m", 256, dict(use_kernels=True), (0, 0, 1 + GEN)),
+    "llama-smoke": ("llama3.2-1b", 32, {}, (0, 0, 0)),
+    "gemma-smoke": ("gemma-2b", 32, {}, (0, 0, 0)),
 }
 
 
@@ -199,13 +203,29 @@ def test_serve_on_the_cpu(arch):
 def test_registry():
     """``get_config`` and ``ALIASES`` as in JAX for the ported archs; the
     others raise naming their ROADMAP item."""
-    for arch in ("recurrentgemma-2b", "recurrentgemma_2b", "xlstm-125m"):
+    for arch in ("recurrentgemma-2b", "recurrentgemma_2b", "xlstm-125m",
+                 "llama3.2-1b", "llama3.2-3b", "gemma-2b", "gemma-7b"):
         for smoke in (False, True):
             assert (dataclasses.asdict(get_config(arch, smoke))
                     == dataclasses.asdict(j_get_config(arch, smoke)))
-    for arch in ("llama3.2-1b", "gemma-7b", "qwen3-moe-235b-a22b",
+    for arch in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
                  "qwen2-vl-72b", "hubert-xlarge"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+
+
+def test_serve_defaults_match_jax():
+    """``serve`` takes the JAX driver's defaults (llama3.2-1b at the smoke
+    size), with ``device`` beside them."""
+    import inspect
+
+    from repro.launch.serve import serve as j_serve
+
+    def defaults(fn):
+        return {k: p.default for k, p in inspect.signature(fn).parameters.items()}
+
+    mine, ref = defaults(serve), defaults(j_serve)
+    assert mine.pop("device") == "cuda"
+    assert mine == ref and mine["arch"] == "llama3.2-1b"

@@ -19,7 +19,6 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.rglru_scan import rglru_scan as j_rglru
-from repro.kernels.slstm_scan import slstm_scan as j_slstm
 from repro.models.recurrent import mlstm_chunked as j_mlstm_chunked
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lm_checks, ops
@@ -139,43 +138,7 @@ def test_rglru_shape_rule():
 
 
 # ------------------------------------------------------------- sLSTM
-@pytest.mark.parametrize("case,bt", [
-    (lm_checks.SLSTM_CASES[0], 128),   # T = 1, the decode step
-    (lm_checks.SLSTM_CASES[1], 16),
-    (lm_checks.SLSTM_CASES[2], 128),
-    (lm_checks.SLSTM_CASES[3], 128),   # T = 1, R in bf16
-    (lm_checks.SLSTM_CASES[4], 32),    # R in bf16, as the model stores it
-    (lm_checks.SLSTM_CASES[5], 128),   # T = 1 at xlstm-125m's width, hd = 192
-    (lm_checks.SLSTM_CASES[6], 128),   # xlstm-125m's width over 512 steps
-    (lm_checks.SLSTM_CASES[7], 64),    # its width with R in f32
-    (lm_checks.SLSTM_CASES[8], 64),    # one batch row
-    (lm_checks.SLSTM_CASES[9], 16),    # five batch rows
-    (lm_checks.SLSTM_CASES[10], 64),   # 32 batch rows at xlstm-125m's width
-    (lm_checks.SLSTM_CASES[11], 32),   # 23 batch rows from a zero carry
-    (lm_checks.SLSTM_CASES[12], 16)])  # 64 batch rows
-def test_slstm_plain_matches_pallas_and_oracle(case, bt):
-    r, pre, carry0 = lm_checks.slstm_inputs(case, seed=case[1], device="cpu")
-    jdt = jnp.bfloat16 if case[4] == torch.bfloat16 else jnp.float32
-    jr = {g: jnp.asarray(r[g].float().numpy(), jdt) for g in r}
-    jpre = jnp.asarray(pre.numpy())
-    jc = tuple(jnp.asarray(c.numpy()) for c in carry0)
-    out_pl = j_slstm(jr, jpre, jc, block_t=bt, interpret=True)
-    out_jr = jref.slstm_scan_ref(jr, jpre, jc)
-    out = sl.slstm_scan(r, pre, carry0, block_t=bt)
-    out_tr = tref.slstm_scan_ref(r, pre, carry0)
-
-    def leaves(o):
-        hs, seqs, fin = o
-        return [hs, *seqs, *fin]
-
-    names = ("hs", "cs", "ns", "ms", "c", "n", "h", "m")
-    for got, want, tag in ((out, out_pl, "plain vs Pallas"),
-                           (out, out_jr, "plain vs JAX oracle"),
-                           (out_tr, out_jr, "oracle vs JAX oracle")):
-        for g, w, name in zip(leaves(got), leaves(want), names):
-            close(g, w, f"{tag} {name}")
-
-
+# The plain version against the Pallas kernel: tests/test_torch_slstm_kernels.py
 def test_ops_slstm_rule():
     """T % min(block_t, T) == 0 takes the kernel module, otherwise the
     oracle; both give the same sequences."""

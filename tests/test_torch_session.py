@@ -85,8 +85,9 @@ def test_run_arguments_and_reset():
 
 
 def test_cuda_program_refuses_blocks_without_device_step():
-    """The kernel carries ManycoreCell's step only; any other block type
-    raises before anything is launched (checked here on a CPU carry)."""
+    """The kernel carries the steps of ManycoreCell and SystolicCell only;
+    any other block type raises before anything is launched (checked here
+    on a CPU carry)."""
     eng = chain(Network, TIncrement(), 4, 4).build(
         engine="fused", session=False, device="cpu", partition=[0, 0, 1, 1],
         tiers=[(("g",), 2)], batch_axes={"g": 2},
