@@ -31,7 +31,9 @@ Four paths, each through the entry points a user calls:
 Phases (a failing phase raises, and the script exits non-zero):
 
   1. build   compile every kernel from the checkout's sources (nvcc,
-             sm_90a; one nvcc for each source, started together).
+             sm_90a; one nvcc for each source and, with rg-full, for each
+             RG-LRU chunk variant, started together) and log ptxas's
+             registers and spills for each instantiation.
   2. small   a 32x32 torus, 8 granules, tiers (2, 4), capacity 4: the
              kernel against the plain PyTorch version on a CPU copy, every
              state leaf bit-exact after each of 10 epochs, overlap off and on.
@@ -120,9 +122,15 @@ Phases (a failing phase raises, and the script exits non-zero):
              plain version at full shape, and the times of the kernel, the
              plain version and (attention) ``scaled_dot_product_attention``
              with the same mask, beside the bound counted from the inputs,
-             and the kernel's ratios to both; last, a warm prefill and one
-             decode step under ``torch.profiler``: device idle share and
-             time by kernel.
+             and the kernel's ratios to both; for the RG-LRU also 11 calls
+             that must give the same bits, its chunk sweep (the source's
+             256 steps a CTA and the variants 64, 128, 512 built in
+             ``build``, each held against the plain version) and its time
+             at batch 1 beside that bound, its calls timed behind a held
+             stream so that the wrapper's host time stays out (the served
+             call also without); last, a warm prefill and one decode step
+             under ``torch.profiler``: device idle share and time by kernel
+             (``rglru_clear``: the RG-LRU's status clear).
   11. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
              prefill, 6 in each of the 15 decode steps), at the first
              decode step's inputs and the first prefill's: the cluster
@@ -157,6 +165,9 @@ BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores (NVIDIA data sheet)
 KERNELS = ("granule_step", "systolic_step", "flash_attention", "rglru_scan",
            "slstm_scan")
+#: rg-full's chunk sweep of the RG-LRU kernel: the source's chunk (256)
+#: and these, built as variants (``-DRGLRU_CHUNK``).
+RGLRU_SWEEP_VARIANTS = (64, 128, 512)
 PHASES = ("build", "small", "full", "sys-small", "sys-full", "fsys-small",
           "fsys-full", "lm-small", "lm-dense", "rg-full", "xl-full")
 
@@ -296,14 +307,19 @@ def cycle_bytes(local, consts, program, pushes: float,
             "xchg_payload_max": xchg_payload / n_cycles}
 
 
-def time_reps(fn, reps: int) -> list:
+def time_reps(fn, reps: int, hold: bool = False) -> list:
     """ms of each of ``reps`` calls of ``fn()``, by CUDA events around each
-    call (the caller warms up first)."""
+    call (the caller warms up first).  ``hold``: first hold the stream for
+    ~10 ms (``torch.cuda._sleep``), so that the host has enqueued every call
+    before the card reaches the first and the events time the card alone
+    (for a call shorter than its wrapper's host time)."""
     import torch
 
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda.synchronize()
+    if hold:
+        torch.cuda._sleep(20_000_000)
     for start, stop in events:
         start.record()
         fn()
@@ -1180,7 +1196,7 @@ def serve_batch(arch: str, tag: str, mod, batch: int) -> None:
         f"{r['prefill_s']:.4f} s")
 
 
-LM_TRACE_NAMES = ("fa_fwd", "rglru_fwd", "slstm_fwd", "gemm", "nvjet")
+LM_TRACE_NAMES = ("fa_fwd", "rglru_fwd", "rglru_clear", "slstm_fwd", "gemm", "nvjet")
 
 
 def trace_serving(arch: str, tag: str) -> None:
@@ -1225,9 +1241,21 @@ def trace_serving(arch: str, tag: str) -> None:
                 f"work {other * 1e3:.3f} ms")
 
 
+def rglru_bytes(x, h0) -> int:
+    """x and a (x's shape and dtype) and h0 read once, h and h_last
+    written once."""
+    return nbytes(x, x, x) + x.shape[0] * x.shape[2] * x.element_size() + (
+        nbytes(h0) if h0 is not None else 0)
+
+
+def rglru_bound(x, h0) -> tuple:
+    return bound(rglru_bytes(x, h0), 2 * x.numel(), F32_OPS_PER_S)
+
+
 def time_kernel(tag: str, name: str, kernel, plain, reps: int, plain_reps: int,
-                library=None):
-    """Median ms of each, by CUDA events, after a warm-up call of each."""
+                library=None, hold: bool = False):
+    """Median ms of each, by CUDA events, after a warm-up call of each
+    (``hold``: the kernel's calls with ``time_reps``'s hold)."""
     import statistics
 
     out = {}
@@ -1237,7 +1265,7 @@ def time_kernel(tag: str, name: str, kernel, plain, reps: int, plain_reps: int,
             out[key] = None
             continue
         fn()
-        times = time_reps(fn, n)
+        times = time_reps(fn, n, hold and key == "ms")
         out[key] = statistics.median(times)
         log(f"[{tag}] {name} {key}: median {out[key]:.4f} ms over {n} calls "
             f"({min(times):.4f}-{max(times):.4f})")
@@ -1301,17 +1329,52 @@ def phase_rg_full(results: list) -> None:
 
     # RG-LRU: the first recurrent layer's x and a from that run
     (x, a, h0), _ = captured.pop(("rglru_scan_cuda", None))
+    plan = rg.scan_plan(*x.shape)
     err = lc.compare_rglru(x, a, h0)
     log(f"[rg-full] rglru_scan at x {tuple(x.shape)} {x.dtype}, h0 "
         f"{'given' if h0 is not None else 'zeros'}: kernel == plain version "
-        f"(max |diff| {err:.3e}, max |h| {rg.rglru_scan_ref(x, a, h0)[0].abs().max().item():.3f})")
+        f"(max |diff| {err:.3e}, max |h| {rg.rglru_scan_ref(x, a, h0)[0].abs().max().item():.3f}); "
+        f"plan {plan.ctas} CTAs of {plan.threads} threads ({plan.tiles} tiles of 32 "
+        f"channels x {plan.chunks} chunks of {plan.chunk} steps), "
+        f"{plan.status_pairs * 8} B of status")
+    first = rg.rglru_scan_cuda(x, a, h0)
+    for _ in range(10):
+        again = rg.rglru_scan_cuda(x, a, h0)
+        if not (torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])):
+            raise AssertionError("[rg-full] rglru_scan: two calls on the same inputs "
+                                 "differ")
+    log("[rg-full] rglru_scan: 11 calls on the served inputs give the same bits")
+    del first, again
+    bound_ms, by = rglru_bound(x, h0)
+    # the chunk sweep at the served inputs, each chunk held against the plain version
+    for tc in sorted(RGLRU_SWEEP_VARIANTS + (plan.chunk,)):
+        kern = rg.rglru_scan_cuda if tc == plan.chunk else rg.chunk_variant(tc)
+        err_tc = lc.compare_rglru(x, a, h0, kern)
+        t_tc = time_kernel("rg-full", f"rglru_scan (chunk {tc})",
+                           lambda kern=kern: kern(x, a, h0), None, 10, 0, hold=True)
+        log(f"[rg-full] rglru_scan chunk sweep: chunk {tc} "
+            f"({rg.scan_plan(*x.shape, tc).ctas} CTAs), kernel == plain "
+            f"version (max |diff| {err_tc:.3e}), {t_tc['ms']:.4f} ms, "
+            f"{t_tc['ms'] / bound_ms:.2f}x the bound")
+    # batch 1: a quarter of the bytes, a quarter of the CTAs
+    x1, a1 = x[:1].contiguous(), a[:1].contiguous()
+    h01 = None if h0 is None else h0[:1].contiguous()
+    err1 = lc.compare_rglru(x1, a1, h01)
+    t1 = time_kernel("rg-full", "rglru_scan (batch 1)",
+                     lambda: rg.rglru_scan_cuda(x1, a1, h01), None, 10, 0, hold=True)
+    bound1, by1 = rglru_bound(x1, h01)
+    log(f"[rg-full] rglru_scan at batch 1, x {tuple(x1.shape)}: kernel == plain "
+        f"version (max |diff| {err1:.3e}); {t1['ms']:.4f} ms against its bound "
+        f"{bound1:.4f} ms ({by1}), {t1['ms'] / bound1:.2f}x")
+    del x1, a1, h01
+    # the served shape without the hold too, as earlier kernels were timed
+    time_kernel("rg-full", "rglru_scan (no hold)", lambda: rg.rglru_scan_cuda(x, a, h0),
+                None, 10, 0)
     times = time_kernel("rg-full", "rglru_scan", lambda: rg.rglru_scan_cuda(x, a, h0),
-                        lambda: rg.rglru_scan_ref(x, a, h0), 10, 3)
-    n_bytes = nbytes(x, a, x) + x.shape[0] * x.shape[2] * x.element_size() + (
-        nbytes(h0) if h0 is not None else 0)  # x, a (h0) read; h, h_last written
-    bound_ms, by = bound(n_bytes, 2 * x.numel(), F32_OPS_PER_S)
-    log(f"[rg-full] rglru_scan bound: {n_bytes} B, {2 * x.numel()} flop -> "
-        f"{bound_ms:.4f} ms ({by}); kernel at {times['ms'] / bound_ms:.1f}x it")
+                        lambda: rg.rglru_scan_ref(x, a, h0), 10, 3, hold=True)
+    log(f"[rg-full] rglru_scan bound: {rglru_bytes(x, h0)} B, {2 * x.numel()} flop -> "
+        f"{bound_ms:.4f} ms ({by}); kernel (chunk {plan.chunk}) at "
+        f"{times['ms'] / bound_ms:.2f}x it, {bound_ms / times['ms']:.3f} of it")
     results.append(dict(
         name="rglru_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -1452,15 +1515,20 @@ def main(argv=None) -> int:
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        secs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
-    for name in KERNELS:
-        log(f"[build] {name} built in {secs[name]:.2f} s")
-        for line in _build.PTXAS_REPORT.get(name, "").splitlines():
+    # every kernel, and the RG-LRU's chunk-sweep variants (rg-full)
+    builds = [(name, ()) for name in KERNELS] + (
+        [("rglru_scan", (f"RGLRU_CHUNK={tc}",)) for tc in RGLRU_SWEEP_VARIANTS]
+        if "rg-full" in phases else [])
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        secs = dict(zip(builds, pool.map(lambda b: _build.build(*b), builds)))
+    for name, defines in builds:
+        key = _build.report_key(name, defines)
+        log(f"[build] {key} built in {secs[name, defines]:.2f} s")
+        for line in _build.PTXAS_REPORT.get(key, "").splitlines():
             if any(w in line for w in ("registers", "spill", "Function properties",
                                        "Performance Loss", "setmaxnreg")):
                 log(f"[build] {line.strip()}")
-    log(f"[build] {time.perf_counter() - t0:.2f} s wall for all {len(KERNELS)}")
+    log(f"[build] {time.perf_counter() - t0:.2f} s wall for all {len(builds)}")
     kernels = [{}, {}, {}]
     lm_kernels: list = []
     for phase, run in (("small", phase_small),

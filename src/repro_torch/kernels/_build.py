@@ -5,7 +5,9 @@ interface, loaded with ``ctypes`` — no PyTorch headers, so a build takes
 seconds.  The library lands in ``build/repro_torch/`` at the root of the
 checkout (``.gitignore`` lists ``build/``), named by a hash of the source
 and the flags: an edited source builds anew at first use, an unchanged
-one loads from there.  Nothing is built when a module is imported.
+one loads from there.  ``defines`` (``NAME=value`` strings, passed as
+``-D``) build a variant of a source beside its default.  Nothing is built
+when a module is imported.
 """
 from __future__ import annotations
 
@@ -30,9 +32,10 @@ NVCC_FLAGS = (
 #: Shared memory a CTA may use on Hopper (232,448 B of an SM's 256 KB).
 SMEM_LIMIT = 232_448
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 #: ``-Xptxas -v`` report (registers, shared memory, spills) of each build
-#: made by this process, by kernel name.
+#: made by this process, by kernel name (and ``defines``, when given, as
+#: ``name[D1,D2]``).
 PTXAS_REPORT: dict[str, str] = {}
 
 
@@ -49,26 +52,34 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: tuple) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def report_key(name: str, defines: tuple = ()) -> str:
+    return f"{name}[{','.join(defines)}]" if defines else name
+
+
+def library_path(name: str, defines: tuple = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(name: str) -> float:
-    """Compile ``csrc/<name>.cu`` unless it is built already.  Returns the
-    seconds the build took (0.0 when it was on disk); raises with the
-    compiler's output when the build fails."""
-    out = library_path(name)
+def build(name: str, defines: tuple = ()) -> float:
+    """Compile ``csrc/<name>.cu`` (with ``defines``) unless it is built
+    already.  Returns the seconds the build took (0.0 when it was on disk);
+    raises with the compiler's output when the build fails."""
+    out = library_path(name, defines)
     if out.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+    proc = subprocess.run([nvcc(), *_flags(defines), "-o", tmp, str(CSRC / f"{name}.cu")],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    PTXAS_REPORT[name] = proc.stdout
+    PTXAS_REPORT[report_key(name, defines)] = proc.stdout
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
@@ -76,12 +87,14 @@ def build(name: str) -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _LIBS.get(name)
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (with ``defines``), built
+    first if needed."""
+    key = (name, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
-        build(name)
-        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        build(name, key[1])
+        lib = _LIBS[key] = ctypes.CDLL(str(library_path(name, key[1])))
     return lib
 
 

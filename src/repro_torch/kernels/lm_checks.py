@@ -9,14 +9,16 @@ tolerance; it returns the largest absolute difference.  Tolerances:
   * f32 outputs: relative 1e-5, plus an absolute 1e-5 times the output's
     largest magnitude (the two sum in other orders, so values near 0 carry
     the rounding of the terms that cancelled there);
-  * bf16 outputs (attention on bf16 inputs): one bf16 ulp of the larger of
-    the two values, values below 1e-3 of the output's largest magnitude
-    taken at that floor (both round an f32 result that differs in its last
-    bits, which can move the bf16 result by one ulp);
+  * bf16 outputs (attention and the RG-LRU on bf16 inputs): one bf16 ulp
+    of the larger of the two values, values below 1e-3 of the output's
+    largest magnitude taken at that floor (both round an f32 result that
+    differs in its last bits, which can move the bf16 result by one ulp);
   * the sLSTM over thousands of steps: relative and absolute 1e-4, since a
     step's rounding is carried through every later step.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -38,8 +40,16 @@ FLASH_CASES = (
     (1, 2, 2, 256, 256, 128, False, None, torch.bfloat16),  # not causal, D 128
     (1, 4, 1, 256, 256, 192, True, 96, torch.bfloat16),    # D 192: 3 column chunks
 )
-#: (B, T, D, with h0)
-RGLRU_CASES = ((1, 256, 256, True), (2, 128, 64, False), (2, 64, 32, True))
+#: (B, T, D, with h0[, dtype]) — f32 where no dtype is given.  The
+#: comments give the kernel's cut at its chunk of 256 steps.
+RGLRU_CASES = ((1, 256, 256, True), (2, 128, 64, False), (2, 64, 32, True),
+               (2, 3072, 64, True),      # 12 chunks: look-back over up to 11
+               (2, 300, 64, False),      # a partial last chunk of 44 steps
+               (3, 1, 64, True),         # T = 1: one step of one sub-chunk
+               (2, 512, 48, True),       # D = 48: a tile of 32 and one of 16
+               (2, 640, 96, True, torch.bfloat16),   # bf16, 3 chunks
+               (2, 300, 37, False, torch.bfloat16),  # bf16 with D odd
+               (1, 3072, 2560, True))    # batch 1 at recurrentgemma-2b's width
 #: (B, T, d, H, R dtype, carry) — carry "zero" starts m at -inf.  The
 #: comments give ``slstm_scan.cluster_plan``'s cluster size C and groups of
 #: batch rows on the card.
@@ -117,12 +127,16 @@ def compare_flash(q, k, v, *, causal=True, window=None, sm_scale=None) -> float:
     return err
 
 
-def compare_rglru(x, a, h0=None) -> float:
-    h_k, last_k = rg.rglru_scan_cuda(x, a, h0)
-    h_p, last_p = rg.rglru_scan_ref(x, a, h0)
+def compare_rglru(x, a, h0=None, kernel=rg.rglru_scan_cuda) -> float:
+    """``kernel`` (the CUDA kernel, or a :func:`rglru_scan.chunk_variant`)
+    against the plain version (at a ``block_t`` that divides T); h and
+    h_last, bf16 within one ulp."""
+    h_k, last_k = kernel(x, a, h0)
+    h_p, last_p = rg.rglru_scan_ref(x, a, h0, block_t=math.gcd(x.shape[1], 256))
     torch.cuda.synchronize()
-    err = assert_close(h_k, h_p, "rglru_scan h")
-    assert_close(last_k, last_p, "rglru_scan h_last")
+    close = assert_bf16_close if x.dtype == torch.bfloat16 else assert_close
+    err = close(h_k, h_p, "rglru_scan h")
+    close(last_k, last_p, "rglru_scan h_last")
     return err
 
 
@@ -159,10 +173,11 @@ def check_flash(case, seed: int = 0) -> float:
 
 
 def check_rglru(case, seed: int = 0) -> float:
-    B, T, D, with_h0 = case
+    B, T, D, with_h0, *dtype = case
+    dtype = dtype[0] if dtype else torch.float32
     rng = _gen(seed)
-    x = _t(rng.randn(B, T, D))
-    a = _t(rng.uniform(0.3, 0.999, (B, T, D)))
+    x = _t(rng.randn(B, T, D), dtype)
+    a = _t(rng.uniform(0.3, 0.999, (B, T, D)), dtype)
     h0 = _t(rng.randn(B, D)) if with_h0 else None
     return compare_rglru(x, a, h0)
 

@@ -8,14 +8,18 @@ Returns (h (B, T, D), h_last (B, D)) in x's dtype, f32 math.
     the TPU kernel's time chunks of ``block_t`` steps, a Hillis–Steele scan
     inside each and the carry across them;
   * CUDA tensors go to :func:`rglru_scan_cuda`, the hand-written Hopper
-    kernel ``csrc/rglru_scan.cu`` (one sequential f32 FMA chain a channel;
-    the same h up to rounding), or raise.  Nothing falls back.
+    kernel ``csrc/rglru_scan.cu`` (a chunked single-pass scan with
+    decoupled look-back; the same h up to rounding), or raise.  Nothing
+    falls back.
 
-Both take the TPU kernel's shape rule: T and D divisible by the blocks.
+:func:`rglru_scan` takes the TPU kernel's shape rule (T and D divisible by
+the blocks); :func:`rglru_scan_cuda` takes any B, T, D >= 1.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -71,24 +75,48 @@ def rglru_scan(x, a, h0=None, *, block_t: int = 256, block_d: int = 256):
 
 # ------------------------------------------------------------- the kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The chunk sizes (steps a CTA) of ``chip_smoke.py`` rg-full's sweep; the
+#: source fixes its own (``RGLRU_CHUNK``), and :func:`chunk_variant`
+#: builds the others on request.
+CHUNK_SWEEP = (64, 128, 256, 512)
 
 
-def _library():
+class ScanPlan(NamedTuple):
+    """How ``rglru_fwd`` cuts (B, T, D), as the kernel's library reports
+    it: tiles of 32 channels by chunks of ``chunk`` steps, one CTA of
+    ``threads`` each, and the 8-byte status pairs of its look-back."""
+    tiles: int
+    chunks: int
+    ctas: int
+    threads: int
+    chunk: int
+    status_pairs: int
+
+
+def _library(chunk: int | None = None):
     from . import _build
 
-    lib = _build.load("rglru_scan")
+    lib = _build.load("rglru_scan", () if chunk is None else (f"RGLRU_CHUNK={chunk}",))
     if lib.rglru_scan_fwd.argtypes is None:
-        lib.rglru_scan_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        lib.rglru_scan_plan.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.rglru_scan_plan.restype = ctypes.c_int
+        lib.rglru_scan_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         lib.rglru_scan_fwd.restype = ctypes.c_int
     return lib
 
 
-def rglru_scan_cuda(x, a, h0=None):
-    """Launch ``csrc/rglru_scan.cu`` on the current stream.  x and a:
-    contiguous (B, T, D) of one dtype, f32 or bf16; h0 (B, D) of any float
-    dtype (taken as f32), zeros when absent.  Raises for anything the kernel
-    does not take."""
+def scan_plan(B: int, T: int, D: int, chunk: int | None = None) -> ScanPlan:
+    """The kernel's cut of (B, T, D) (built with ``chunk`` steps a CTA
+    when given, else the source's); raises for a shape it does not take."""
+    out = (ctypes.c_longlong * 6)()
+    if _library(chunk).rglru_scan_plan(B, T, D, out) != 0:
+        raise ValueError(f"rglru_scan kernel does not take (B, T, D) = {(B, T, D)}")
+    return ScanPlan(*out)
+
+
+def _scan(chunk, x, a, h0):
     global launches
     dev = x.device
     if dev.type != "cuda":
@@ -97,20 +125,20 @@ def rglru_scan_cuda(x, a, h0=None):
         raise ValueError(f"x: expected f32 or bf16 (B, T, D), got {x.dtype} "
                          f"{tuple(x.shape)}")
     B, T, D = x.shape
-    if min(B, T, D) < 1:
-        raise ValueError(f"empty axis in {tuple(x.shape)}")
     px = tensor_ptr(x, "x", x.dtype, (B, T, D), dev)
     pa = tensor_ptr(a, "a", x.dtype, (B, T, D), dev)
+    plan = scan_plan(B, T, D, chunk)
     h0 = (torch.zeros((B, D), dtype=torch.float32, device=dev) if h0 is None
           else h0.to(torch.float32).contiguous())
     ph0 = tensor_ptr(h0, "h0", torch.float32, (B, D), dev)
     h = torch.empty_like(x)
     h_last = torch.empty((B, D), dtype=x.dtype, device=dev)
+    status = torch.empty(plan.status_pairs, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _library().rglru_scan_fwd(px, pa, ph0, h.data_ptr(), h_last.data_ptr(),
-                                       _DTYPES[x.dtype], B, T, D,
-                                       ctypes.c_void_p(stream))
+        rc = _library(chunk).rglru_scan_fwd(
+            px, pa, ph0, h.data_ptr(), h_last.data_ptr(), status.data_ptr(),
+            _DTYPES[x.dtype], B, T, D, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {rc}")
     launches += 1
@@ -118,4 +146,21 @@ def rglru_scan_cuda(x, a, h0=None):
     return h, h_last
 
 
-__all__ = ["launches", "rglru_scan", "rglru_scan_cuda", "rglru_scan_ref"]
+def rglru_scan_cuda(x, a, h0=None):
+    """Launch ``csrc/rglru_scan.cu`` on the current stream.  x and a:
+    contiguous (B, T, D) of one dtype, f32 or bf16; h0 (B, D) of any float
+    dtype (taken as f32), zeros when absent.  The look-back's status pairs
+    are allocated here and cleared by the library's own launch before the
+    kernel's.  Raises for anything the kernel does not take."""
+    return _scan(None, x, a, h0)
+
+
+def chunk_variant(chunk: int):
+    """:func:`rglru_scan_cuda` built with chunks of ``chunk`` steps (a
+    multiple of 32, at most 1024) in place of the source's, for a sweep of
+    the chunk size; it counts its launches as the kernel's."""
+    return functools.partial(_scan, chunk)
+
+
+__all__ = ["CHUNK_SWEEP", "ScanPlan", "chunk_variant", "launches", "rglru_scan",
+           "rglru_scan_cuda", "rglru_scan_ref", "scan_plan"]

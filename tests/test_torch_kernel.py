@@ -248,6 +248,46 @@ def test_rglru_kernel_matches_plain_version(cuda, case):
     assert lm_checks.check_rglru(case) >= 0.0
 
 
+def _rglru_inputs(B, T, D, dtype, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.tensor(rng.randn(B, T, D).astype(np.float32), device="cuda").to(dtype)
+    a = torch.tensor(rng.uniform(0.3, 0.999, (B, T, D)).astype(np.float32),
+                     device="cuda").to(dtype)
+    h0 = torch.tensor(rng.randn(B, D).astype(np.float32), device="cuda")
+    return x, a, h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("chunk", rg.CHUNK_SWEEP)
+def test_rglru_kernel_every_chunk(cuda, chunk, dtype):
+    """Each chunk size of the sweep (built on request), over several chunks
+    and a partial last one."""
+    x, a, h0 = _rglru_inputs(2, 700, 40, dtype, chunk)
+    assert rg.scan_plan(2, 700, 40, chunk).chunks == -(-700 // chunk)
+    assert lm_checks.compare_rglru(x, a, h0, rg.chunk_variant(chunk)) >= 0.0
+
+
+@pytest.mark.parametrize("shape", [(2, 3072, 64), (4, 3072, 2560)], ids=str)
+def test_rglru_kernel_is_deterministic(cuda, shape):
+    """The look-back composes the same maps in the same order on every
+    call, so repeated calls give the same bits, however the CTAs race."""
+    x, a, h0 = _rglru_inputs(*shape, torch.float32, 7)
+    a = 0.9 + 0.099 * (a - 0.3) / 0.699  # the model's range: carries reach far
+    first = rg.rglru_scan_cuda(x, a, h0)
+    for _ in range(5):
+        again = rg.rglru_scan_cuda(x, a, h0)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+
+
+def test_rglru_scan_plan(cuda):
+    """The library's cut: 3,840 CTAs of 256 threads at the served shape."""
+    served = rg.scan_plan(4, 3072, 2560)
+    assert served == (80, 12, 3840, 256, 256, 3840 * 32 + 1)
+    assert rg.scan_plan(3, 1, 37).ctas == 6
+    with pytest.raises(ValueError, match="does not take"):
+        rg.scan_plan(1, 0, 8)
+
+
 @pytest.mark.parametrize("case", lm_checks.SLSTM_CASES, ids=str)
 def test_slstm_kernel_matches_plain_version(cuda, case):
     """hs, the c/n/m sequences and the final carry, T = 1 included."""
