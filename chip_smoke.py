@@ -36,7 +36,14 @@ Phases (a failing phase raises, and the script exits non-zero):
              registers and spills for each instantiation.
   2. small   a 32x32 torus, 8 granules, tiers (2, 4), capacity 4: the
              kernel against the plain PyTorch version on a CPU copy, every
-             state leaf bit-exact after each of 10 epochs, overlap off and on.
+             state leaf bit-exact after each of 10 epochs, overlap off and on;
+             then ``run_until`` in the device loop against the host loop
+             (``run_until_host``) at budgets 0, 1, 3 and 1000 and spans of
+             1, 3 and 8 epochs, overlap off and on: every leaf and the
+             epoch count equal, the host loop launching once an epoch and
+             the device loop once an epoch of each replayed span and of
+             the capture's warm-up; and a predicate that calls ``bool()``
+             must raise.
   3. full    the full-width wafer (1,048,576 cores, k_inner 16, k_outer 4,
              capacity 62): one epoch bit-exact against the plain version on
              a CPU copy; the kernel's and the plain version's times per
@@ -44,12 +51,19 @@ Phases (a failing phase raises, and the script exits non-zero):
              the memory bound counted from the run's tensors and data
              (``cycle_bytes``; also the earlier count, which read the
              inverse maps too); then
-             ``Simulation.run(until=allreduce_done)`` through the kernel,
-             with the launch count set to 0 just before and read just
-             after, and every core's total checked against the global sum
-             4,718,592; then the same run again under ``torch.profiler``,
-             whose trace gives the device's idle share and each kernel's
-             time per cycle.
+             ``Simulation.run(until=allreduce_done)`` through the kernel
+             in the device loop (spans of epochs replayed from a CUDA
+             graph, ``core.device_loop``), with the launch count set to 0
+             just before and read just after (one an epoch of each
+             replayed span and of the capture's warm-up), and every
+             core's total checked against the global sum 4,718,592; then
+             ``compare_loops``: the plain host loop on the same card must
+             stop at the same cycle with a bit-identical state; the wall,
+             core-cycles/s and host syncs of the first run (capture apart,
+             as set-up), of a warm replay and of the host loop; and both
+             loops under ``torch.profiler``, whose traces give the
+             device's idle share and each kernel's time per simulated
+             cycle.
   4. sys-small  the systolic kernel's MAC against ``hw.systolic.mac`` on
              2^20 random triples (one rounding, as the reference's FMA);
              then the register engine through the kernel against the same
@@ -70,13 +84,16 @@ Phases (a failing phase raises, and the script exits non-zero):
              whole epochs); the plain version's time; the bound of one
              call (each input of the K-cycle call read once, each output
              written once) beside the per-cycle streaming count of the
-             one-launch-a-cycle design; ``Simulation.run(until=every south cell collected M
-             outputs)`` through the kernel with the launch count set to 0
-             just before and read just after, Y held against the f64
-             product under the rounding bound of in-order FMA sums,
-             gamma_R * (|A| @ |B|) (``hw.systolic.matmul_error_bound``); a traced
-             repeat of that run; and the same run at 4x4 tiles, whose Y
-             must equal the one-tile Y bit for bit.
+             one-launch-a-cycle design; ``Simulation.run(until=every south
+             cell collected M outputs)`` through the kernel in the device
+             loop with the launch count set to 0 just before and read just
+             after, Y held against the f64 product under the rounding bound
+             of in-order FMA sums, gamma_R * (|A| @ |B|)
+             (``hw.systolic.matmul_error_bound``); ``compare_loops`` as in
+             ``full``, and the device loop's wall at spans of 1, 4, 8, 16
+             and 32 epochs (each captured, then replayed warm three
+             times); and the same run at 4x4 tiles, whose Y must equal the
+             one-tile Y bit for bit.
   6. fsys-small  ``granule_step`` through the fused engine against the plain
              version (``epoch_program_ref``, called by name on a copy on the
              card), every state leaf bit-exact after every epoch to the end
@@ -93,11 +110,11 @@ Phases (a failing phase raises, and the script exits non-zero):
              (medians over whole epochs from mid-run) beside the bound
              counted from the run's tensors and fires
              (``fsys_cycle_bytes``); ``Simulation.run(until=every south
-             cell collected M outputs)`` with the launch count set to 0
-             just before and read just after, Y bit-identical to
-             ``RegisterGridEngine``'s Y on the same operands and within
-             gamma_R * (|A| @ |B|), core-cycles/s and peak memory; a traced
-             repeat of that run (idle share, us a cycle).
+             cell collected M outputs)`` in the device loop with the launch
+             count set to 0 just before and read just after, Y
+             bit-identical to ``RegisterGridEngine``'s Y on the same
+             operands and within gamma_R * (|A| @ |B|), core-cycles/s and
+             peak memory; ``compare_loops`` as in ``full``.
   8. lm-small  each LM kernel against its plain version on the card, at
              the CPU tests' shapes (``kernels.lm_checks``): attention MHA,
              GQA and MQA, causal with and without a window, f32 (the
@@ -214,6 +231,9 @@ def wafer_engine(R, C, k_outer, k_inner, capacity, overlap, device):
 
 def phase_small() -> None:
     import torch
+    from repro_torch.core import device_loop
+    from repro_torch.hw.manycore import allreduce_done
+    from repro_torch.kernels import granule_step
     from repro_torch.kernels.fused_checks import compare
 
     for overlap in (False, True):
@@ -228,6 +248,44 @@ def phase_small() -> None:
         cyc = int(gpu.cycle.reshape(-1)[0])
         log(f"[small] 32x32 tiers (2, 4) cap 4 overlap={overlap}: 10 epochs "
             f"({cyc} cycles) bit-exact against the plain version")
+
+    # the device loop against the host loop: the stop cycle, every leaf and
+    # the launch count, at budgets that cut the run and one that does not
+    done = lambda s: allreduce_done(s.block_states[0])  # noqa: E731
+    base = device_loop.SPAN
+    try:
+        for overlap in (False, True):
+            eng, _ = wafer_engine(32, 32, 2, 4, 4, overlap, "cuda")
+            for span in (1, 3, 8):
+                device_loop.SPAN = span
+                for budget in (0, 1, 3, 1000):
+                    n0, c0 = granule_step.launches, until_counts()
+                    host = eng.run_until_host(eng.init(0), done, budget)
+                    n1, host_counts = granule_step.launches, counts_since(c0)
+                    c1 = until_counts()
+                    dev = eng.run_until(eng.init(0), done, budget)
+                    n2 = granule_step.launches
+                    torch.cuda.synchronize()
+                    compare(dev, host)
+                    epochs = int(host.epoch.reshape(-1)[0])
+                    if n1 - n0 != epochs or host_counts["epochs"] != epochs:
+                        raise AssertionError(
+                            f"[small] the host loop launched {n1 - n0} times and "
+                            f"counted {host_counts['epochs']} epochs for {epochs}")
+                    check_loop_counts("small", "granule_step", n2 - n1,
+                                      counts_since(c1), epochs)
+                log(f"[small] overlap={overlap} span {span}: run_until at budgets 0, 1, "
+                    f"3 and 1000 bit-exact against the host loop (stop cycle "
+                    f"{int(dev.cycle.reshape(-1)[0])}, {epochs} epochs; the host loop "
+                    f"{n1 - n0} launches, the device loop {n2 - n1})")
+    finally:
+        device_loop.SPAN = base
+    try:
+        eng.run_until(eng.init(0), lambda s: bool(done(s)), 10)
+    except device_loop.HostSyncError as e:
+        log(f"[small] a predicate that reads back raises: {str(e)[:60]}...")
+    else:
+        raise AssertionError("a predicate calling bool() did not raise")
 
 
 # CoreState leaves ManycoreCell.step reads, and writes, every cycle: it
@@ -328,6 +386,49 @@ def time_reps(fn, reps: int, hold: bool = False) -> list:
     return [start.elapsed_time(stop) for start, stop in events]
 
 
+def odd_program(program) -> tuple:
+    """``program`` with its last cycle op one cycle shorter: an odd cycle
+    count, whose end copies the parity buffers back (``copy_back``)."""
+    i = max(j for j, (op, _) in enumerate(program) if op == "C")
+    return tuple(program[:i]) + (("C", program[i][1] - 1),) + tuple(program[i + 1:])
+
+
+def flag_cost(carry, program, consts, reps: int) -> dict:
+    """ms a simulated cycle of the program kernel called without the
+    until-loop's stop flag (``none``) and with it clear (``clear``), for
+    ``program`` and for its odd-count form (``odd none``, ``odd clear``):
+    the median of ``reps`` calls each, alternating, every call from the
+    same state (the carry is assigned back before each)."""
+    import statistics
+
+    import torch
+    from repro_torch.core.struct import tree_map
+    from repro_torch.kernels import granule_step
+
+    start = tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, carry)
+    clear = torch.zeros((), dtype=torch.bool, device=carry[0].device)
+    odd = odd_program(program)
+    cases = (("none", program, None), ("clear", program, clear),
+             ("odd none", odd, None), ("odd clear", odd, clear))
+    times = {key: [] for key, _, _ in cases}
+    for _ in range(reps):
+        for key, prog, stop in cases:
+            assign(carry, start)
+            n_cyc = sum(a for op, a in prog if op == "C")
+            times[key] += [t / n_cyc for t in time_reps(
+                lambda: granule_step.epoch_program_cuda(carry, prog, consts, stop), 1)]
+    assign(carry, start)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def log_flag_cost(tag: str, flag: dict, reps: int) -> None:
+    log(f"[{tag}] the kernel with the until-loop's stop flag clear: "
+        f"{flag['clear']:.5f} ms a cycle, without the flag {flag['none']:.5f}; "
+        f"the program one cycle shorter (odd count, ending in copy_back): "
+        f"flag clear {flag['odd clear']:.5f}, without {flag['odd none']:.5f} "
+        f"(medians of {reps} alternating calls from one state)")
+
+
 KERNEL_NAMES = ("granule_cycle", "exchange_drain", "exchange_fill",
                 "exchange_credit")
 
@@ -363,13 +464,167 @@ def traced_run(run, names=KERNEL_NAMES) -> dict:
             "per_kernel": per_kernel, "events": len(spans)}
 
 
+def idle_share(trace: dict) -> str:
+    if trace["busy"] is None:
+        return "not measured (the trace holds no device event)"
+    return f"{1.0 - trace['busy'] / trace['wall']:.4f}"
+
+
+def until_counts() -> dict:
+    """The device loop's counters in the registry: host syncs, epochs,
+    spans, captures and capture seconds so far."""
+    from repro_torch.obs.registry import REGISTRY
+
+    snap = REGISTRY.snapshot()
+    cap = snap.get("until.capture_s", {})
+    return {"syncs": snap.get("until.host_syncs", 0.0),
+            "epochs": snap.get("until.epochs", 0.0),
+            "spans": snap.get("until.spans", 0.0),
+            "captures": snap.get("until.captures", 0.0),
+            "capture_s": cap.get("sum", 0.0) if isinstance(cap, dict) else 0.0}
+
+
+def check_loop_counts(tag: str, kernel: str, launches: int, counts: dict,
+                      epochs: int) -> None:
+    """An until-run in the device loop launched ``kernel`` (one call an
+    epoch) once an epoch of its capture's warm-up, a span with ``stop``
+    set, and once an epoch of the span each time the graph replayed,
+    no-op epochs included; and the loop counted the epochs the state ran
+    (``counts``: ``counts_since`` over the run)."""
+    from repro_torch.core import device_loop
+
+    span = device_loop.SPAN
+    want = span * (counts["spans"] + counts["captures"])
+    if launches != want:
+        raise AssertionError(
+            f"[{tag}] {launches} {kernel} launches, not span {span} x "
+            f"({int(counts['spans'])} replays + {int(counts['captures'])} warm-up)")
+    if counts["epochs"] != epochs:
+        raise AssertionError(f"[{tag}] the loop counted {counts['epochs']} epochs, "
+                             f"the state ran {epochs}")
+
+
+def counts_since(before: dict) -> dict:
+    now = until_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def assign(dst, src) -> None:
+    """Copy every tensor leaf of ``src`` into ``dst``'s, in place (the
+    device loop's cached graph holds ``dst``'s addresses)."""
+    import torch
+    from repro_torch.core.struct import tree_leaves
+
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        if isinstance(d, torch.Tensor) and d.data_ptr() != s.data_ptr():
+            d.copy_(s)
+
+
+def compare_loops(tag: str, eng, sim, start, done, max_epochs: int, first: dict,
+                  clone, same, cores: int, names=KERNEL_NAMES,
+                  spans=None) -> dict:
+    """The until-run of the main path (already made by the caller, from
+    ``start``: ``sim.run(until=done)`` through the device loop, ``first``
+    its wall and counters) against the plain host loop
+    (``run_until_host``) on the same card: the stop cycle and the final
+    state (``same``) must be the host loop's.  Then, from ``start`` again,
+    a warm replay of the device loop (the captured graph reused: the state
+    is assigned in place), the host loop's wall, and both loops under the
+    profiler.  ``spans``: the device loop's wall at each of these epochs a
+    span (each captured anew, then replayed warm).  Logs one line a
+    measurement; returns the numbers."""
+    import torch
+    from repro_torch.core import device_loop
+
+    cycles = sim.cycle
+    torch.cuda.synchronize()
+    c0 = until_counts()
+    t0 = time.perf_counter()
+    host = eng.run_until_host(clone(start), done, max_epochs)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    host_syncs = counts_since(c0)["syncs"]
+    host_cycles = int(host.cycle.reshape(-1)[0])
+    if host_cycles != cycles:
+        raise AssertionError(f"[{tag}] the device loop stopped at cycle {cycles}, "
+                             f"the host loop at {host_cycles}")
+    same(sim.state, host)
+    del host
+
+    def warm_run():
+        assign(sim.state, start)
+        torch.cuda.synchronize()
+        c = until_counts()
+        t = time.perf_counter()
+        sim.run(until=done, max_epochs=max_epochs)
+        sim.block_until_ready()
+        wall = time.perf_counter() - t
+        if sim.cycle != cycles:
+            raise AssertionError(f"[{tag}] a warm replay stopped at cycle "
+                                 f"{sim.cycle}, the first run at {cycles}")
+        return wall, counts_since(c)
+
+    warm_s, warm = warm_run()
+    if warm["captures"]:
+        raise AssertionError(f"[{tag}] a warm replay captured anew")
+    log(f"[{tag}] device loop (span {device_loop.SPAN}): stop cycle {cycles} = the "
+        f"host loop's, final state bit-identical to it; first run {first['wall']:.4f} "
+        f"s wall of which capture {first['capture_s']:.4f} s (set-up), run "
+        f"{first['wall'] - first['capture_s']:.4f} s, {int(first['syncs'])} host "
+        f"syncs; warm replay {warm_s:.4f} s wall, {int(warm['spans'])} spans, "
+        f"{int(warm['syncs'])} host syncs, {cores * cycles / warm_s:.4e} "
+        f"core-cycles/s; host loop {host_s:.4f} s wall, {int(host_syncs)} host "
+        f"syncs, {cores * cycles / host_s:.4e} core-cycles/s; warm device loop at "
+        f"{host_s / warm_s:.2f}x the host loop's rate")
+
+    assign(sim.state, start)
+    dev_trace = traced_run(lambda: sim.run(until=done, max_epochs=max_epochs), names)
+    if sim.cycle != cycles:
+        raise AssertionError(f"[{tag}] the traced replay stopped at cycle {sim.cycle}")
+    host_start = clone(start)
+    host_trace = traced_run(lambda: eng.run_until_host(host_start, done, max_epochs),
+                            names)
+    del host_start
+    for name, trace in (("device loop", dev_trace), ("host loop", host_trace)):
+        kernels = "; ".join(f"{k} {v / cycles * 1e6:.2f} us"
+                            for k, v in trace["per_kernel"].items())
+        busy = "not measured" if trace["busy"] is None else f"{trace['busy']:.4f} s"
+        log(f"[{tag}-trace] {name}: {trace['wall']:.4f} s wall, device busy {busy} "
+            f"over {trace['events']} device events, idle share {idle_share(trace)}; "
+            f"per simulated cycle: {kernels}")
+    out = {"warm_s": warm_s, "host_s": host_s, "warm_syncs": warm["syncs"],
+           "host_syncs": host_syncs, "dev_trace": dev_trace, "host_trace": host_trace}
+
+    sweep = {}
+    base = device_loop.SPAN
+    try:
+        for span in spans or ():
+            device_loop.SPAN = span
+            assign(sim.state, start)
+            c = until_counts()
+            t = time.perf_counter()
+            sim.run(until=done, max_epochs=max_epochs)
+            sim.block_until_ready()
+            first_s, cap = time.perf_counter() - t, counts_since(c)["capture_s"]
+            walls = [warm_run() for _ in range(3)]
+            sweep[span] = [w for w, _ in walls]
+            log(f"[{tag}] span {span}: capture {cap:.4f} s (first run {first_s:.4f} "
+                f"s); warm replays {', '.join(f'{w:.4f}' for w in sweep[span])} s "
+                f"wall, {int(walls[0][1]['spans'])} spans, "
+                f"{int(walls[0][1]['syncs'])} host syncs a run")
+    finally:
+        device_loop.SPAN = base
+    out["sweep"] = sweep
+    return out
+
+
 def phase_full(result: dict) -> None:
     import statistics
 
     import numpy as np
     import torch
     from repro_torch.configs.manycore import CONFIG
-    from repro_torch.core import Simulation
+    from repro_torch.core import Simulation, device_loop
     from repro_torch.hw.manycore import allreduce_done
     from repro_torch.kernels import granule_step
     from repro_torch.kernels.fused_checks import clone, compare
@@ -412,6 +667,7 @@ def phase_full(result: dict) -> None:
     x2_before = sends_x2(local)
     k_times = [t / n_cyc for t in time_reps(kernel, reps)]
     pushes = (sends_x2(local) - x2_before) / 2 / (reps * n_cyc)
+    flag = flag_cost(carry, program, consts, reps)
     granule_step.launches = n_before  # timing launches are not the main path
     ref_carry = carry
 
@@ -438,6 +694,7 @@ def phase_full(result: dict) -> None:
         f"{plain_ms:.4f} ms ({min(p_times):.4f}-{max(p_times):.4f}), "
         f"{plain_ms / kern_ms:.1f}x the kernel; memory bound {bound_ms:.5f} ms, "
         f"kernel at {kern_ms / bound_ms:.2f}x it")
+    log_flag_cost("full", flag, reps)
     log("[full] bound per core and cycle: " + ", ".join(
         f"{k} {v:.2f} B" for k, v in per_core.items())
         + f" ({pushes / (R * C):.4f} packets pushed a core and cycle); "
@@ -448,17 +705,21 @@ def phase_full(result: dict) -> None:
         f"cycle, kernel at {kern_ms / old_ms:.2f}x it")
     del carry, ref_carry, local, start, plain, kern
 
-    # the main path: Simulation.run(until=allreduce_done) through the kernel
+    # the main path: Simulation.run(until=allreduce_done) through the
+    # kernel, in the device loop (spans of epochs replayed from a CUDA graph)
     sim.reset(0)
     sim.block_until_ready()
+    start = clone(sim.state)
     torch.cuda.reset_peak_memory_stats()
     done = lambda s: allreduce_done(s.block_states[0], s.tables.active[0])  # noqa: E731
     granule_step.launches = 0
+    c0 = until_counts()
     t2 = time.perf_counter()
     sim.run(until=done, max_epochs=1000)
     sim.block_until_ready()
     run_s = time.perf_counter() - t2
     launches = granule_step.launches
+    first = dict(counts_since(c0), wall=run_s)
     if launches <= 0:
         raise AssertionError("the main path launched the granule_step kernel 0 times")
     totals = eng.gather_group(sim.state, 0).total
@@ -470,32 +731,22 @@ def phase_full(result: dict) -> None:
     if float(values.astype(np.float64).sum()) != TOTAL:
         raise AssertionError("wafer values do not sum to the expected total")
     cycles = sim.cycle
+    check_loop_counts("full", "granule_step", launches, first, sim.epoch)
+    run_only = run_s - first["capture_s"]
     log(f"[full] converged: every one of {R * C} cores holds total {TOTAL:.0f} "
-        f"after {cycles} cycles ({sim.epoch} epochs); run {run_s:.3f} s wall, "
-        f"set-up {setup_s:.2f} s; {R * C * cycles / run_s:.4e} core-cycles/s; "
-        f"granule_step launches {launches}; device memory in use "
+        f"after {cycles} cycles ({sim.epoch} epochs); run {run_only:.3f} s "
+        f"(wall {run_s:.3f} s less the capture's {first['capture_s']:.3f} s, "
+        f"set-up), set-up {setup_s:.2f} s; {R * C * cycles / run_only:.4e} "
+        f"core-cycles/s; granule_step launches {launches}; device memory in use "
         f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB, peak "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-    # the same until-run again under the profiler: the device's idle share
-    # and each kernel's device time per simulated cycle, from its trace
-    sim.reset(0)
-    sim.block_until_ready()
-    trace = traced_run(lambda: sim.run(until=done, max_epochs=1000))
+    # the host loop on the same card, warm replays, and both loops under
+    # the profiler: the device's idle share and each kernel's device time
+    # per simulated cycle, from the traces
+    compare_loops("full", eng, sim, start, done, 1000, first, clone, compare, R * C)
     granule_step.launches = launches
-    if sim.cycle != cycles:
-        raise AssertionError(f"the traced run stopped at cycle {sim.cycle}, "
-                             f"the main run at {cycles}")
-    if trace["busy"] is None:
-        log("[trace] device idle share: not measured (the trace holds no "
-            "device event)")
-    else:
-        kernels = "; ".join(f"{k} {v / cycles * 1e6:.2f} us"
-                            for k, v in trace["per_kernel"].items())
-        log(f"[trace] traced repeat of the until-run: {trace['wall']:.3f} s "
-            f"wall, device busy {trace['busy']:.3f} s over {trace['events']} "
-            f"device events, idle share {1.0 - trace['busy'] / trace['wall']:.4f}; "
-            f"per simulated cycle: {kernels}")
+    del start
     result.update(
         name="granule_step", route="cuda",
         source="src/repro_torch/kernels/csrc/granule_step.cu",
@@ -511,6 +762,7 @@ SYS_M = SYS_R = SYS_C = 1024  # the paper's grid; the full product Y = A @ B
 SYS_K = 62  # the paper's queue depth, the largest K of the JAX K-sweep
 SYS_SEED = 0
 SYS_SWEEP = (1, 2, 4, 8, 16)  # cycles a launch of systolic_step's sweep
+SPAN_SWEEP = (1, 4, 8, 16, 32)  # epochs a captured span of the device loop
 
 
 def sys_operands(M, R, C, seed):
@@ -617,7 +869,7 @@ def phase_sys_full(result: dict) -> None:
 
     import numpy as np
     import torch
-    from repro_torch.core import Simulation
+    from repro_torch.core import Simulation, device_loop
     from repro_torch.core.fastgrid import RegisterGridEngine
     from repro_torch.hw.systolic import matmul_error_bound
     from repro_torch.kernels import systolic_step as sk
@@ -716,16 +968,21 @@ def phase_sys_full(result: dict) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the main path: Simulation.run(until=every south cell has M outputs)
+    # the main path: Simulation.run(until=every south cell has M outputs),
+    # in the device loop
     sim.reset()
     sim.block_until_ready()
+    start = clone_state(sim.state)
     torch.cuda.reset_peak_memory_stats()
+    done = eng.y_done
     sk.launches = 0
+    c0 = until_counts()
     t2 = time.perf_counter()
-    sim.run(until=eng.y_done)
+    sim.run(until=done, max_epochs=1000)
     sim.block_until_ready()
     run_s = time.perf_counter() - t2
     launches = sk.launches
+    first = dict(counts_since(c0), wall=run_s)
     if launches <= 0:
         raise AssertionError("the main path launched the systolic_step kernel 0 times")
     cycles, epochs = sim.cycle, sim.epoch
@@ -736,35 +993,27 @@ def phase_sys_full(result: dict) -> None:
     if Y.shape != (M, C) or not np.isfinite(Y).all() or not (err_y <= tol).all():
         raise AssertionError(f"Y off the f64 product: max |err| {err_y.max()}, "
                              f"max err/bound {(err_y / tol).max()}")
+    check_loop_counts("sys-full", "systolic_step", launches, first, epochs)
+    run_only = run_s - first["capture_s"]
     log(f"[sys-full] done: every south cell collected {M} outputs after "
         f"{cycles} cycles ({epochs} epochs); Y {Y.shape} within "
         f"gamma_R*(|A|@|B|) of the f64 product (max |err| {err_y.max():.3e}, "
         f"max err/bound {(err_y / tol).max():.4f}, max |Y| "
-        f"{np.abs(Y64).max():.2f}); run {run_s:.3f} s wall, set-up "
-        f"{setup_s:.2f} s; {R * C * cycles / run_s:.4e} core-cycles/s; "
-        f"systolic_step launches {launches}; device memory in use "
+        f"{np.abs(Y64).max():.2f}); run {run_only:.3f} s (wall {run_s:.3f} s "
+        f"less the capture's {first['capture_s']:.3f} s, set-up), set-up "
+        f"{setup_s:.2f} s; {R * C * cycles / run_only:.4e} core-cycles/s; "
+        f"systolic_step launches {launches} ({int(first['spans'])} replayed spans of "
+        f"{device_loop.SPAN} epochs and one span's warm-up); device memory in use "
         f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB, peak "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-    # the same until-run again under the profiler
-    sim.reset()
-    sim.block_until_ready()
-    trace = traced_run(lambda: sim.run(until=eng.y_done), ("systolic_window",))
+    # the host loop on the same card, warm replays, both loops under the
+    # profiler, and the device loop's span sweep
+    compare_loops("sys-full", eng, sim, start, done, 1000, first, clone_state,
+                  assert_states_equal, R * C, ("systolic_window",), SPAN_SWEEP)
     sk.launches = launches
-    if sim.cycle != cycles:
-        raise AssertionError(f"the traced run stopped at cycle {sim.cycle}, "
-                             f"the main run at {cycles}")
-    if trace["busy"] is None:
-        log("[sys-trace] device idle share: not measured (the trace holds no "
-            "device event)")
-    else:
-        kernels = "; ".join(f"{k} {v / cycles * 1e6:.2f} us"
-                            for k, v in trace["per_kernel"].items())
-        log(f"[sys-trace] traced repeat of the until-run: {trace['wall']:.3f} s "
-            f"wall, device busy {trace['busy']:.3f} s over {trace['events']} "
-            f"device events, idle share {1.0 - trace['busy'] / trace['wall']:.4f}; "
-            f"per simulated cycle: {kernels}")
     sim._state = None
+    del start
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -883,7 +1132,7 @@ def phase_fsys_full(result: dict) -> None:
 
     import numpy as np
     import torch
-    from repro_torch.core import Simulation
+    from repro_torch.core import Simulation, device_loop
     from repro_torch.core.fastgrid import RegisterGridEngine
     from repro_torch.core.fused import FusedEngine
     from repro_torch.hw.systolic import (SystolicCell, make_cell_params,
@@ -948,6 +1197,7 @@ def phase_fsys_full(result: dict) -> None:
     f0 = local.block_states[0].fires.clone()
     k_times = [t / n_cyc for t in time_reps(kernel, reps)]
     fired = local.block_states[0].fires - f0
+    flag = flag_cost(carry, program, consts, reps)
     granule_step.launches = n_before  # timing launches are not the main path
     ref_carry = carry
 
@@ -970,6 +1220,7 @@ def phase_fsys_full(result: dict) -> None:
         f"{nbytes['cells'] / (R * C):.2f}, registers {nbytes['regs'] / (R * C):.2f}, "
         f"per fire {nbytes['fires'] / (R * C):.2f} at {nbytes['fire_rate']:.4f} "
         f"fires a core and cycle), kernel at {kern_ms / bound_ms:.2f}x it")
+    log_flag_cost("fsys-full", flag, reps)
     del carry, ref_carry, local, f0, fired
     gc.collect()
     torch.cuda.empty_cache()
@@ -978,13 +1229,16 @@ def phase_fsys_full(result: dict) -> None:
     # outputs) through the kernel
     sim.reset(0)
     sim.block_until_ready()
+    start = fc.clone(sim.state)
     torch.cuda.reset_peak_memory_stats()
     granule_step.launches = 0
+    c0 = until_counts()
     t2 = time.perf_counter()
     sim.run(until=done, max_epochs=1000)
     sim.block_until_ready()
     run_s = time.perf_counter() - t2
     launches = granule_step.launches
+    first = dict(counts_since(c0), wall=run_s)
     if launches <= 0:
         raise AssertionError("the fused systolic run launched granule_step 0 times")
     cycles, epochs = sim.cycle, sim.epoch
@@ -999,31 +1253,24 @@ def phase_fsys_full(result: dict) -> None:
                              f"max err/bound {(err_y / tol).max()}")
     if not np.array_equal(Y.view(np.uint32), Y_reg.view(np.uint32)):
         raise AssertionError("the fused engine's Y differs from the register engine's")
+    check_loop_counts("fsys-full", "granule_step", launches, first, epochs)
+    run_only = run_s - first["capture_s"]
     log(f"[fsys-full] done: every south cell collected {M} outputs after {cycles} "
         f"cycles ({epochs} epochs; the register engine: {reg_cycles}); Y "
         f"bit-identical to RegisterGridEngine's and within gamma_R*(|A|@|B|) (max "
-        f"err/bound {(err_y / tol).max():.4f}); run {run_s:.3f} s wall, set-up "
-        f"{setup_s:.2f} s; {R * C * cycles / run_s:.4e} core-cycles/s; granule_step "
-        f"launches {launches}; device memory peak {peak / 2**20:.1f} MiB")
+        f"err/bound {(err_y / tol).max():.4f}); run {run_only:.3f} s (wall "
+        f"{run_s:.3f} s less the capture's {first['capture_s']:.3f} s, set-up), "
+        f"set-up {setup_s:.2f} s; {R * C * cycles / run_only:.4e} core-cycles/s; "
+        f"granule_step launches {launches} ({int(first['spans'])} replayed spans of "
+        f"{device_loop.SPAN} epochs and one span's warm-up); device memory peak {peak / 2**20:.1f} MiB")
 
-    # the same until-run again under the profiler
-    sim.reset(0)
-    sim.block_until_ready()
-    trace = traced_run(lambda: sim.run(until=done, max_epochs=1000), ("granule_cycle",))
+    # the host loop on the same card, warm replays, both loops under the
+    # profiler
+    compare_loops("fsys-full", eng, sim, start, done, 1000, first, fc.clone,
+                  fc.compare, R * C, ("granule_cycle",))
     granule_step.launches = launches
-    if sim.cycle != cycles:
-        raise AssertionError(f"the traced run stopped at cycle {sim.cycle}, "
-                             f"the main run at {cycles}")
-    if trace["busy"] is None:
-        log("[fsys-trace] device idle share: not measured (the trace holds no "
-            "device event)")
-    else:
-        log(f"[fsys-trace] traced repeat of the until-run: {trace['wall']:.3f} s "
-            f"wall, device busy {trace['busy']:.3f} s over {trace['events']} "
-            f"device events, idle share {1.0 - trace['busy'] / trace['wall']:.4f}; "
-            f"granule_cycle {trace['per_kernel']['granule_cycle'] / cycles * 1e6:.2f} "
-            f"us a simulated cycle")
     sim._state = None
+    del start
     gc.collect()
     torch.cuda.empty_cache()
     result.update(

@@ -44,6 +44,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from . import device_loop
 from . import queue as qmod
 from ..kernels import granule_step
 from .device import resolve_device
@@ -327,6 +328,7 @@ class GraphEngine:
         self.capacity = graph.capacity
         self.dtype = graph.dtype
         self.part = ptree.part
+        self._until_cache: dict = {}  # run_until's captured spans
         self._build_tables()
 
     # ------------------------------------------------- host-side lowering
@@ -491,8 +493,9 @@ class GraphEngine:
     def _global_view(self, local):
         raise NotImplementedError
 
-    def _epoch(self, local):
-        """One outermost epoch on the local view.  The queue-interpreter
+    def _epoch(self, local, stop=None):
+        """One outermost epoch on the local view, a no-op where ``stop``
+        (the until-loop's () bool tensor) is set.  The queue-interpreter
         cycle of this class (``granule_local_cycle``) is not ported yet;
         ``FusedEngine`` supplies the epoch."""
         raise NotImplementedError(
@@ -536,19 +539,49 @@ class GraphEngine:
         done_fn: Callable[[Any], torch.Tensor],
         max_epochs: int,
         *,
+        cache_key: Any = None,
         donate: bool = True,
     ):
-        """Run epochs until ``done_fn(self._done_view(local))`` holds, or at
-        most ``max_epochs`` MORE epochs from the input state (a relative
-        budget).  The predicate is checked on the host before every epoch,
-        so an already-done state runs zero epochs."""
-        local = self._local_view(self._owned(state, donate))
-        ran = 0
-        while ran < max_epochs and not bool(
-                torch.as_tensor(done_fn(self._done_view(local))).all()):
-            local = self._epoch(local)
-            ran += 1
-        return self._global_view(local)
+        """Run epochs until ``done_fn(self._done_view(local))`` holds on
+        every granule, or at most ``max_epochs`` MORE epochs from the input
+        state (a relative budget).  The predicate is checked before every
+        epoch, so an already-done state runs zero epochs.
+
+        The loop runs on the device (``core.device_loop``): on a CUDA state
+        spans of epochs replay from a CUDA graph, the predicate reduced and
+        the stop decided on the card, and the host waits once a span.  The
+        predicate must return a device tensor without reading it back.  The
+        captured span is cached per (predicate, ``max_epochs``, ``donate``)
+        and the state's tensors; the cache pins ``cache_key`` if given,
+        else ``done_fn`` — pass ``cache_key`` when the predicate is a fresh
+        lambda per call but semantically constant.
+
+        ``donate=True`` (default) lets the CUDA path update the state's
+        tensors in place: the input state must not be reused afterwards.
+        ``donate=False`` runs on a clone at new addresses, so every such
+        call captures its span anew, where a donated state that is run
+        again replays the span it captured."""
+        return device_loop.run_until(
+            self._until_cache, self._owned(state, donate),
+            enter=self._local_view, leave=self._global_view,
+            epoch=lambda local, stop: self._epoch(local, stop=stop),
+            done=lambda local: done_fn(self._done_view(local)),
+            max_epochs=max_epochs, donate=donate,
+            anchor=done_fn if cache_key is None else cache_key,
+        )
+
+    def run_until_host(self, state, done_fn: Callable[[Any], torch.Tensor],
+                       max_epochs: int, *, donate: bool = True):
+        """The plain version of :meth:`run_until`: the predicate read back
+        on the host before every epoch (``device_loop.host_loop``), the
+        yardstick the device loop is held against."""
+        return device_loop.host_loop(
+            self._owned(state, donate),
+            enter=self._local_view, leave=self._global_view,
+            epoch=lambda local, stop: self._epoch(local, stop=stop),
+            done=lambda local: done_fn(self._done_view(local)),
+            max_epochs=max_epochs,
+        )
 
     # ------------------------------------------------------- host utilities
     def gather_group(self, state, gi: int) -> Tree:

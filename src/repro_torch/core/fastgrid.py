@@ -28,6 +28,7 @@ import torch
 
 from ..kernels import systolic_step as sk
 from ..obs.registry import REGISTRY
+from . import device_loop
 from .device import resolve_device
 from .graph import ChannelGraph
 from .struct import tensor_dataclass, tree_map
@@ -114,6 +115,7 @@ class RegisterGridEngine:
         self.M = int(m_stream)
         self.graph: ChannelGraph | None = None
         self._graph_ab: tuple[np.ndarray, np.ndarray] | None = None
+        self._until_cache: dict = {}  # run_until's captured spans
 
     # ------------------------------------------------------- IR entry point
     @classmethod
@@ -259,15 +261,19 @@ class RegisterGridEngine:
             south_limit=torch.clamp(st.credit_s, max=K),
         )
 
-    def _epoch(self, st: RegGridState,
-               step: Callable | None = None) -> RegGridState:
+    def _epoch(self, st: RegGridState, step: Callable | None = None,
+               stop: torch.Tensor | None = None) -> RegGridState:
         """One epoch of every tile: ``step`` (``systolic_step`` unless a
         caller holds a version against another) runs the K cycles, then
         the slabs and credits move one tile east/south (west/north for
         credits).  On a CUDA state the kernel updates the cell tensors in
-        place."""
+        place.  Where ``stop`` (the until-loop's () bool tensor) is set,
+        the step, the exchange and the counters leave the state as it was
+        (``torch.where`` on the slab, count and credit leaves: no host
+        read); a gated epoch bumps no registry counter."""
         step = sk.systolic_step if step is None else step
-        out = step(self.step_input(st), self.K)
+        inp = self.step_input(st)
+        out = step(inp, self.K) if stop is None else step(inp, self.K, stop)
 
         # emission was credit-bounded inside the kernel; send everything
         slab_e_in = _shift(out["east_slab"], 1, +1)
@@ -282,14 +288,19 @@ class RegisterGridEngine:
         )
         credit_e = _shift(self.W - west_cnt, 1, -1)
         credit_s = _shift(self.W - north_cnt, 0, -1)
-        REGISTRY.inc("register.dispatch.count")
-        REGISTRY.inc("register.epochs")
+        new = dict(west_slab=west_slab, west_cnt=west_cnt,
+                   north_slab=north_slab, north_cnt=north_cnt,
+                   credit_e=credit_e, credit_s=credit_s)
+        if stop is None:  # the until-loop counts its own epochs
+            run = 1
+            REGISTRY.inc("register.dispatch.count")
+            REGISTRY.inc("register.epochs")
+        else:
+            new = {k: torch.where(stop, getattr(st, k), v) for k, v in new.items()}
+            run = (~stop).to(st.epoch.dtype)
         return st.replace(
-            cell={k: out[k] for k in st.cell},
-            west_slab=west_slab, west_cnt=west_cnt,
-            north_slab=north_slab, north_cnt=north_cnt,
-            credit_e=credit_e, credit_s=credit_s,
-            cycle=st.cycle + self.K, epoch=st.epoch + 1,
+            cell={k: out[k] for k in st.cell}, **new,
+            cycle=st.cycle + self.K * run, epoch=st.epoch + run,
         )
 
     # ------------------------------------------------------------------- run
@@ -313,34 +324,50 @@ class RegisterGridEngine:
             st = self._epoch(st)
         return st
 
-    def tiles_done(self, cell: dict, done_fn: Callable) -> bool:
-        """``done_fn`` holds on every tile's local cell dict (leaves
-        (Tr, Tc, ...)) — the view ``run_until``'s predicate gets."""
-        done = [
-            torch.as_tensor(done_fn({k: v[dr, dc] for k, v in cell.items()}),
-                            device=self.device).all()
+    def tiles_done(self, cell: dict, done_fn: Callable) -> torch.Tensor:
+        """() bool on the cells' device: ``done_fn`` holds on every tile's
+        local cell dict (leaves (Tr, Tc, ...)), the view ``run_until``'s
+        predicate gets — each tile's result stacked and reduced, as the
+        reference's ``vmap(done_fn)(...).all()``, with no host read."""
+        return torch.stack([
+            torch.as_tensor(done_fn({k: v[dr, dc] for k, v in cell.items()})).all()
             for dr in range(self.Dr) for dc in range(self.Dc)
-        ]
-        return bool(torch.stack(done).all())  # one sync for every tile
+        ]).all()
 
     def run_until(self, state: RegGridState, done_fn: Callable,
-                  max_epochs: int, *, donate: bool = True) -> RegGridState:
+                  max_epochs: int, *, cache_key=None,
+                  donate: bool = True) -> RegGridState:
         """Run epochs until ``done_fn(cell)`` holds on every tile (the
         predicate sees the tile-local cell dict), or at most ``max_epochs``
         MORE epochs from the input state (a relative budget).  The predicate
         is checked before every epoch, so an already-done state runs zero
-        epochs."""
-        st = self._owned(state, donate)
-        ran = 0
-        while ran < max_epochs and not self.tiles_done(st.cell, done_fn):
-            st = self._epoch(st)
-            ran += 1
-        return st
+        epochs.  The loop runs on the device, cached and keyed as
+        ``GraphEngine.run_until``'s (``core.device_loop``): the predicate
+        must return a device tensor without reading it back."""
+        return device_loop.run_until(
+            self._until_cache, self._owned(state, donate),
+            epoch=lambda st, stop: self._epoch(st, stop=stop),
+            done=lambda st: self.tiles_done(st.cell, done_fn),
+            max_epochs=max_epochs, donate=donate,
+            anchor=done_fn if cache_key is None else cache_key,
+        )
+
+    def run_until_host(self, state: RegGridState, done_fn: Callable,
+                       max_epochs: int, *, donate: bool = True) -> RegGridState:
+        """The plain version of :meth:`run_until`: the predicate read back
+        on the host before every epoch (``device_loop.host_loop``)."""
+        return device_loop.host_loop(
+            self._owned(state, donate),
+            epoch=lambda st, stop: self._epoch(st, stop=stop),
+            done=lambda st: self.tiles_done(st.cell, done_fn),
+            max_epochs=max_epochs,
+        )
 
     def run_until_done(self, state: RegGridState, max_epochs: int, *,
                        donate: bool = True) -> RegGridState:
         """Run epochs until every south cell collected all M outputs."""
-        return self.run_until(state, self.y_done, max_epochs, donate=donate)
+        return self.run_until(state, self.y_done, max_epochs,
+                              cache_key="y_done", donate=donate)
 
     def y_done(self, cell: dict) -> torch.Tensor:
         """() bool — every south cell of ``cell`` collected all M outputs."""

@@ -582,11 +582,14 @@ class FusedEngine(GraphEngine):
         carry, pending = self._resident_exchange_issue(carry, t, consts)
         return self._resident_exchange_commit(carry, t, pending, consts)
 
-    def _epoch(self, local: FusedState, program=None) -> FusedState:
+    def _epoch(self, local: FusedState, program=None, stop=None) -> FusedState:
         """One outermost epoch: the resident program of every tier, then
         the epoch counter.  ``program`` (``granule_step.epoch_program``
         unless a caller holds a version against another) runs it; on a
-        CUDA state the kernel updates the carry's tensors in place."""
+        CUDA state the kernel updates the carry's tensors in place.  Where
+        ``stop`` (the until-loop's () bool tensor) is set, the program and
+        the counter leave the state as it was; a gated epoch bumps no
+        registry counter (``until.epochs`` counts the loop's)."""
         program = granule_step.epoch_program if program is None else program
         carry = (local.reg_val, local.reg_v, local.queues, local.block_states,
                  local.cycle, local.credits)
@@ -595,13 +598,15 @@ class FusedEngine(GraphEngine):
             exchange_fn=self._resident_exchange,
             issue_fn=self._resident_exchange_issue,
             commit_fn=self._resident_exchange_commit,
-            consts=self._consts(local.tables),
+            consts=self._consts(local.tables), stop=stop,
         )
-        REGISTRY.inc("fused.dispatch.count")
-        REGISTRY.inc("fused.epochs")
+        if stop is None:  # the until-loop counts its own epochs
+            REGISTRY.inc("fused.dispatch.count")
+            REGISTRY.inc("fused.epochs")
+        step = 1 if stop is None else (~stop).to(local.epoch.dtype)
         return local.replace(
             reg_val=out[0], reg_v=out[1], queues=out[2], block_states=out[3],
-            cycle=out[4], credits=out[5], epoch=local.epoch + 1,
+            cycle=out[4], credits=out[5], epoch=local.epoch + step,
         )
 
     # ------------------------------------------------- host-side external I/O

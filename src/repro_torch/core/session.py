@@ -297,6 +297,7 @@ class Simulation:
         until: Callable | None = None,
         max_cycles: int | None = None,
         max_epochs: int | None = None,
+        cache_key: Any = None,
     ) -> "Simulation":
         """Advance the simulation.
 
@@ -305,7 +306,10 @@ class Simulation:
         until:  run until a predicate holds, within the ``max_cycles`` /
             ``max_epochs`` budget (relative to now; default 100k epochs).
             The predicate sees the engine's ``run_until`` view, and is
-            checked at every boundary.
+            checked at every boundary.  On the epoch engines it runs in
+            the engine's device loop: it must return a device tensor
+            without reading it back.  ``cache_key`` pins the engine's
+            captured loop when the predicate is a fresh lambda per call.
 
         Pending Tx packets are flushed at every boundary.
         """
@@ -325,8 +329,8 @@ class Simulation:
                 if self.kind == "single":
                     self._state = self.engine.run_until(st, until, max_epochs * per)
                 else:
-                    self._state = self.engine.run_until(st, until, max_epochs,
-                                                        donate=True)
+                    self._state = self.engine.run_until(
+                        st, until, max_epochs, cache_key=cache_key, donate=True)
                 return self
             ran = 0  # pending host traffic: one boundary at a time
             while ran < max_epochs and not self._host_done(until):
@@ -348,7 +352,7 @@ class Simulation:
         if self.kind == "single":
             return bool(done_fn(st))
         if self.kind == "register":
-            return self.engine.tiles_done(st.cell, done_fn)
+            return bool(self.engine.tiles_done(st.cell, done_fn))
         local = self.engine._local_view(st)
         return bool(torch.as_tensor(done_fn(self.engine._done_view(local))).all())
 

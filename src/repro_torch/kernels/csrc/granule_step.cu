@@ -72,8 +72,20 @@
 // full.  Leaves only their owner touches stay in place.  The cycle counter
 // is read as base + offset (the offset is a launch argument) and advanced
 // once at the end of the program; after an odd number of cycles the
-// buffer-1 leaves are copied back, so the results are always in the
-// carry's own tensors.
+// buffer-1 leaves are copied back (copy_back), so the results are always
+// in the carry's own tensors.
+//
+// The until-loop's stop flag (ProgramArgs::stop, a device bool; null
+// outside the loop): every launch of the program reads it and, where it
+// is set, returns before its first write, the copy-back and the cycle
+// advance included.  Nothing is written to buffer 0 then, so the carry's
+// own tensors keep the state as it was; the program's host side is the
+// same either way, which lets a CUDA graph replay it whatever the flag
+// holds (repro_torch.core.device_loop).  granule_cycle checks the flag
+// after a slot's first loads, so their latency hides the flag's: checked
+// first, the flag cost the wafer's cycle 0.5-0.6% and the fused systolic
+// grid's 0.6-2.2% (chip_smoke.py's flag_cost, H100 80GB HBM3, 700 W);
+// checked there, nothing measurable.
 //
 // What bounds it now: device memory.  ManycoreCell reads ~29 B of block
 // state a slot and writes ~25 B, reads the port tables (16 B) and the
@@ -165,6 +177,9 @@ struct ProgramArgs {
   int32_t* q_head[2];    // (n_qrows,), by cycle parity
   int32_t* q_tail[2];
   int32_t* cycle;        // () cycle counter at the program's start
+  // () the until-loop's stop flag, or null: where it is set, every launch
+  // of the program returns at once and the carry stays as it was
+  const uint8_t* stop;
   int32_t n_reg;
   int32_t n_qrows;       // queue rows in the carry (1 when have_q == 0)
   int32_t n_q_row;       // queue rows per batch row
@@ -191,6 +206,11 @@ struct TierArgs {
   int32_t S;
   int32_t E;
 };
+
+// The until-loop's stop flag is set (a null flag never is).
+__device__ __forceinline__ bool stopped(const uint8_t* stop) {
+  return stop != nullptr && *stop != 0;
+}
 
 // (x mod cap) in [0, cap): C's % keeps the dividend's sign.
 __device__ __forceinline__ int ring(int x, int cap) {
@@ -345,7 +365,7 @@ __device__ __forceinline__ void commit_in(const ProgramArgs& a, int s, int c,
 // ManycoreCell.step (repro_torch/hw/manycore.py) on slot i of group g.
 template <int kMask>
 __device__ __forceinline__ void core_step(const ProgramArgs& a, const Group& g,
-                                          int i, int s, int off) {
+                                          int i, int s, int off, bool halt) {
   const CoreLeaves& L = g.u.core;
   const int d = s ^ 1;
   const bool en = enabled(a, g, off);
@@ -354,6 +374,7 @@ __device__ __forceinline__ void core_step(const ProgramArgs& a, const Group& g,
   const int2 cn = pair_at(g.cons, i);
   const int phase = L.phase[s][i], sent = L.sent[s][i], rcvd = L.rcvd[s][i];
   const bool fwd_v = L.fwd_v[s][i] != 0;
+  if (halt) return;  // after the slot's first loads, which overlap the flag's
 
   const bool in_row = phase == 0;
   const bool live = phase < 2;
@@ -417,7 +438,7 @@ __device__ __forceinline__ void core_step(const ProgramArgs& a, const Group& g,
 // SystolicCell.step (repro_torch/hw/systolic.py) on slot i of group g.
 template <int kMask>
 __device__ __forceinline__ void cell_step(const ProgramArgs& a, const Group& g,
-                                          int i, int s, int off) {
+                                          int i, int s, int off, bool halt) {
   const CellLeaves& L = g.u.cell;
   const int d = s ^ 1;
   const bool en = enabled(a, g, off);
@@ -426,6 +447,7 @@ __device__ __forceinline__ void cell_step(const ProgramArgs& a, const Group& g,
   const int2 cn = pair_at(g.cons, i);
   const bool west = L.is_west[i] != 0, north = L.is_north[i] != 0;
   const bool south = L.is_south[i] != 0, east = L.is_east[i] != 0;
+  if (halt) return;  // after the slot's first loads, which overlap the flag's
 
   // edge synthesis: a west cell streams a_buf, a north cell adds to 0
   const int a_idx = west ? L.a_idx[s][i] : 0;
@@ -479,15 +501,16 @@ template <int kMask>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 granule_cycle(const ProgramArgs a, const int s, const int off) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool halt = stopped(a.stop);
 #pragma unroll
   for (int gi = 0; gi < kMaxGroups; ++gi) {
     if (gi >= a.n_groups) return;
     const Group& g = a.g[gi];
     if (i < g.base || i >= g.base + g.n_slot) continue;
     if ((kMask & (1 << kManycore)) && g.type == kManycore)
-      core_step<kMask>(a, g, i - g.base, s, off);
+      core_step<kMask>(a, g, i - g.base, s, off, halt);
     else if ((kMask & (1 << kSystolic)) && g.type == kSystolic)
-      cell_step<kMask>(a, g, i - g.base, s, off);
+      cell_step<kMask>(a, g, i - g.base, s, off, halt);
     return;
   }
 }
@@ -496,7 +519,7 @@ granule_cycle(const ProgramArgs a, const int s, const int off) {
 // Rows whose count is 0 (padding, or no credit) are not written at all.
 __global__ void exchange_drain(ProgramArgs a, TierArgs t, const int s) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= t.B * t.S) return;
+  if (j >= t.B * t.S || stopped(a.stop)) return;
   const int b = j / t.S;
   const int limit = t.send_mask[j] ? t.credits[j] : 0;
   const int row = b * a.n_q_row + t.send_idx[j];
@@ -518,7 +541,7 @@ __global__ void exchange_drain(ProgramArgs a, TierArgs t, const int s) {
 // receiver's new free space as the credit to return.
 __global__ void exchange_fill(ProgramArgs a, TierArgs t, const int s) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= t.B * t.S) return;
+  if (j >= t.B * t.S || stopped(a.stop)) return;
   const int b = j / t.S, sl = j % t.S;
   const bool live = t.recv_mask[j] != 0;
   const int sj = t.bat_fwd[j] * t.S + sl;
@@ -537,14 +560,31 @@ __global__ void exchange_fill(ProgramArgs a, TierArgs t, const int s) {
 }
 
 // Commit half, part 2: credits return to the senders on bat_rev.
-__global__ void exchange_credit(TierArgs t) {
+__global__ void exchange_credit(TierArgs t, const uint8_t* stop) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= t.B * t.S) return;
+  if (j >= t.B * t.S || stopped(stop)) return;
   t.credits[j] = t.cred[t.bat_rev[j] * t.S + j % t.S];
 }
 
 // The program's cycles, added once at its end.
-__global__ void advance_cycle(int32_t* cycle, int n) { cycle[0] += n; }
+__global__ void advance_cycle(int32_t* cycle, int n, const uint8_t* stop) {
+  if (!stopped(stop)) cycle[0] += n;
+}
+
+// After an odd cycle count: buffer 1 of a paired leaf copied back to
+// buffer 0, n bytes (whole tensors, so both start 4-byte aligned), in
+// 4-byte words and a byte tail.  A stopped program copies nothing, so
+// buffer 0 keeps the carry as it was.
+__global__ void copy_back(uint8_t* dst, const uint8_t* src, int64_t n,
+                          const uint8_t* stop) {
+  if (stopped(stop)) return;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (4 * i + 4 <= n) {
+    reinterpret_cast<uint32_t*>(dst)[i] = reinterpret_cast<const uint32_t*>(src)[i];
+  } else {
+    for (int64_t b = 4 * i; b < n; ++b) dst[b] = src[b];
+  }
+}
 
 static inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
@@ -611,7 +651,7 @@ extern "C" int granule_program(const ProgramArgs* args, const TierArgs* tiers,
     if (op == kExchange || op == kCommit) {
       exchange_fill<<<blocks_for(n), kThreads, 0, stream>>>(a, t, s);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-      exchange_credit<<<blocks_for(n), kThreads, 0, stream>>>(t);
+      exchange_credit<<<blocks_for(n), kThreads, 0, stream>>>(t, a.stop);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
   }
@@ -637,13 +677,15 @@ extern "C" int granule_program(const ProgramArgs* args, const TierArgs* tiers,
       }
     }
     for (int k = 0; k < n_copies; ++k) {
-      err = cudaMemcpyAsync(copies[k].dst, copies[k].src, copies[k].n,
-                            cudaMemcpyDeviceToDevice, stream);
-      if (err != cudaSuccess) return (int)err;
+      const int64_t n = (int64_t)copies[k].n;
+      copy_back<<<blocks_for((int)((n + 3) / 4)), kThreads, 0, stream>>>(
+          static_cast<uint8_t*>(copies[k].dst),
+          static_cast<const uint8_t*>(copies[k].src), n, a.stop);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
   }
   if (done > 0) {
-    advance_cycle<<<1, 1, 0, stream>>>(a.cycle, done);
+    advance_cycle<<<1, 1, 0, stream>>>(a.cycle, done, a.stop);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();

@@ -56,6 +56,10 @@
 // and are updated in place.  k and the block shape are launch arguments
 // (repro_torch.kernels.systolic_step.tile_plan); the launch refuses a
 // shared-memory byte count that is not window_smem()'s own.
+// The until-loop's stop flag (StepArgs::stop; null outside the loop): a
+// launch that finds it set only carries its owned cells and counters from
+// buffer s to buffer s ^ 1 (carry_block), so the call returns the state it
+// was given, its slabs empty, whatever its launch count.
 //
 // What bounds it now: not device memory (the window is read and the block
 // written once a launch, ~50 MB a launch and ~0.4 GB a call of 62 cycles
@@ -104,11 +108,16 @@ struct StepArgs {
   // row R-1
   float* east_slab;      // (T, R, W)
   float* south_slab;     // (T, C, W)
+  // () the until-loop's stop flag, or null: where it is set, a launch
+  // carries its owned cells and counters from buffer s to buffer s ^ 1
+  // unchanged and writes nothing else
+  const uint8_t* stop;
   int32_t T, R, C, M, W;
 };
 
 constexpr int kThreads = 512;
 constexpr int kSmemLimit = 232448;  // a CTA's shared memory on Hopper
+constexpr int kMaxDevices = 64;
 
 // the packed per-cell byte: the two valid flags and the four edge flags
 constexpr uint8_t A_V = 1, P_V = 2, IS_W = 4, IS_N = 8, IS_S = 16, IS_E = 32;
@@ -246,6 +255,37 @@ __device__ void edge_commit(const StepArgs& g, const Window& w, int wr, int wc) 
   w.f[x] = (f & ~(A_V | P_V)) | (a_vn ? A_V : 0) | (p_vn ? P_V : 0);
 }
 
+// A stopped launch: the owned block's double-buffered leaves, and the
+// counters of its owned rows / columns, carried from buffer s to buffer d
+// as they are, so the results of the call (buffer launches % 2) hold the
+// state it was given whatever the launch count.  y_idx, y_buf and the
+// egress slabs are not touched.
+__device__ void carry_block(const StepArgs& g, const Window& w, int s, int d,
+                            int64_t tile) {
+  const int R = g.R, C = g.C;
+  const int64_t row0 = tile * R, col0 = tile * C, cell0 = row0 * C;
+  const int orows = w.r1 - w.r0, ocols = w.c1 - w.c0;
+  for (int x = threadIdx.x; x < orows * ocols; x += kThreads) {
+    const int orr = x / ocols, occ = x - orr * ocols;
+    const int64_t gi = cell0 + (int64_t)(w.r0 + orr) * C + (w.c0 + occ);
+    g.a_reg[d][gi] = g.a_reg[s][gi];
+    g.p_reg[d][gi] = g.p_reg[s][gi];
+    g.a_v[d][gi] = g.a_v[s][gi];
+    g.p_v[d][gi] = g.p_v[s][gi];
+    g.a_idx[d][gi] = g.a_idx[s][gi];
+  }
+  for (int x = threadIdx.x; x < orows; x += kThreads) {
+    const int64_t row = row0 + w.r0 + x;
+    if (w.c0 == 0) g.widx[d][row] = g.widx[s][row];
+    if (w.c1 == C) g.east_cnt[d][row] = g.east_cnt[s][row];
+  }
+  for (int x = threadIdx.x; x < ocols; x += kThreads) {
+    const int64_t col = col0 + w.c0 + x;
+    if (w.r0 == 0) g.nidx[d][col] = g.nidx[s][col];
+    if (w.r1 == R) g.south_cnt[d][col] = g.south_cnt[s][col];
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 systolic_window(const StepArgs g, const int s, const int kk, const int br,
                 const int bc, const int ncell_max, const int wr_max,
@@ -271,6 +311,10 @@ systolic_window(const StepArgs g, const int s, const int kk, const int br,
   w.c0 = blockIdx.x * bc;
   w.r1 = min(R, w.r0 + br);
   w.c1 = min(C, w.c0 + bc);
+  if (g.stop != nullptr && *g.stop != 0) {
+    carry_block(g, w, s, d, (int64_t)blockIdx.z);
+    return;
+  }
   w.rl = max(0, w.r0 - kk);
   w.cl = max(0, w.c0 - kk);
   const int rh = min(R, w.r1 + kk), ch = min(C, w.c1 + kk);
@@ -439,9 +483,20 @@ extern "C" int systolic_step(const StepArgs* args, int k_cycles, int block_r,
   const int wr_max = g.R < block_r + 2 * k ? g.R : block_r + 2 * k;
   const int wc_max = g.C < block_c + 2 * k ? g.C : block_c + 2 * k;
   const int ncell_max = wr_max * pitch_of(wc_max);
-  cudaError_t err = cudaFuncSetAttribute(
-      systolic_window, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // Raised once a device to the largest size asked, before any launch
+  // that needs it: a call made while a CUDA graph captures the stream (the
+  // until-loop warms its span up first) then makes no call but launches.
+  static int64_t smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(systolic_window,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = smem;
+  }
   const dim3 grid((g.C + block_c - 1) / block_c, (g.R + block_r - 1) / block_r, g.T);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   int launch = 0;

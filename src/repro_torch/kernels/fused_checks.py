@@ -195,21 +195,22 @@ def south_done(cells, M: int):
     return ((~cells.is_south) | (cells.y_idx >= M)).all()
 
 
-def blocks_done(blocks, states) -> bool:
-    """The end of a run of the systems here: every ``ManycoreCell`` group
-    finished its allreduce, and every ``SystolicCell`` group with west
-    cells (a grid; the relays stream nothing) collected ``M`` outputs at
-    each south cell."""
+def blocks_done(blocks, states) -> torch.Tensor:
+    """() bool on the states' device — the end of a run of the systems
+    here: every ``ManycoreCell`` group finished its allreduce, and every
+    ``SystolicCell`` group with west cells (a grid; the relays stream
+    nothing) collected ``M`` outputs at each south cell.  Nothing is read
+    back to the host, so it serves as a device loop's predicate."""
     from ..hw.manycore import ManycoreCell
     from ..hw.systolic import SystolicCell
 
+    done = torch.ones((), dtype=torch.bool, device=states[0].fires.device)
     for blk, st in zip(blocks, states):
-        if isinstance(blk, ManycoreCell) and not bool((st.phase == 2).all()):
-            return False
-        if (isinstance(blk, SystolicCell) and bool(st.is_west.any())
-                and not bool(south_done(st, blk.m_stream))):
-            return False
-    return True
+        if isinstance(blk, ManycoreCell):
+            done = done & (st.phase == 2).all()
+        elif isinstance(blk, SystolicCell):
+            done = done & (~st.is_west.any() | south_done(st, blk.m_stream))
+    return done
 
 
 def network_done(eng):

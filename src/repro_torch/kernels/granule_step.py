@@ -36,7 +36,7 @@ from typing import Any, Callable, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.struct import static_field, tensor_dataclass
+from ..core.struct import static_field, tensor_dataclass, tree_map
 from ..obs.registry import REGISTRY
 from ._build import tensor_ptr
 
@@ -49,10 +49,22 @@ Program = Sequence[Tuple[str, int]]
 
 _OPCODES = {"C": 0, "X": 1, "XI": 2, "XC": 3}
 
-#: Launches of the CUDA program kernel (one per :func:`epoch_program`
-#: call on a CUDA carry).  A plain integer, so a run can show that its
-#: main path went through the kernel; set it to 0 before the run.
+#: Launches of the CUDA program kernel: one per :func:`epoch_program`
+#: call on a CUDA carry, and one per call a CUDA graph recorded each time
+#: that graph is replayed (:func:`replayed`).  A plain integer, so a run
+#: can show that its main path went through the kernel; set it to 0
+#: before the run.
 launches = 0
+#: Calls made while the stream was capturing a CUDA graph: they launch
+#: nothing until the graph is replayed.
+recorded = 0
+
+
+def replayed(calls: int) -> None:
+    """Count ``calls`` recorded calls that a replay of their graph launched."""
+    global launches
+    launches += calls
+    REGISTRY.inc("granule_step.launches", float(calls))
 
 
 def resolve_overlap(overlap: Any = "auto") -> bool:
@@ -180,6 +192,7 @@ def epoch_program_ref(
     issue_fn: Callable[..., Tuple[Tree, Tree]] | None = None,
     commit_fn: Callable[..., Tree] | None = None,
     consts: Tree | None = None,
+    stop: torch.Tensor | None = None,
 ) -> Tree:
     """Run an op program with plain PyTorch ops — the reference the
     kernel is held against.
@@ -187,7 +200,9 @@ def epoch_program_ref(
     ``cycle_fn(carry, consts)`` steps one cycle; ``exchange_fn(carry, t,
     consts)`` runs tier ``t``'s serial exchange; ``issue_fn(carry, t,
     consts) -> (carry, pending)`` and ``commit_fn(carry, t, pending,
-    consts)`` are its halves.  Functional: the input carry is untouched.
+    consts)`` are its halves.  ``stop`` (a () bool tensor, the until-loop's
+    flag) gates the program: where it is set the carry comes back bit for
+    bit as it went in.  Functional: the input carry is untouched.
     """
     program = validate_program(program)
     if any(op == "X" for op, _ in program) and exchange_fn is None:
@@ -208,6 +223,8 @@ def epoch_program_ref(
             out, pending[arg] = issue_fn(out, arg, consts)
         else:  # "XC"
             out = commit_fn(out, arg, pending.pop(arg), consts)
+    if stop is not None:
+        out = tree_map(lambda new, old: torch.where(stop, old, new), out, carry)
     return out
 
 
@@ -220,6 +237,7 @@ def epoch_program(
     issue_fn: Callable[..., Tuple[Tree, Tree]] | None = None,
     commit_fn: Callable[..., Tree] | None = None,
     consts: ProgramConsts,
+    stop: torch.Tensor | None = None,
 ) -> Tree:
     """Run a resident op program on the carry's device.
 
@@ -227,16 +245,18 @@ def epoch_program(
     block_states, cycle, credits)``.  On the CPU this is
     :func:`epoch_program_ref`; on a CUDA device the Hopper kernel, which
     updates the carry's tensors in place (the callables are not used
-    there: the kernel carries the cycle and exchange itself).
+    there: the kernel carries the cycle and exchange itself).  Where
+    ``stop`` (a () bool tensor on the carry's device) is set, the program
+    leaves the carry as it was.
     """
     device = carry[0].device
     if device.type == "cpu":
         return epoch_program_ref(
             cycle_fn, carry, program, exchange_fn=exchange_fn,
-            issue_fn=issue_fn, commit_fn=commit_fn, consts=consts,
+            issue_fn=issue_fn, commit_fn=commit_fn, consts=consts, stop=stop,
         )
     if device.type == "cuda":
-        return epoch_program_cuda(carry, program, consts)
+        return epoch_program_cuda(carry, program, consts, stop)
     raise ValueError(f"no epoch program for device {device}")
 
 
@@ -318,7 +338,8 @@ class _ProgramArgs(ctypes.Structure):
     """``ProgramArgs`` of ``csrc/granule_step.cu``, field for field."""
 
     _fields_ = ([("reg_val", _PTR), ("reg_v", _PAIR), ("q_buf", _PTR),
-                 ("q_head", _PAIR), ("q_tail", _PAIR), ("cycle", _PTR)]
+                 ("q_head", _PAIR), ("q_tail", _PAIR), ("cycle", _PTR),
+                 ("stop", _PTR)]
                 + [(n, _I32) for n in ("n_reg", "n_qrows", "n_q_row", "cap",
                                        "have_q", "W", "n_groups", "n_threads")]
                 + [("g", _Group * MAX_GROUPS)])
@@ -396,15 +417,18 @@ def _group_leaves(code: int, block, st, n_slot: int, dev, keep: list):
 
 
 def epoch_program_cuda(carry: Tree, program: Program,
-                       consts: ProgramConsts) -> Tree:
+                       consts: ProgramConsts,
+                       stop: torch.Tensor | None = None) -> Tree:
     """Launch ``csrc/granule_step.cu`` on the carry, in place, on the
     current stream: one launch a simulated cycle over every slot of every
     group, each group by its block type's device step.  Every leaf that
     another thread reads within a cycle gets a second buffer here, the
     kernel alternates the two by cycle parity, and the results end in the
-    carry's own tensors.  Raises for anything the kernel does not take:
-    ``NotImplementedError`` for a block type with no device step."""
-    global launches
+    carry's own tensors.  Every launch reads ``stop`` (a () bool tensor)
+    first and does nothing where it is set.  Raises for anything the
+    kernel does not take: ``NotImplementedError`` for a block type with
+    no device step."""
+    global launches, recorded
     program = validate_program(program)
     reg_val, reg_v, q, block_states, cycle, credits = carry
     dev = reg_val.device
@@ -459,6 +483,7 @@ def epoch_program_cuda(carry: Tree, program: Program,
         q_head=paired(q.head, "queues.head", torch.int32, (n_qrows,)),
         q_tail=paired(q.tail, "queues.tail", torch.int32, (n_qrows,)),
         cycle=tensor_ptr(cycle, "cycle", torch.int32, (), dev),
+        stop=None if stop is None else tensor_ptr(stop, "stop", torch.bool, (), dev),
         n_reg=n_reg, n_qrows=n_qrows, n_q_row=consts.n_q, cap=cap,
         have_q=int(have_q), W=W, n_groups=len(codes),
         n_threads=groups[len(codes) - 1].base + groups[len(codes) - 1].n_slot,
@@ -495,8 +520,11 @@ def epoch_program_cuda(carry: Tree, program: Program,
                 ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"granule_step kernel launch failed: CUDA error {rc}")
-    launches += 1
-    REGISTRY.inc("granule_step.launches")
+    if torch.cuda.is_current_stream_capturing():
+        recorded += 1  # launched by each replay of the graph
+    else:
+        launches += 1
+        REGISTRY.inc("granule_step.launches")
     return carry
 
 

@@ -47,10 +47,22 @@ from ..hw.systolic import mac
 from ..obs.registry import REGISTRY
 from ._build import tensor_ptr
 
-#: Calls of the CUDA kernel (one per :func:`systolic_step_cuda` call,
-#: which runs all K cycles in ``tile_plan(...).launches`` launches).  A plain integer, so a run can show that its
-#: main path went through the kernel; set it to 0 before the run.
+#: Calls of the CUDA kernel: one per :func:`systolic_step_cuda` call,
+#: which runs all K cycles in ``tile_plan(...).launches`` launches, and one
+#: per call a CUDA graph recorded each time that graph is replayed
+#: (:func:`replayed`).  A plain integer, so a run can show that its main
+#: path went through the kernel; set it to 0 before the run.
 launches = 0
+#: Calls made while the stream was capturing a CUDA graph: they launch
+#: nothing until the graph is replayed.
+recorded = 0
+
+
+def replayed(calls: int) -> None:
+    """Count ``calls`` recorded calls that a replay of their graph launched."""
+    global launches
+    launches += calls
+    REGISTRY.inc("systolic_step.launches", float(calls))
 
 #: Per-cell leaves the call returns updated, and the fresh per-row/column
 #: outputs; with the inputs these are the keys of the returned dict.
@@ -76,10 +88,14 @@ def _limits(state: dict) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 # ------------------------------------------------------- the plain version
-def systolic_step_ref(state: dict, k_cycles: int) -> dict:
+def systolic_step_ref(state: dict, k_cycles: int,
+                      stop: torch.Tensor | None = None) -> dict:
     """Run ``k_cycles`` cycles with plain PyTorch ops; returns a new dict
     (the input is untouched).  The reference's op order throughout: one-hot
-    sums for the stream gather, the slab reads and the output scatters."""
+    sums for the stream gather, the slab reads and the output scatters.
+    Where ``stop`` (a () bool tensor, the until-loop's flag) is set, the
+    cells come back bit for bit as they went in and the slabs carry no
+    packets."""
     s = dict(state)
     b = s["b"]
     lead, (R, C) = b.shape[:-2], b.shape[-2:]
@@ -165,18 +181,24 @@ def systolic_step_ref(state: dict, k_cycles: int) -> dict:
              y_idx=y_idx, y_buf=y_buf, widx=widx, nidx=nidx,
              east_slab=east_slab, east_cnt=east_cnt,
              south_slab=south_slab, south_cnt=south_cnt)
+    if stop is not None:
+        s.update({k: torch.where(stop, state[k], s[k]) for k in CELL_OUT})
+        s.update({k: torch.where(stop, torch.zeros_like(s[k]), s[k])
+                  for k in EDGE_OUT})
     return s
 
 
-def systolic_step(state: dict, k_cycles: int) -> dict:
+def systolic_step(state: dict, k_cycles: int,
+                  stop: torch.Tensor | None = None) -> dict:
     """Run ``k_cycles`` cycles of every tile on the state's device: the
     plain version on the CPU, the Hopper kernel on CUDA (which overwrites
-    the per-cell tensors of ``state``)."""
+    the per-cell tensors of ``state``).  Where ``stop`` is set the call
+    leaves the cells as they were."""
     device = state["b"].device
     if device.type == "cpu":
-        return systolic_step_ref(state, k_cycles)
+        return systolic_step_ref(state, k_cycles, stop)
     if device.type == "cuda":
-        return systolic_step_cuda(state, k_cycles)
+        return systolic_step_cuda(state, k_cycles, stop=stop)
     raise ValueError(f"no systolic_step for device {device}")
 
 
@@ -253,7 +275,7 @@ _PAIRED = ("a_reg", "a_v", "p_reg", "p_v", "a_idx", "widx", "nidx",
 _SINGLE = ("b", "is_west", "is_north", "is_south", "is_east", "a_buf",
            "y_buf", "y_idx", "west_slab", "west_cnt", "north_slab",
            "north_cnt", "east_limit", "south_limit", "east_slab",
-           "south_slab")
+           "south_slab", "stop")
 _INTS = ("T", "R", "C", "M", "W")
 
 
@@ -280,7 +302,8 @@ def _library():
 
 
 def systolic_step_cuda(state: dict, k_cycles: int,
-                       plan: TilePlan | None = None) -> dict:
+                       plan: TilePlan | None = None,
+                       stop: torch.Tensor | None = None) -> dict:
     """Run ``csrc/systolic_step.cu`` on the current stream: ``k_cycles``
     cycles of every tile in ``plan.launches`` launches (``plan`` defaults
     to :func:`tile_plan`).  Returns a new dict with the updated per-cell
@@ -288,9 +311,12 @@ def systolic_step_cuda(state: dict, k_cycles: int,
     ``y_buf``) and fresh ``widx``/``nidx`` and egress slabs.  The kernel
     overwrites those leaves of ``state``: ``y_idx`` and ``y_buf`` are
     updated in place, the double-buffered ones end in the input tensor
-    after an even number of launches and in a new one after an odd.
-    Raises for anything the kernel does not take."""
-    global launches
+    after an even number of launches and in a new one after an odd.  Every
+    launch reads ``stop`` (a () bool tensor) first; where it is set the
+    launch carries the cells to the other buffer unchanged, so the call
+    returns its input state and empty slabs.  Raises for anything the
+    kernel does not take."""
+    global launches, recorded
     b = state["b"]
     dev = b.device
     if dev.type != "cuda":
@@ -322,6 +348,7 @@ def systolic_step_cuda(state: dict, k_cycles: int,
     ptr = {k: tensor_ptr(state[k], k, dt, shp, dev) for k, (dt, shp) in shapes.items()}
     ptr["east_limit"] = tensor_ptr(e_lim, "east_limit", i32, lead + (R,), dev)
     ptr["south_limit"] = tensor_ptr(s_lim, "south_limit", i32, lead + (C,), dev)
+    ptr["stop"] = None if stop is None else tensor_ptr(stop, "stop", u8, (), dev)
 
     zeros = lambda dt, *shape: torch.zeros(lead + shape, dtype=dt, device=dev)  # noqa: E731
     out = {
@@ -354,8 +381,11 @@ def systolic_step_cuda(state: dict, k_cycles: int,
                                ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"systolic_step kernel launch failed: CUDA error {rc}")
-    launches += 1
-    REGISTRY.inc("systolic_step.launches")
+    if torch.cuda.is_current_stream_capturing():
+        recorded += 1  # launched by each replay of the graph
+    else:
+        launches += 1
+        REGISTRY.inc("systolic_step.launches")
     new = dict(state)  # y_idx and y_buf were updated in place
     new.update({k: p[plan.launches & 1] for k, p in pair.items()})
     new.update(east_slab=out["east_slab"], south_slab=out["south_slab"])

@@ -134,6 +134,11 @@ class MetricsRegistry:
                 out[name] = float(m.value)
         return out
 
+    def counters(self) -> dict:
+        """``{name: value}`` of every counter."""
+        return {n: m.value for n, m in self._metrics.items()
+                if isinstance(m, Counter)}
+
     def clear(self) -> None:
         self._metrics.clear()
 
