@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-Four paths, each through the entry points a user calls:
+Five paths, each through the entry points a user calls:
 
   * the paper's wafer-scale torus: 1024x1024 ``ManycoreCell`` cores running
     a two-phase ring allreduce, partitioned over 2 pods x 2x2 granules with
@@ -20,6 +20,10 @@ Four paths, each through the entry points a user calls:
     cycles is one call of ``granule_step``, stepping the cells with the
     kernel's SystolicCell device step (the kernel also runs programs of
     several groups and of both block types in one launch a cycle);
+  * the queue interpreter: the same wafer and matmul on ``GraphEngine``
+    and its ``GridEngine`` preset (``build(engine="graph")``), plain
+    PyTorch on the card as the reference's ``GraphEngine`` is plain XLA
+    (it reaches no Pallas kernel), run to the end in the device loop;
   * LM serving: ``launch.serve.serve`` -> ``models.model.init_params`` ->
     ``prefill`` -> greedy ``decode_step``s for recurrentgemma-2b,
     xlstm-125m and the dense llama3.2-1b at their published widths (batch
@@ -115,21 +119,45 @@ Phases (a failing phase raises, and the script exits non-zero):
              bit-identical to ``RegisterGridEngine``'s Y on the same
              operands and within gamma_R * (|A| @ |B|), core-cycles/s and
              peak memory; ``compare_loops`` as in ``full``.
-  8. lm-small  each LM kernel against its plain version on the card, at
+  8. graph-small  ``GraphEngine`` on a 32x32 torus, 8 granules, tiers
+             (2, 4), capacity 4: the card (the queue array written in
+             place) against the same engine on a CPU copy (the functional
+             forms), every state leaf bit-exact after each of 10 epochs,
+             overlap off and on; ``run_until`` in the device loop against
+             the host loop at budgets 0, 1, 3 and 1000, the same stop epoch
+             and state, neither kernel launched; against ``FusedEngine``
+             (``granule_step``) at capacity 2 and K = (1, 1), every block
+             state equal after every epoch; the heterogeneous SoC
+             (``examples/torch_heterogeneous_soc.py``) at K = 1 bit-identical
+             to ``NetworkSim`` on the card; a ``PipeStage`` chain driven
+             through ``sim.tx``/``sim.rx``.
+  9. graph-full  wafer-1M on ``GraphEngine`` (every channel a ring of 62,
+             2 pods x 2x2 granules on the card): set-up seconds; one epoch
+             bit-exact against a CPU copy; ``Simulation.run(until=
+             allreduce_done)`` in the device loop with every total
+             4,718,592 and no kernel launched; stop cycle, wall,
+             core-cycles/s, host syncs, capture seconds, peak memory and
+             the bytes a cycle counted from the run's tensors
+             (``graph_cycle_bytes``); ``compare_loops`` against the host
+             loop, with both loops traced over an 8-epoch window (idle
+             share, device events a cycle); then ``GridEngine`` on the
+             1024^2 systolic matmul at K = 62, whose Y must equal the
+             register engine's bit for bit.
+  10. lm-small  each LM kernel against its plain version on the card, at
              the CPU tests' shapes (``kernels.lm_checks``): attention MHA,
              GQA and MQA, causal with and without a window, f32 (the
              CUDA-core route) and bf16 (the tensor-core route; each case
              must take its dtype's route), D up to 256, T not a multiple
              of 128; the RG-LRU with and without h0; the sLSTM at T = 1
              and longer, R in f32 and bf16, up to xlstm-125m's width.
-  9. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
+  11. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
              size, on the card); then llama3.2-1b at full width (16 layers,
              d 2048, GQA 32/8, head dim 64) through ``serve`` with the flash
              launch count set to 0 just before and read just after (16,
              all on the tensor-core route), every logit finite, and the
              first layer's flash call held against the plain version at the
              run's own inputs.
-  10. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
+  12. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
              attention layers, window 2048): ``serve`` with every kernel's
              launch count set to 0 just before and read just after (8
              ``flash_attention``, all on the tensor-core route, 18
@@ -148,7 +176,7 @@ Phases (a failing phase raises, and the script exits non-zero):
              call also without); last, a warm prefill and one decode step
              under ``torch.profiler``: device idle share and time by kernel
              (``rglru_clear``: the RG-LRU's status clear).
-  11. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
+  13. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
              prefill, 6 in each of the 15 decode steps), at the first
              decode step's inputs and the first prefill's: the cluster
              plan, the T = 1 call by CUDA events and the wrapper's host
@@ -162,6 +190,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases build,small,sys-small
     python3 chip_smoke.py --phases build,fsys-small,fsys-full
+    python3 chip_smoke.py --phases build,graph-small,graph-full
     python3 chip_smoke.py --phases build,lm-small,lm-dense,rg-full,xl-full
 """
 from __future__ import annotations
@@ -186,7 +215,8 @@ KERNELS = ("granule_step", "systolic_step", "flash_attention", "rglru_scan",
 #: and these, built as variants (``-DRGLRU_CHUNK``).
 RGLRU_SWEEP_VARIANTS = (64, 128, 512)
 PHASES = ("build", "small", "full", "sys-small", "sys-full", "fsys-small",
-          "fsys-full", "lm-small", "lm-dense", "rg-full", "xl-full")
+          "fsys-full", "graph-small", "graph-full", "lm-small", "lm-dense", "rg-full",
+          "xl-full")
 
 
 def log(msg: str) -> None:
@@ -210,7 +240,9 @@ def to_cpu(tree):
     )
 
 
-def wafer_engine(R, C, k_outer, k_inner, capacity, overlap, device):
+def wafer_engine(R, C, k_outer, k_inner, capacity, overlap, device, engine=None):
+    """The wafer torus on 2 pods x 4 granules batched on one card, on
+    ``engine`` (a class; ``FusedEngine`` by default)."""
     import numpy as np
     from repro_torch.core import ChannelGraph, tiered_grid_partition
     from repro_torch.core.fused import FusedEngine
@@ -221,7 +253,7 @@ def wafer_engine(R, C, k_outer, k_inner, capacity, overlap, device):
         ManycoreCell(R, C), R, C, params=make_core_params(values.reshape(R, C)),
         capacity=capacity,
     )
-    eng = FusedEngine(
+    eng = (engine or FusedEngine)(
         graph, tiered_grid_partition(R, C, [(2, 1), (2, 2)]), None,
         tiers=[(("pod",), k_outer), (("g",), k_inner)],
         batch_axes={"pod": 2, "g": 4}, overlap=overlap, device=device,
@@ -522,7 +554,7 @@ def assign(dst, src) -> None:
 
 def compare_loops(tag: str, eng, sim, start, done, max_epochs: int, first: dict,
                   clone, same, cores: int, names=KERNEL_NAMES,
-                  spans=None) -> dict:
+                  spans=None, trace_epochs=None) -> dict:
     """The until-run of the main path (already made by the caller, from
     ``start``: ``sim.run(until=done)`` through the device loop, ``first``
     its wall and counters) against the plain host loop
@@ -531,8 +563,11 @@ def compare_loops(tag: str, eng, sim, start, done, max_epochs: int, first: dict,
     a warm replay of the device loop (the captured graph reused: the state
     is assigned in place), the host loop's wall, and both loops under the
     profiler.  ``spans``: the device loop's wall at each of these epochs a
-    span (each captured anew, then replayed warm).  Logs one line a
-    measurement; returns the numbers."""
+    span (each captured anew, then replayed warm).  ``trace_epochs``: trace
+    only that many epochs from ``start`` (a window of a run whose every
+    cycle launches many small kernels; the device loop's span for that
+    budget is captured before the traced replay), else the whole run.
+    Logs one line a measurement; returns the numbers."""
     import torch
     from repro_torch.core import device_loop
 
@@ -577,23 +612,32 @@ def compare_loops(tag: str, eng, sim, start, done, max_epochs: int, first: dict,
         f"syncs, {cores * cycles / host_s:.4e} core-cycles/s; warm device loop at "
         f"{host_s / warm_s:.2f}x the host loop's rate")
 
+    budget, traced = max_epochs, cycles
+    if trace_epochs is not None:
+        budget = trace_epochs
+        assign(sim.state, start)
+        sim.run(until=done, max_epochs=budget)  # captures the window's span
+        traced = sim.cycle - int(start.cycle.reshape(-1)[0])
     assign(sim.state, start)
-    dev_trace = traced_run(lambda: sim.run(until=done, max_epochs=max_epochs), names)
-    if sim.cycle != cycles:
+    dev_trace = traced_run(lambda: sim.run(until=done, max_epochs=budget), names)
+    if trace_epochs is None and sim.cycle != cycles:
         raise AssertionError(f"[{tag}] the traced replay stopped at cycle {sim.cycle}")
     host_start = clone(start)
-    host_trace = traced_run(lambda: eng.run_until_host(host_start, done, max_epochs),
+    host_trace = traced_run(lambda: eng.run_until_host(host_start, done, budget),
                             names)
     del host_start
+    window = "" if trace_epochs is None else f" ({trace_epochs} epochs, {traced} cycles)"
     for name, trace in (("device loop", dev_trace), ("host loop", host_trace)):
-        kernels = "; ".join(f"{k} {v / cycles * 1e6:.2f} us"
+        kernels = "; ".join(f"{k} {v / traced * 1e6:.2f} us"
                             for k, v in trace["per_kernel"].items())
         busy = "not measured" if trace["busy"] is None else f"{trace['busy']:.4f} s"
-        log(f"[{tag}-trace] {name}: {trace['wall']:.4f} s wall, device busy {busy} "
-            f"over {trace['events']} device events, idle share {idle_share(trace)}; "
-            f"per simulated cycle: {kernels}")
+        log(f"[{tag}-trace] {name}{window}: {trace['wall']:.4f} s wall, device busy "
+            f"{busy} over {trace['events']} device events "
+            f"({trace['events'] / traced:.1f} a simulated cycle), idle share "
+            f"{idle_share(trace)}; per simulated cycle: {kernels}")
     out = {"warm_s": warm_s, "host_s": host_s, "warm_syncs": warm["syncs"],
-           "host_syncs": host_syncs, "dev_trace": dev_trace, "host_trace": host_trace}
+           "host_syncs": host_syncs, "dev_trace": dev_trace, "host_trace": host_trace,
+           "traced_cycles": traced}
 
     sweep = {}
     base = device_loop.SPAN
@@ -1283,6 +1327,312 @@ def phase_fsys_full(result: dict) -> None:
     )
 
 
+# ------------------------------------------- the queue interpreter (GraphEngine)
+GRAPH_TRACE_EPOCHS = 8  # the traced window of graph-full's until-runs
+
+
+def load_example(name: str):
+    """A module of the checkout's ``examples/`` directory, by file name."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_graph_small() -> None:
+    import numpy as np
+    import torch
+    from repro_torch.core import ChannelGraph, device_loop
+    from repro_torch.core.distributed import GraphEngine
+    from repro_torch.core.fused import FusedEngine
+    from repro_torch.hw.manycore import ManycoreCell, allreduce_done, make_core_params
+    from repro_torch.hw.pipestage import make_chain
+    from repro_torch.core.struct import tree_paths
+    from repro_torch.kernels import granule_step, systolic_step
+    from repro_torch.kernels.fused_checks import compare
+
+    # the card's in-place path against the functional one on a CPU copy
+    for overlap in (False, True):
+        eng, _ = wafer_engine(32, 32, 2, 4, 4, overlap, "cuda", GraphEngine)
+        gpu = eng.init(0)
+        cpu = to_cpu(gpu)
+        for ep in range(10):
+            gpu = eng.run_epochs(gpu, 1)
+            cpu = eng.run_epochs(cpu, 1)
+            torch.cuda.synchronize()
+            compare(gpu, cpu)
+        log(f"[graph-small] GraphEngine 32x32 tiers (2, 4) cap 4 overlap={overlap}: "
+            f"10 epochs ({int(gpu.cycle.reshape(-1)[0])} cycles) on the card bit-exact "
+            f"against a CPU copy ({eng.n_local} queue rows a granule)")
+
+    # the device loop against the host loop; neither kernel launches
+    done = lambda s: allreduce_done(s.block_states[0], s.tables.active[0])  # noqa: E731
+    eng, _ = wafer_engine(32, 32, 2, 4, 4, False, "cuda", GraphEngine)
+    for budget in (0, 1, 3, 1000):
+        n0 = (granule_step.launches, systolic_step.launches)
+        c0 = until_counts()
+        host = eng.run_until_host(eng.init(0), done, budget)
+        c1 = until_counts()
+        dev = eng.run_until(eng.init(0), done, budget)
+        torch.cuda.synchronize()
+        compare(dev, host)
+        epochs = int(dev.epoch.reshape(-1)[0])
+        host_epochs, dev_epochs = c1["epochs"] - c0["epochs"], counts_since(c1)["epochs"]
+        if not host_epochs == dev_epochs == epochs:
+            raise AssertionError(f"[graph-small] the loops counted {host_epochs} and "
+                                 f"{dev_epochs} epochs for {epochs}")
+        if (granule_step.launches, systolic_step.launches) != n0:
+            raise AssertionError("[graph-small] the queue interpreter launched a kernel")
+        log(f"[graph-small] run_until at budget {budget}: the device loop (span "
+            f"{device_loop.SPAN}) stops at the host loop's epoch {epochs} (cycle "
+            f"{int(dev.cycle.reshape(-1)[0])}) with its state bit for bit; "
+            f"granule_step and systolic_step launched 0 times")
+
+    # against the fused engine (the granule_step kernel) at capacity 2, K = (1, 1)
+    vals = ((np.arange(32 * 32) % 8) + 1).astype(np.float32).reshape(32, 32)
+
+    def torus():
+        return ChannelGraph.torus(ManycoreCell(32, 32), 32, 32,
+                                  params=make_core_params(vals), capacity=2)
+
+    part = np.arange(32 * 32) % 8
+    kw = dict(tiers=[(("g",), 1)], batch_axes={"g": 8}, device="cuda")
+    geng, feng = GraphEngine(torus(), part, None, **kw), FusedEngine(torus(), part, None, **kw)
+    gs, fs = geng.init(0), feng.init(0)
+    for ep in range(1000):
+        gs, fs = geng.run_epochs(gs, 1), feng.run_epochs(fs, 1)
+        theirs = dict(tree_paths(feng._local_view(fs).block_states[0]))
+        for name, x in tree_paths(geng._local_view(gs).block_states[0]):
+            # float leaves compared as bits (the bytes of each element)
+            x, y = x.reshape(-1).view(torch.uint8), theirs[name].reshape(-1).view(torch.uint8)
+            if not torch.equal(x, y):
+                raise AssertionError(f"[graph-small] block state {name} differs from "
+                                     f"the fused engine's after epoch {ep + 1}")
+        if bool(done(geng._local_view(gs))):
+            break
+    if not (geng.gather_group(gs, 0).total == vals.sum()).all():
+        raise AssertionError("[graph-small] the capacity-2 allreduce did not converge")
+    log(f"[graph-small] GraphEngine against FusedEngine (granule_step) at capacity 2, "
+        f"K = (1, 1), 32x32 on 8 granules: every block state equal after each of "
+        f"{ep + 1} epochs, to the allreduce's end")
+
+    # the heterogeneous SoC: three block types without a device step
+    soc = load_example("torch_heterogeneous_soc")
+    single = soc.run_single(120, device="cuda")
+    dist, seng = soc.run_distributed(K=1, cycles=120, device="cuda")
+    for name in ("pc", "acc", "results", "n_done", "waiting"):
+        if not torch.equal(getattr(single, name), getattr(dist, name)):
+            raise AssertionError(f"[graph-small] SoC {name}: GraphEngine K=1 != NetworkSim")
+    k8, _ = soc.run_distributed(K=8, cycles=160, device="cuda")
+    if int(k8.n_done) != soc.N_REQ:
+        raise AssertionError("[graph-small] SoC at K=8 did not complete")
+    log(f"[graph-small] heterogeneous SoC (Cpu, DramModel, AnalogRamp) on 3 batched "
+        f"granules, K = 1: GraphEngine bit-identical to NetworkSim on the card "
+        f"(results {dist.results.cpu().numpy().round(3).tolist()}); K = 8 completes "
+        f"{int(k8.n_done)}/{soc.N_REQ}")
+
+    # a PipeStage chain through the session's host ports
+    sim = make_chain(6, capacity=4).build(engine="graph", partition=[0, 0, 1, 1, 2, 2],
+                                          K=2, batch_axes={"g": 3}, device="cuda")
+    sim.reset(0)
+    pays = np.stack([np.arange(20, dtype=np.float32), np.arange(20)], 1)
+    sim.tx("tx").send_many(pays)
+    got = []
+    for _ in range(40):
+        sim.run(cycles=4)
+        got.extend(sim.rx("rx").drain().tolist())
+    want = (pays + np.array([6.0, 0.0], np.float32)).tolist()
+    if got != want:
+        raise AssertionError(f"[graph-small] the chain returned {got[:4]}..., not {want[:4]}...")
+    log(f"[graph-small] PipeStage chain of 6 on 3 granules, K = 2: {len(got)} packets "
+        f"sent through sim.tx and drained through sim.rx in order, each +6 on word 0")
+
+
+def graph_cycle_bytes(local, pushes: float, n_cycles: int, n_exchanges: dict) -> dict:
+    """The least bytes one simulated cycle of the queue interpreter must
+    move on the wafer, each input read once and each output written once,
+    counted from this run's tensors and data:
+
+      * block state: the leaves of ``STEP_READS`` read, of ``STEP_WRITES``
+        written (as ``cycle_bytes``);
+      * every queue row: head and tail read (its fullness and emptiness)
+        and written, and the front's word 0 read;
+      * the payload of each packet pushed (``pushes`` per cycle, counted
+        over the run);
+      * the port tables ``rx_idx`` and ``tx_idx``, read;
+      * per exchange (``n_exchanges``: tier -> exchanges an epoch),
+        amortized over the epoch's ``n_cycles``: the tier's tables read and
+        its credits read and written.
+
+    The queue rows' other slots and words are storage the interpreter's
+    ring semantics keep, not traffic a cycle needs."""
+    def nb(x):
+        return x.numel() * x.element_size()
+
+    st = local.block_states[0]
+    block = (sum(nb(getattr(st, f)) for f in STEP_READS)
+             + sum(nb(getattr(st, f)) for f in STEP_WRITES))
+    q = local.queues
+    word = q.buf.element_size()
+    rows = q.head.numel()
+    queues = rows * (2 * (q.head.element_size() + q.tail.element_size()) + word)
+    packets = pushes * q.buf.shape[-1] * word
+    tb = local.tables
+    tables = sum(nb(x) for x in tb.rx_idx) + sum(nb(x) for x in tb.tx_idx)
+    xchg = sum(n * (sum(nb(x[t]) for x in (tb.send_idx, tb.send_mask, tb.recv_idx,
+                                            tb.recv_mask, tb.bat_fwd, tb.bat_rev))
+                    + 2 * nb(local.credits[t]))
+               for t, n in n_exchanges.items())
+    per_cycle = block + queues + packets + tables + xchg / n_cycles
+    return {"block": block, "queues": queues, "packets": packets, "tables": tables,
+            "per_cycle": per_cycle}
+
+
+def phase_graph_full() -> None:
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.manycore import CONFIG
+    from repro_torch.core import Simulation, device_loop
+    from repro_torch.core.distributed import GraphEngine, GridEngine
+    from repro_torch.core.fastgrid import RegisterGridEngine
+    from repro_torch.hw.manycore import allreduce_done
+    from repro_torch.hw.systolic import SystolicCell, make_cell_params
+    from repro_torch.kernels import granule_step, systolic_step
+    from repro_torch.kernels.fused_checks import clone, compare
+
+    R, C = CONFIG.grid_rows, CONFIG.grid_cols
+    t0 = time.perf_counter()
+    eng, values = wafer_engine(R, C, CONFIG.k_outer, CONFIG.k_inner,
+                               CONFIG.queue_capacity, False, "cuda", GraphEngine)
+    sim = Simulation(eng).reset(0)
+    sim.block_until_ready()
+    setup_s = time.perf_counter() - t0
+    q = sim.state.queues
+    log(f"[graph-full] GraphEngine {R}x{C} torus = {R * C} cores, {eng.G} granules "
+        f"batched, tiers K={eng.K_tiers}, capacity {eng.capacity}: {eng.n_local} queue "
+        f"rows a granule, buffer {q.buf.numel() * q.buf.element_size() / 2**30:.3f} "
+        f"GiB; set-up {setup_s:.2f} s")
+
+    # one epoch: the card (in place) against a CPU copy (functional)
+    start = clone(sim.state)
+    t1 = time.perf_counter()
+    plain = eng.run_epochs(to_cpu(start), 1)
+    plain_cpu_s = time.perf_counter() - t1
+    kern = eng.run_epochs(clone(start), 1)
+    torch.cuda.synchronize()
+    err = compare(kern, plain)
+    log(f"[graph-full] one epoch on the card bit-exact against a CPU copy (max |diff| "
+        f"{err}; the CPU copy took {plain_cpu_s:.2f} s)")
+    del plain, kern
+    gc.collect()
+
+    # the main path: Simulation.run(until=allreduce_done) in the device loop
+    done = lambda s: allreduce_done(s.block_states[0], s.tables.active[0])  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = (granule_step.launches, systolic_step.launches)
+    fires0 = int(sim.state.block_states[0].fires.sum(dtype=torch.int64))
+    c0 = until_counts()
+    t2 = time.perf_counter()
+    sim.run(until=done, max_epochs=1000)
+    sim.block_until_ready()
+    run_s = time.perf_counter() - t2
+    first = dict(counts_since(c0), wall=run_s)
+    peak = torch.cuda.max_memory_allocated()
+    totals = eng.gather_group(sim.state, 0).total
+    if not np.array_equal(totals, np.full_like(totals, TOTAL)):
+        raise AssertionError(f"[graph-full] totals {np.unique(totals)[:5]} != {TOTAL}")
+    if (granule_step.launches, systolic_step.launches) != n0:
+        raise AssertionError("[graph-full] the queue interpreter launched a kernel")
+    cycles, epochs = sim.cycle, sim.epoch
+    local = eng._local_view(sim.state)
+    # fires count sends and accepts; every packet sent is accepted by the run's end
+    pushes = (int(local.block_states[0].fires.sum(dtype=torch.int64)) - fires0) / 2 / cycles
+    # tier t exchanges once a round of tier t - 1: prod(K_0 .. K_{t-1}) an epoch
+    n_x = {t: int(np.prod(eng.K_tiers[:t])) for t in range(len(eng.tiers))
+           if eng.tier_classes[t]}
+    nbytes = graph_cycle_bytes(local, pushes, eng.cycles_per_epoch, n_x)
+    bound_ms = nbytes["per_cycle"] / HBM_BYTES_PER_S * 1e3
+    run_only = run_s - first["capture_s"]
+    log(f"[graph-full] converged: every one of {R * C} cores holds total {TOTAL:.0f} "
+        f"after {cycles} cycles ({epochs} epochs) in the device loop; run "
+        f"{run_only:.3f} s (wall {run_s:.3f} s less the capture's "
+        f"{first['capture_s']:.3f} s, set-up), {run_only / cycles * 1e3:.4f} ms a "
+        f"cycle, {R * C * cycles / run_only:.4e} core-cycles/s; {int(first['syncs'])} "
+        f"host syncs (spans of {device_loop.SPAN} epochs); granule_step and "
+        f"systolic_step launched 0 times; device memory peak "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[graph-full] bound a cycle (bytes, from this run's tensors): "
+        f"{nbytes['per_cycle'] / (R * C):.2f} B a core (block "
+        f"{nbytes['block'] / (R * C):.2f}, queue rows {nbytes['queues'] / (R * C):.2f}, "
+        f"packets {nbytes['packets'] / (R * C):.2f} at {pushes / (R * C):.4f} a core "
+        f"and cycle, tables {nbytes['tables'] / (R * C):.2f}), {bound_ms:.5f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the run at "
+        f"{run_only / cycles * 1e3 / bound_ms:.1f}x it")
+
+    # the host loop on the same card, a warm replay, and a traced window of both
+    out = compare_loops("graph-full", eng, sim, start, done, 1000, first, clone,
+                        compare, R * C, (), trace_epochs=GRAPH_TRACE_EPOCHS)
+    trace = out["dev_trace"]
+    if trace["busy"] is not None:
+        log(f"[graph-full] traced window: {trace['busy'] / out['traced_cycles'] * 1e3:.4f} "
+            f"ms of device time a cycle, {trace['events'] / out['traced_cycles']:.1f} "
+            f"device events a cycle (the nodes the captured graph runs: kernels, "
+            f"copies and fills)")
+    sim._state = None
+    del start, local, q, sim, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # GridEngine on the 1024^2 systolic matmul: Y bit-identical to the
+    # register engine's
+    M, SR, SC, K = SYS_M, SYS_R, SYS_C, SYS_K
+    A, B = sys_operands(M, SR, SC, SYS_SEED)
+    reg = RegisterGridEngine.from_graph(sys_graph(A, B), K=K)
+    rsim = Simulation(reg).reset()
+    rsim.run(until=reg.y_done)
+    Y_reg, reg_cycles = reg.result(rsim.state), rsim.cycle
+    del reg, rsim
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    geng = GridEngine(SystolicCell(M), SR, SC, K=K)
+    gsim = Simulation(geng).reset(0, cell_params=make_cell_params(A, B))
+    gsim.block_until_ready()
+    gsetup_s = time.perf_counter() - t3
+    torch.cuda.reset_peak_memory_stats()
+    pred = lambda c: ((~c.is_south) | (c.y_idx >= M)).all()  # noqa: E731
+    c0 = until_counts()
+    t4 = time.perf_counter()
+    gsim.run(until=pred, max_epochs=1000)
+    gsim.block_until_ready()
+    grun_s = time.perf_counter() - t4
+    gfirst = counts_since(c0)
+    cells = geng._local_view(gsim.state).block_states[0]
+    south = torch.as_tensor(geng._member_slot[0][(SR - 1) * SC + np.arange(SC)],
+                            device="cuda")
+    Y = cells.y_buf[south].T.cpu().numpy()
+    if not np.array_equal(Y.view(np.uint32), Y_reg.view(np.uint32)):
+        raise AssertionError("[graph-full] GridEngine's Y differs from the register engine's")
+    grun_only = grun_s - gfirst["capture_s"]
+    log(f"[graph-full] GridEngine {SR}x{SC} SystolicCells, M={M}, K={K}: Y "
+        f"bit-identical to RegisterGridEngine's after {gsim.cycle} cycles ({gsim.epoch} "
+        f"epochs; the register engine {reg_cycles}); set-up {gsetup_s:.2f} s, run "
+        f"{grun_only:.3f} s (capture {gfirst['capture_s']:.3f} s apart), "
+        f"{grun_only / gsim.cycle * 1e3:.4f} ms a cycle, "
+        f"{SR * SC * gsim.cycle / grun_only:.4e} core-cycles/s, "
+        f"{int(gfirst['syncs'])} host syncs; device memory peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    gsim._state = None
+    del gsim, geng, cells
+    gc.collect()
+    torch.cuda.empty_cache()
+
 # ------------------------------------------------------------ LM serving
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 3072, 16
 
@@ -1784,6 +2134,8 @@ def main(argv=None) -> int:
                        ("sys-full", lambda: phase_sys_full(kernels[1])),
                        ("fsys-small", phase_fsys_small),
                        ("fsys-full", lambda: phase_fsys_full(kernels[2])),
+                       ("graph-small", phase_graph_small),
+                       ("graph-full", phase_graph_full),
                        ("lm-small", phase_lm_small),
                        ("lm-dense", phase_lm_dense),
                        ("rg-full", lambda: phase_rg_full(lm_kernels)),

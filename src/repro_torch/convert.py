@@ -13,6 +13,10 @@ nothing of JAX:
     the layout the JAX ``FusedEngine`` keeps with ``batch_axes``; a grid
     engine built without params (the JAX ``FusedEngine.grid``) takes its
     group params as well;
+  * ``graph_state_from_numpy`` / ``graph_state_to_numpy`` do the same for
+    a ``GraphEngine`` (or ``GridEngine``) state (``"queues.buf"``,
+    ``"block_states.0.acc"``, ``"credits.0"``, ``"cycle"``, ...), the JAX
+    ``GraphState``'s leaves in its global view;
   * ``register_state_from_numpy`` / ``register_state_to_numpy`` do the
     same for a register engine state (``"cell.a_reg"``, ``"west_slab"``,
     ``"credit_e"``, ``"cycle"``, ...), leaves with leading ``(Dr, Dc)``
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from .core.device import resolve_device, to_tensor
+from .core.distributed import GraphEngine, GraphState
 from .core.fastgrid import RegGridState, RegisterGridEngine
 from .core.fused import FusedEngine, FusedState
 from .core.struct import tree_map_with_path, tree_paths
@@ -131,12 +136,17 @@ def _from_numpy(template, arrays: Mapping[str, np.ndarray], device):
     return tree_map_with_path(take, template)
 
 
-def fused_state_to_numpy(state: FusedState) -> dict[str, np.ndarray]:
-    """Every leaf of a fused state except its tables, by dotted path."""
+def _state_to_numpy(state) -> dict[str, np.ndarray]:
+    """Every leaf of an engine state except its tables, by dotted path."""
     return {
         path: leaf.detach().cpu().numpy()
         for path, leaf in tree_paths(state.replace(tables=None))
     }
+
+
+def fused_state_to_numpy(state: FusedState) -> dict[str, np.ndarray]:
+    """Every leaf of a fused state except its tables, by dotted path."""
+    return _state_to_numpy(state)
 
 
 def fused_state_from_numpy(engine: FusedEngine,
@@ -149,6 +159,24 @@ def fused_state_from_numpy(engine: FusedEngine,
     no params (the JAX ``FusedEngine.grid``'s stacked cell params, from
     ``params_from_numpy``)."""
     template = engine.init(0, group_params=group_params)
+    body = _from_numpy(template.replace(tables=None), arrays, engine.device)
+    return body.replace(tables=template.tables)
+
+
+def graph_state_to_numpy(state: GraphState) -> dict[str, np.ndarray]:
+    """Every leaf of a graph engine state except its tables, by dotted path."""
+    return _state_to_numpy(state)
+
+
+def graph_state_from_numpy(engine: GraphEngine,
+                           arrays: Mapping[str, np.ndarray],
+                           group_params: dict | None = None) -> GraphState:
+    """A state of ``engine`` (a ``GraphEngine`` or ``GridEngine``) holding
+    ``arrays`` (see ``graph_state_to_numpy`` for the keys), on the engine's
+    device.  Every leaf must be present with the engine's shape; extra keys
+    are ignored.  ``group_params`` are the ``init`` overrides of an engine
+    whose IR holds no params (a ``GridEngine``'s flat cell params)."""
+    template = GraphEngine.init(engine, 0, group_params=group_params)
     body = _from_numpy(template.replace(tables=None), arrays, engine.device)
     return body.replace(tables=template.tables)
 

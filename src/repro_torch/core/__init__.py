@@ -9,7 +9,8 @@ The counterpart of ``repro.core``: Network description -> channel-graph IR
   block       ready/valid Block protocol on a leading instance dim (§II-A)
   network     SbNetwork analogue; build(engine=...) and the NetworkSim oracle
   graph       channel-graph IR + PartitionTree shared by every backend
-  distributed partition/tier/batch resolution and the batched exchange
+  distributed partition/tier/batch resolution, the batched exchange and
+              the queue-interpreter GraphEngine (+ its GridEngine preset)
   fused       fused-epoch engine: depth-1 register channels + one resident
               epoch program (the Hopper kernel on CUDA)
   fastgrid    register engine: the systolic grid, one systolic_step call an
@@ -24,7 +25,10 @@ from .graph import (
     tiered_grid_partition,
 )
 from .queue import QueueArray, make_queues, DEFAULT_CAPACITY
-from .distributed import GraphEngine, edge_color_routes, merge_compatible_classes
+from .distributed import (
+    GraphEngine, GraphState, GridEngine, edge_color_routes,
+    granule_local_cycle, merge_compatible_classes,
+)
 from .fused import FusedEngine, FusedState
 from .fastgrid import RegGridState, RegisterGridEngine
 from .session import RxPort, Simulation, TxPort

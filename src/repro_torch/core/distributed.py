@@ -1,4 +1,4 @@
-"""The single-device half of the partitioned engine, as in
+"""Epoch-batched simulation of a partitioned channel graph, as in
 ``repro.core.distributed`` (paper §II, §IV-B; DESIGN.md §2-§3).
 
 A **hierarchical partition** (``graph.PartitionTree``) assigns every block
@@ -20,11 +20,24 @@ This port runs every granule on one device, stacked on one batch axis
 (``batch_axes``): a tier exchange is then a slab gather between batch
 rows (``bat_fwd``/``bat_rev``), with no collective.  A real (non-batch)
 granule axis larger than 1 needs the multi-GPU exchange and raises
-``NotImplementedError``.  ``GraphEngine`` here is the shared base of
-``fused.FusedEngine``: partition, tier and batch resolution, the exchange
-tables, the batched exchange halves, the run loops and the host
-utilities.  Its own queue-interpreter cycle (``granule_local_cycle``) is
-not ported yet.
+``NotImplementedError``.
+
+``GraphEngine`` is the queue interpreter: every channel a granule touches
+is a ring of ``capacity`` slots, and one cycle (:func:`granule_local_cycle`)
+steps every block of every granule with the same pre-cycle snapshot,
+sentinels and clock-divider gating as ``NetworkSim.step``, the batch of
+granules folded into the queue rows and block slots.  It runs any block
+type and any capacity, with plain PyTorch ops (the reference's cycle is
+plain XLA too: it reaches no Pallas kernel).  An epoch nests the tiers'
+rounds and exchanges as the reference's ``_tier_round`` does, or, with
+``overlap``, issues each exchange at its window's end and commits it at
+the next window's start (``_round_split``); both schedules give the same
+bits.  On the card the engine owns its state and writes the queue array
+in place (``queue.cycle_``, ``stage_drain_``, ``stage_fill_``): the
+functional forms, which the CPU runs, copy the whole buffer each call.
+``run_until`` runs its epochs in the device loop (``core.device_loop``).
+``GridEngine`` is its uniform-grid preset, and ``fused.FusedEngine``
+subclasses it for the fast path.
 
 Routes (one per directed granule pair of a tier) are edge-colored into
 **exchange classes** by the König construction, exactly as in the JAX
@@ -38,6 +51,7 @@ that many packets at its tier's next exchange.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from collections.abc import Mapping
 from typing import Any, Callable, Sequence
 
@@ -47,14 +61,53 @@ import torch
 from . import device_loop
 from . import queue as qmod
 from ..kernels import granule_step
-from .device import resolve_device
+from ..obs.registry import REGISTRY
+from .block import Block
+from .device import group_generator, resolve_device, to_tensor
 from .graph import (
-    ChannelGraph, PartitionTree, Tier, lower_partition, normalize_partition,
-    normalize_tiers,
+    NULL_RX, NULL_TX, ChannelGraph, PartitionTree, Tier, grid_partition,
+    lower_partition, normalize_partition, normalize_tiers,
 )
-from .struct import tree_map
+from .struct import tensor_dataclass, tree_map
 
 Tree = Any
+
+
+@tensor_dataclass
+class GraphTables:
+    """Per-granule lookup tables (constant over time).
+
+    All leaves carry the leading ``dev_shape`` dims; index values are
+    *local* queue ids (0 = NULL_RX sentinel, 1 = NULL_TX sentinel).  The
+    exchange tables are concatenated per *tier*: slot ``j`` of tier ``t``
+    belongs to the class whose ``[col0, col0+cmax)`` column window holds
+    ``j``.  ``bat_fwd[t][..., bd, col] = bs``: the receiver's batch row
+    ``bd`` reads slab row ``bs``; ``bat_rev`` is the credit return's
+    inverse.  Both are empty when the engine runs unbatched.
+    """
+
+    rx_idx: tuple  # per group: (dev..., n_slot, n_in) int32
+    tx_idx: tuple  # per group: (dev..., n_slot, n_out) int32
+    active: tuple  # per group: (dev..., n_slot) bool — padding slots False
+    send_idx: tuple  # per tier: (dev..., S_t) int32 local egress queue ids
+    send_mask: tuple  # per tier: (dev..., S_t) bool
+    recv_idx: tuple  # per tier: (dev..., S_t) int32 local ingress queue ids
+    recv_mask: tuple  # per tier: (dev..., S_t) bool
+    bat_fwd: tuple = ()
+    bat_rev: tuple = ()
+
+
+@tensor_dataclass
+class GraphState:
+    """All leaves carry the leading ``dev_shape`` dims, as in the JAX
+    package's global view."""
+
+    queues: qmod.QueueArray  # (dev..., n_local, capacity, W) granule-local queues
+    block_states: tuple  # per group: leaves (dev..., n_slot, ...)
+    credits: tuple  # per tier: (dev..., S_t) int32 send credits
+    cycle: torch.Tensor  # (dev...,) int32 local cycle counters
+    epoch: torch.Tensor  # (dev...,) int32
+    tables: GraphTables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,9 +233,95 @@ def merge_compatible_classes(
     return [sorted(m.items()) for m in merged]
 
 
+def granule_local_cycle(groups, n_local: int, W: int, dtype, st, *,
+                        stop: torch.Tensor | None = None,
+                        inplace: bool = False):
+    """One cycle of a granule-local network, as the reference's
+    ``granule_local_cycle``.
+
+    Identical semantics to ``NetworkSim.step`` — same pre-cycle queue
+    snapshot, same sentinel handling, same clock-divider rate control —
+    driven by granule-local tables read from the state.  ``st`` is any
+    tree with ``queues``, ``tables.rx_idx``/``tx_idx`` (per group),
+    ``block_states`` (per group) and ``cycle``, for one granule or for B
+    granules folded: queue rows ``b * n_local + id`` (so the sentinels of
+    granule b sit at ``b * n_local`` + ``NULL_RX``/``NULL_TX``), block
+    slots ``b * n_slot + s``, and the port tables holding those flat row
+    ids.  ``Block.step`` takes the leading instance dim, so every slot of
+    every granule steps in one call a group.
+
+    Every real queue row has one producer and one consumer (SPSC), and
+    every unwired port and padding slot points at a sentinel row, so the
+    scatters of the pushes and pop-readies write each real row once;
+    several writes land only on the sentinel rows, which are reset after,
+    and the result does not depend on the scatters' order.
+
+    ``stop`` (the until-loop's () bool tensor) gates the cycle as a clock
+    divider gates a block: where it is set no block state, queue or
+    counter changes.  ``inplace`` writes the queue array in place
+    (``queue.cycle_``) and lets a block with a ``step_`` twin update its
+    large leaves in place; the state's owner must not need its input.
+    """
+    q = st.queues
+    tb = st.tables
+    n = q.n
+    dev = q.buf.device
+    fronts, valids = qmod.peek(q)
+    readies = ~qmod.full(q)
+    valids.view(-1, n_local)[:, NULL_RX] = False
+    readies.view(-1, n_local)[:, NULL_TX] = True
+
+    push_payload = torch.zeros((n, W), dtype=dtype, device=dev)
+    push_valid = torch.zeros((n,), dtype=torch.bool, device=dev)
+    pop_ready = torch.zeros((n,), dtype=torch.bool, device=dev)
+    cycle0 = st.cycle.reshape(-1)[0]  # granules step in lockstep
+
+    new_states = []
+    for gi, grp in enumerate(groups):
+        blk = grp.block
+        rxm, txm = tb.rx_idx[gi].long(), tb.tx_idx[gi].long()
+        f_all, v_all, r_all = fronts[rxm], valids[rxm], readies[txm]
+        rx = {port: (f_all[:, p], v_all[:, p]) for p, port in enumerate(blk.in_ports)}
+        tx_ready = {port: r_all[:, p] for p, port in enumerate(blk.out_ports)}
+        bst = st.block_states[gi]
+        en = None
+        if blk.clock_divider > 1:
+            en = (cycle0 % blk.clock_divider) == 0
+        if stop is not None:
+            en = ~stop if en is None else en & ~stop
+        if inplace and hasattr(blk, "step_"):
+            new_st, rx_ready, tx = blk.step_(bst, rx, tx_ready, en)
+        else:
+            new_st, rx_ready, tx = blk.step(bst, rx, tx_ready)
+        if en is not None:
+            # a leaf the step handed back untouched needs no select
+            new_st = tree_map(lambda a, b: a if a is b else torch.where(en, a, b),
+                              new_st, bst)
+            rx_ready = {k: v & en for k, v in rx_ready.items()}
+            tx = {k: (p, v & en) for k, (p, v) in tx.items()}
+        new_states.append(new_st)
+
+        if blk.in_ports:
+            pop_ready[rxm.reshape(-1)] = torch.stack(
+                [rx_ready[p] for p in blk.in_ports], 1).reshape(-1)
+        if blk.out_ports:
+            push_payload[txm.reshape(-1)] = torch.stack(
+                [tx[p][0] for p in blk.out_ports], 1).reshape(-1, W).to(dtype)
+            push_valid[txm.reshape(-1)] = torch.stack(
+                [tx[p][1] for p in blk.out_ports], 1).reshape(-1)
+
+    push_valid.view(-1, n_local)[:, NULL_TX] = False
+    pop_ready.view(-1, n_local)[:, NULL_RX] = False
+    q2, _, _ = (qmod.cycle_ if inplace else qmod.cycle)(
+        q, push_payload, push_valid, pop_ready)
+    step = 1 if stop is None else (~stop).to(st.cycle.dtype)
+    return st.replace(queues=q2, block_states=tuple(new_states),
+                      cycle=st.cycle + step)
+
+
 class GraphEngine:
-    """Epoch-batched interpreter of a partitioned ChannelGraph, with every
-    granule on one device.
+    """Epoch-batched queue interpreter of a partitioned ChannelGraph, with
+    every granule on one device.
 
     graph:     the channel-graph IR (``Network.graph()`` or a builder).
     partition: a ``graph.PartitionTree`` (carries both the instance ->
@@ -195,7 +334,8 @@ class GraphEngine:
                PartitionTree or ``tiers`` is given).
     tiers:     per-tier spec (``graph.Tier`` or ``(axes, K)`` pairs,
                outermost first).  Default: one tier spanning ``axes`` (or
-               the mesh axes, or one axis ``"g"``) with rate ``K``.
+               the mesh axes then the other batch axes, or one axis
+               ``"g"``) with rate ``K``.
     batch_axes: the granule axes stacked on the on-device batch axis — axis
                names (sizes from ``mesh``) or ``{name: size}``.  Must be an
                innermost suffix of the granule axes.
@@ -277,7 +417,8 @@ class GraphEngine:
                 tspec = normalize_tiers(tiers)
             else:
                 t_axes = (tuple(axes) if axes is not None
-                          else tuple(self.mesh) or ("g",))
+                          else tuple(self.mesh) + tuple(a for a in bmap if a not in self.mesh)
+                          or ("g",))
                 tspec = (Tier(axes=t_axes, K=int(K)),)
             all_axes = tuple(a for t in tspec for a in t.axes)
             for a in all_axes:  # unnamed axes default to size 1
@@ -328,6 +469,9 @@ class GraphEngine:
         self.capacity = graph.capacity
         self.dtype = graph.dtype
         self.part = ptree.part
+        self._batched = bool(self.batch_axes)
+        # the card's path updates the state it owns in place
+        self._inplace = self.device.type == "cuda"
         self._until_cache: dict = {}  # run_until's captured spans
         self._build_tables()
 
@@ -432,6 +576,115 @@ class GraphEngine:
             device=self.device,
         )
 
+    def tables(self) -> GraphTables:
+        return GraphTables(
+            rx_idx=tuple(self._dev(t) for t in self._rx_tables),
+            tx_idx=tuple(self._dev(t) for t in self._tx_tables),
+            active=tuple(self._dev(t) for t in self._act_tables),
+            send_idx=tuple(self._dev(t) for t in self._send_idx),
+            send_mask=tuple(self._dev(t) for t in self._send_mask),
+            recv_idx=tuple(self._dev(t) for t in self._recv_idx),
+            recv_mask=tuple(self._dev(t) for t in self._recv_mask),
+            bat_fwd=(tuple(self._dev_bat(t) for t in self._bat_fwd)
+                     if self._batched else ()),
+            bat_rev=(tuple(self._dev_bat(t) for t in self._bat_rev)
+                     if self._batched else ()),
+        )
+
+    # ------------------------------------------------------------------ init
+    def _init_block_states(self, key, group_params) -> list:
+        """Per-group block states in granule layout, shared with
+        ``FusedEngine.init``: every member is initialized in global
+        instantiation order (the order ``NetworkSim`` uses), then gathered
+        into its (granule, slot); padding slots copy member 0, as in the
+        JAX package."""
+        states = []
+        for gi, grp in enumerate(self.graph.groups):
+            params = grp.params
+            if group_params is not None and gi in group_params:
+                params = group_params[gi]
+            params = tree_map(lambda x: to_tensor(x, self.device), params)
+            st = grp.block.init_state(
+                grp.n_members, params, generator=group_generator(key, gi),
+                device=self.device,
+            )
+            n_slot = self._n_slot[gi]
+            mo = torch.as_tensor(self._member_of[gi].reshape(-1), device=self.device)
+            states.append(tree_map(
+                lambda x: x[mo].reshape(self.dev_shape + (n_slot,) + x.shape[1:]),
+                st,
+            ))
+        return states
+
+    def init(self, key=0, group_params: dict | None = None) -> GraphState:
+        """Initial state.  ``key`` is an int seed or a ``torch.Generator``
+        for block ``init_state``; ``group_params[gi]`` overrides the IR's
+        stacked per-member params of group ``gi`` (leading dim =
+        n_members, in global instantiation order)."""
+        states = self._init_block_states(key, group_params)
+        lead = self.dev_shape
+        q = qmod.make_queues(self.n_local, self.W, self.capacity, self.dtype,
+                             self.device)
+        zi = lambda shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
+                                       device=self.device)
+        return GraphState(
+            queues=tree_map(lambda x: x.expand(lead + x.shape).contiguous(), q),
+            block_states=tuple(states),
+            credits=tuple(
+                torch.full(lead + (si.shape[1],), self.capacity - 1,
+                           dtype=torch.int32, device=self.device)
+                for si in self._send_idx
+            ),
+            cycle=zi(lead),
+            epoch=zi(lead),
+            tables=self.tables(),
+        )
+
+    # -------------------------------------------------- local <-> global view
+    def _local_view(self, state: GraphState) -> GraphState:
+        """Per-device view of the state: the batch axes flattened into ONE
+        leading (B,) axis, or, unbatched, the (1,)*nd device dims stripped
+        (views, no copies)."""
+        nd = self.nd
+        if not self._batched:
+            return tree_map(lambda x: x.reshape(x.shape[nd:]), state)
+        return tree_map(lambda x: x.reshape((self.B,) + x.shape[nd:]), state)
+
+    def _global_view(self, local: GraphState) -> GraphState:
+        if not self._batched:
+            return tree_map(lambda x: x.reshape((1,) * self.nd + x.shape), local)
+        lead = (1,) * self.nd_real + self.batch_shape
+        return tree_map(lambda x: x.reshape(lead + x.shape[1:]), local)
+
+    def _fold(self, local: GraphState) -> GraphState:
+        """An epoch's working form of the local view: the B granules folded
+        into the queue rows (``b * n_local + id``) and block slots
+        (``b * n_slot + s``), the port tables holding those flat row ids,
+        credits, cycle and exchange tables kept per row (B leading)."""
+        if not self._batched:
+            local = tree_map(lambda x: x.unsqueeze(0), local)
+        fold = lambda x: x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:])  # noqa: E731
+        tb = local.tables
+        base = torch.arange(self.B, device=tb.rx_idx[0].device)[:, None, None] * self.n_local
+
+        def flat(t):  # (B, n_slot, n_port) local ids -> (B*n_slot, n_port) rows
+            return (t.long() + base).reshape(t.shape[0] * t.shape[1], t.shape[2])
+
+        return local.replace(
+            queues=tree_map(fold, local.queues),
+            block_states=tree_map(fold, local.block_states),
+            tables=tb.replace(rx_idx=tuple(flat(t) for t in tb.rx_idx),
+                              tx_idx=tuple(flat(t) for t in tb.tx_idx)),
+        )
+
+    @staticmethod
+    def _unfold(work: GraphState, local: GraphState) -> GraphState:
+        """The local view holding ``work``'s leaves (the inverse of
+        :meth:`_fold`; tables are the local view's own)."""
+        out = tree_map(lambda x, ref: x.reshape(ref.shape),
+                       work.replace(tables=None), local.replace(tables=None))
+        return out.replace(tables=local.tables)
+
     # ------------------------------------------------ batched tier exchange
     @staticmethod
     def _bat_move(x: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
@@ -445,17 +698,23 @@ class GraphEngine:
         return torch.gather(x, 0, idx)
 
     def _exchange_issue_batched(self, q: qmod.QueueArray, n_row: int,
-                                credits: tuple, t: int, tb):
-        """Tier t's exchange, ISSUE half, on queue rows flattened as
+                                credits: tuple, t: int, tb, stop=None,
+                                inplace: bool = False):
+        """Tier t's exchange, issue half, on queue rows flattened as
         ``b * n_row + k``: credit-bounded ``stage_drain`` of every egress
         row + the forward ``bat_fwd`` slab move.  Returns
         ``(q, (slab_in, cnt_in))``; touches egress rows and reads this
-        tier's credits only."""
+        tier's credits only.  Where ``stop`` is set nothing drains;
+        ``inplace`` drains with ``stage_drain_``."""
         sidx, smask = tb.send_idx[t], tb.send_mask[t]  # (B, S_t)
         B, S = sidx.shape
         base = torch.arange(B, dtype=sidx.dtype, device=sidx.device)[:, None] * n_row
-        limit = torch.where(smask, credits[t], torch.zeros_like(credits[t]))
-        q, slab, cnt = qmod.stage_drain(
+        zero = torch.zeros_like(credits[t])
+        limit = torch.where(smask, credits[t], zero)
+        if stop is not None:
+            limit = torch.where(stop, zero, limit)
+        drain = qmod.stage_drain_ if inplace else qmod.stage_drain
+        q, slab, cnt = drain(
             q, (base + sidx).reshape(-1), self.E_tiers[t], limit=limit.reshape(-1)
         )
         slab = slab.reshape((B, S) + slab.shape[1:])
@@ -467,47 +726,165 @@ class GraphEngine:
         return q, (slab_in, cnt_in)
 
     def _exchange_commit_batched(self, q: qmod.QueueArray, n_row: int,
-                                 credits: tuple, t: int, tb, pending):
-        """COMMIT half: ``stage_fill`` of every ingress row + the
+                                 credits: tuple, t: int, tb, pending, stop=None,
+                                 inplace: bool = False):
+        """commit half: ``stage_fill`` of every ingress row + the
         ``bat_rev`` credit return.  Returns ``(q, credits)``; touches
-        ingress rows and this tier's credits only."""
+        ingress rows and this tier's credits only.  Where ``stop`` is set
+        the credits stay (the slab is empty then); ``inplace`` fills with
+        ``stage_fill_``."""
         slab_in, cnt_in = pending
         ridx, rmask = tb.recv_idx[t], tb.recv_mask[t]
         B, S = ridx.shape
         base = torch.arange(B, dtype=ridx.dtype, device=ridx.device)[:, None] * n_row
-        q = qmod.stage_fill(
+        fill = qmod.stage_fill_ if inplace else qmod.stage_fill
+        q = fill(
             q, (base + ridx).reshape(-1),
             slab_in.reshape((B * S,) + slab_in.shape[2:]), cnt_in.reshape(-1),
         )
         free = qmod.free(q).reshape(B, n_row)
         cred = torch.where(rmask, torch.gather(free, 1, ridx.long()),
                            torch.zeros_like(ridx))
-        credits = (credits[:t] + (self._bat_move(cred, tb.bat_rev[t]),)
-                   + credits[t + 1:])
-        return q, credits
+        new = self._bat_move(cred, tb.bat_rev[t])
+        if stop is not None:
+            new = torch.where(stop, credits[t], new)
+        return q, credits[:t] + (new,) + credits[t + 1:]
 
-    # ------------------------------------------------------------ the loop
-    def _local_view(self, state):
-        raise NotImplementedError
+    # ----------------------------------------------------------- local cycle
+    def _in_place(self, st: GraphState) -> bool:
+        """Whether ``st``'s queue array is written in place: on the
+        engine's own device when it updates in place (the card); a copy
+        elsewhere (a CPU copy of a card's state) runs the functional
+        forms."""
+        return self._inplace and st.queues.buf.device.type == self.device.type
 
-    def _global_view(self, local):
-        raise NotImplementedError
+    def _local_cycle(self, st: GraphState, stop=None) -> GraphState:
+        """One cycle of every granule (the folded working state)."""
+        return granule_local_cycle(self.graph.groups, self.n_local, self.W,
+                                   self.dtype, st, stop=stop,
+                                   inplace=self._in_place(st))
 
-    def _epoch(self, local, stop=None):
-        """One outermost epoch on the local view, a no-op where ``stop``
-        (the until-loop's () bool tensor) is set.  The queue-interpreter
-        cycle of this class (``granule_local_cycle``) is not ported yet;
-        ``FusedEngine`` supplies the epoch."""
-        raise NotImplementedError(
-            "GraphEngine's own cycle (granule_local_cycle) is not ported yet "
-            "(ROADMAP Queue 1 item 5); use FusedEngine"
-        )
+    # ---------------------------------------------------------------- epoch
+    def _exchange_issue(self, st: GraphState, t: int, stop=None):
+        """Tier t's exchange, issue half: drain every egress queue of the
+        tier (credit-bounded) into the slab and move it to its receivers'
+        rows.  Returns ``(st, pending)``, pending ``None`` when the tier
+        has no exchange classes."""
+        if not self.tier_classes[t]:
+            return st, None
+        q, pending = self._exchange_issue_batched(
+            st.queues, self.n_local, st.credits, t, st.tables, stop, self._in_place(st))
+        return st.replace(queues=q), pending
+
+    def _exchange_commit(self, st: GraphState, t: int, pending,
+                         stop=None) -> GraphState:
+        """Tier t's exchange, commit half: land the slab in the ingress
+        queues and return fresh credits to the senders."""
+        if pending is None:
+            return st
+        q, credits = self._exchange_commit_batched(
+            st.queues, self.n_local, st.credits, t, st.tables, pending, stop,
+            self._in_place(st))
+        return st.replace(queues=q, credits=credits)
+
+    def _exchange_tier(self, st: GraphState, t: int, stop=None) -> GraphState:
+        """Tier t's serial exchange: commit∘issue, so the serial and
+        overlapped schedules share every operation and differ only in
+        order."""
+        st, pending = self._exchange_issue(st, t, stop)
+        return self._exchange_commit(st, t, pending, stop)
+
+    def _inner_cycles(self, st: GraphState, K: int, stop=None) -> GraphState:
+        """K granule-local cycles — the innermost hot loop."""
+        for _ in range(K):
+            st = self._local_cycle(st, stop)
+        return st
+
+    def _tier_round(self, st: GraphState, t: int, stop=None) -> GraphState:
+        """One round of tier t: K_t sub-rounds (granule-local cycles at the
+        innermost tier, tier-(t+1) rounds otherwise), then tier t's
+        exchange — so tier t synchronizes every ``periods[t]`` cycles.
+        Exchange-free trailing tiers are folded into one contiguous
+        inner-cycle block."""
+        if t >= self._fold_from:
+            return self._inner_cycles(st, int(np.prod(self.K_tiers[t:])), stop)
+        if t == len(self.tiers) - 1:
+            st = self._inner_cycles(st, self.tiers[t].K, stop)
+        else:
+            for _ in range(self.tiers[t].K):
+                st = self._tier_round(st, t + 1, stop)
+        return self._exchange_tier(st, t, stop)
+
+    # --------------------------------------------- overlapped (split) schedule
+    def _pend_tiers(self, t0: int) -> tuple:
+        """Static tier order of the pending chain ``_round_split(st, t0)``
+        returns: the suffix of tiers whose exchanges fire *at the end* of a
+        tier-t0 round, deepest first."""
+        if t0 >= self._fold_from:
+            return ()
+        inner = () if t0 == len(self.tiers) - 1 else self._pend_tiers(t0 + 1)
+        return inner + ((t0,) if self.tier_classes[t0] else ())
+
+    def _commit_chain(self, st: GraphState, t0: int, pend: tuple,
+                      stop=None) -> GraphState:
+        """Commit a pending chain from ``_round_split(·, t0)`` — fills land
+        deepest tier first, the order the serial schedule fills them."""
+        tiers = self._pend_tiers(t0)
+        if len(tiers) != len(pend):
+            raise AssertionError((tiers, len(pend)))
+        for t, p in zip(tiers, pend):
+            st = self._exchange_commit(st, t, p, stop)
+        return st
+
+    def _round_split(self, st: GraphState, t: int, stop=None):
+        """One round of tier t with *split* exchanges: every sub-round's
+        boundary transfers are issued at its window's end and committed at
+        the start of the next sub-round's window; the final boundary's
+        chain is returned *pending* for the caller to commit at its next
+        window.  Bit-identical to ``_tier_round``: issue reads egress rows
+        and credits[t] only, commit writes ingress rows and credits[t]
+        only, those sets are disjoint across tiers, and every commit still
+        precedes the first cycle that could consume what it fills."""
+        if t >= self._fold_from:
+            return self._inner_cycles(st, int(np.prod(self.K_tiers[t:])), stop), ()
+        if t == len(self.tiers) - 1:
+            st, pend = self._inner_cycles(st, self.tiers[t].K, stop), ()
+        else:
+            st, pend = self._round_split(st, t + 1, stop)
+            for _ in range(self.tiers[t].K - 1):
+                st = self._commit_chain(st, t + 1, pend, stop)
+                st, pend = self._round_split(st, t + 1, stop)
+        if self.tier_classes[t]:
+            st, p_t = self._exchange_issue(st, t, stop)
+            pend = pend + (p_t,)
+        return st, pend
+
+    def _epoch(self, local: GraphState, stop=None) -> GraphState:
+        """One outermost round = ``cycles_per_epoch`` local cycles, every
+        tier exchanged at its own cadence (the split schedule under
+        ``overlap``, its last chain committed before returning: epoch
+        boundaries are host-I/O points).  Where ``stop`` (the until-loop's
+        () bool tensor) is set, the epoch leaves the state as it was; a
+        gated epoch bumps no registry counter (``until.epochs`` counts the
+        loop's)."""
+        st = self._fold(local)
+        if self.overlap:
+            st, pend = self._round_split(st, 0, stop)
+            st = self._commit_chain(st, 0, pend, stop)
+        else:
+            st = self._tier_round(st, 0, stop)
+        if stop is None:  # the until-loop counts its own epochs
+            REGISTRY.inc("graph.dispatch.count")
+            REGISTRY.inc("graph.epochs")
+        step = 1 if stop is None else (~stop).to(local.epoch.dtype)
+        out = self._unfold(st, local)
+        return out.replace(epoch=local.epoch + step)
 
     def _owned(self, state, donate: bool):
         """The state a run may update: the device path updates tensors in
         place, so a caller who keeps its input (``donate=False``) gets a
         copy run instead."""
-        if donate or self.device.type == "cpu":
+        if donate or not self._inplace:
             return state
         return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
                         state)
@@ -609,7 +986,9 @@ class GraphEngine:
     # External channels are *homed* on the granule that owns their simulated
     # endpoint: host I/O touches only that granule's queue row.
     def _ext_loc(self, cid: int) -> tuple[tuple[int, ...], int]:
-        raise NotImplementedError
+        g = int(self._chan_owner[cid])
+        didx = tuple(int(i) for i in np.unravel_index(g, self.dev_shape))
+        return didx, int(max(self._rx_local[cid], self._tx_local[cid]))
 
     def _ext_idx(self, table: dict, name: str) -> tuple:
         didx, row = self._ext_loc(table[name])
@@ -659,3 +1038,86 @@ class GraphEngine:
             state.queues, self._ext_idx(self.graph.ext_out, name), max_n
         )
         return state.replace(queues=q2), pays, cnt
+
+    def push_external(self, state, name: str, payload):
+        warnings.warn(
+            "push_external is deprecated; use the Simulation session's "
+            "tx(name).send(...) (or engine.host_push)",
+            DeprecationWarning, stacklevel=2,
+        )
+        return self.host_push(state, name, payload)
+
+    def pop_external(self, state, name: str):
+        warnings.warn(
+            "pop_external is deprecated; use the Simulation session's "
+            "rx(name).recv() (or engine.host_pop)",
+            DeprecationWarning, stacklevel=2,
+        )
+        return self.host_pop(state, name)
+
+
+class GridEngine(GraphEngine):
+    """Uniform R×C grid preset over GraphEngine (the paper's §IV-B manycore).
+
+    cell: Block with ports in=(w_in, n_in), out=(e_out, s_out).
+    R, C: global grid shape; K: cycles per epoch.  The granule tile is
+    ``Dr x Dc``, each the axis's size in ``batch_axes`` (a mapping) or
+    ``mesh``, 1 where neither names it, as ``FusedEngine.grid`` takes it.
+
+    The grid is lowered by ``ChannelGraph.grid`` and partitioned block-tile
+    onto the granules; the exchange-class coloring reduces to the east +
+    south slab schedule.
+    """
+
+    def __init__(
+        self,
+        cell: Block,
+        R: int,
+        C: int,
+        mesh: Mapping[str, int] | None = None,
+        K: int = 1,
+        payload_words: int = 2,
+        capacity: int = qmod.DEFAULT_CAPACITY,
+        dtype: Any = torch.float32,
+        axis_r: str = "gr",
+        axis_c: str = "gc",
+        *,
+        batch_axes=None,
+        overlap: Any = "auto",
+        device="cuda",
+    ):
+        sizes = {**(mesh or {}),
+                 **(batch_axes if isinstance(batch_axes, Mapping) else {})}
+        Dr, Dc = int(sizes.get(axis_r, 1)), int(sizes.get(axis_c, 1))
+        if R % Dr or C % Dc:
+            raise ValueError(f"grid {R}x{C} not divisible by device tile {Dr}x{Dc}")
+        graph = ChannelGraph.grid(cell, R, C, payload_words=payload_words,
+                                  dtype=dtype, capacity=capacity)
+        super().__init__(graph, grid_partition(R, C, Dr, Dc), mesh, K=K,
+                         axes=(axis_r, axis_c), batch_axes=batch_axes,
+                         overlap=overlap, device=device)
+        self.cell = cell
+        self.R, self.C = R, C
+        self.Dr, self.Dc = Dr, Dc
+        self.Tr, self.Tc = R // Dr, C // Dc
+
+    def init(self, key=0, cell_params: Tree = None) -> GraphState:
+        """cell_params: a tree with leading (R, C) dims (global), numpy or
+        tensors."""
+        flat = tree_map(
+            lambda x: x.reshape((self.R * self.C,) + tuple(x.shape[2:])),
+            cell_params,
+        )
+        return super().init(key, group_params={0: flat})
+
+    def _done_view(self, local):
+        """``run_until`` predicates see the granule-local cell states,
+        leaves (Tr*Tc, ...) — (B, Tr*Tc, ...) when batched — not the whole
+        GraphState."""
+        return local.block_states[0]
+
+    def gather_cells(self, state: GraphState) -> Tree:
+        """Cell states reassembled to the global (R, C, ...) layout (numpy
+        leaves)."""
+        return tree_map(lambda x: x.reshape((self.R, self.C) + x.shape[1:]),
+                        self.gather_group(state, 0))

@@ -42,7 +42,6 @@ import torch
 from . import queue as qmod
 from ..kernels import granule_step
 from ..obs.registry import REGISTRY
-from .device import group_generator, to_tensor
 from .distributed import GraphEngine
 from .graph import ChannelGraph, _rank_within, grid_partition
 from .struct import tensor_dataclass, tree_map
@@ -264,29 +263,6 @@ class FusedEngine(GraphEngine):
         )
 
     # ------------------------------------------------------------------ init
-    def _init_block_states(self, key, group_params) -> list:
-        """Per-group block states in granule layout: every member is
-        initialized in global instantiation order (the order ``NetworkSim``
-        uses), then gathered into its (granule, slot); padding slots copy
-        member 0, as in the JAX package."""
-        states = []
-        for gi, grp in enumerate(self.graph.groups):
-            params = grp.params
-            if group_params is not None and gi in group_params:
-                params = group_params[gi]
-            params = tree_map(lambda x: to_tensor(x, self.device), params)
-            st = grp.block.init_state(
-                grp.n_members, params, generator=group_generator(key, gi),
-                device=self.device,
-            )
-            n_slot = self._n_slot[gi]
-            mo = torch.as_tensor(self._member_of[gi].reshape(-1), device=self.device)
-            states.append(tree_map(
-                lambda x: x[mo].reshape(self.dev_shape + (n_slot,) + x.shape[1:]),
-                st,
-            ))
-        return states
-
     def init(self, key=0, group_params: dict | None = None) -> FusedState:
         """Initial state.  ``key`` is an int seed or a ``torch.Generator``
         for block ``init_state`` (``ManycoreCell`` ignores it, so states

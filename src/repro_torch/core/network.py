@@ -17,10 +17,12 @@ Usage mirrors the paper's Listing 5::
 
 The builder lowers to the channel-graph IR (``repro_torch.core.graph``), and
 ``build(engine=...)`` hands that IR to a backend: ``"single"`` is
-``NetworkSim`` below, the cycle-accurate oracle; ``"fused"`` is
-``fused.FusedEngine``; ``"register"`` is ``fastgrid.RegisterGridEngine``
-(systolic grids only).  The other engines of the JAX package are not
-ported yet and raise ``NotImplementedError``.
+``NetworkSim`` below, the cycle-accurate oracle; ``"graph"`` is
+``distributed.GraphEngine``, the partitioned queue interpreter (any block
+type); ``"fused"`` is ``fused.FusedEngine``; ``"register"`` is
+``fastgrid.RegisterGridEngine`` (systolic grids only).  The multiprocess
+engine of the JAX package (``"procs"``) is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,8 +44,6 @@ Tree = Any
 # Engines of the JAX package that this package does not run yet, and the
 # ROADMAP queue item that ports each.
 _LATER = {
-    "graph": "Queue 1 item 5 (granule_local_cycle and the queue-interpreter "
-             "GraphEngine)",
     "procs": "Queue 1 item 10 (the multiprocess runtime)",
 }
 
@@ -131,9 +131,11 @@ class Network:
         ``session=False`` for the raw engine object.
 
         engine="single"  -> NetworkSim (this module); no extra kwargs.
-        engine="fused"   -> fused.FusedEngine; kwargs: mesh, K, partition
-                            (instance->granule map or a graph.PartitionTree),
-                            axes, tiers, batch_axes, overlap.
+        engine="graph"   -> distributed.GraphEngine; kwargs: mesh, K,
+                            partition (instance->granule map or a
+                            graph.PartitionTree), axes, tiers, batch_axes,
+                            overlap.
+        engine="fused"   -> fused.FusedEngine; the same kwargs as "graph".
         engine="register" -> fastgrid.RegisterGridEngine (systolic-grid
                             networks only); kwargs: K, tiles, mesh.
         """
@@ -150,8 +152,11 @@ class Network:
             if kw:
                 raise TypeError(f"engine='single' takes no kwargs, got {sorted(kw)}")
             return NetworkSim(graph, device=device)
-        if engine == "fused":
-            from .fused import FusedEngine
+        if engine in ("graph", "fused"):
+            if engine == "graph":
+                from .distributed import GraphEngine as Engine
+            else:
+                from .fused import FusedEngine as Engine
 
             extra = {k: kw.pop(k) for k in ("batch_axes", "overlap") if k in kw}
             mesh = kw.pop("mesh", None)
@@ -163,8 +168,8 @@ class Network:
                 raise TypeError(
                     f"unknown build kwargs for engine={engine!r}: {sorted(kw)}"
                 )
-            return FusedEngine(graph, partition, mesh, K=K, axes=axes,
-                               tiers=tiers, device=device, **extra)
+            return Engine(graph, partition, mesh, K=K, axes=axes, tiers=tiers,
+                          device=device, **extra)
         if engine == "register":
             from .fastgrid import RegisterGridEngine
 
@@ -174,8 +179,8 @@ class Network:
                 f"engine={engine!r} is not ported yet: {_LATER[engine]}"
             )
         raise ValueError(
-            f"unknown engine {engine!r} (single | fused | register; graph | "
-            "procs are not ported yet)"
+            f"unknown engine {engine!r} (single | graph | fused | register; "
+            "procs is not ported yet)"
         )
 
 

@@ -11,7 +11,13 @@ so a queue of capacity C holds at most C-1 packets.
 
 A ``QueueArray`` stores N queues with stacked buffers, and every operation
 is masked and batched over them.  Operations are functional: they return
-new tensors and leave their inputs untouched.  ``%`` on tensors is
+new tensors and leave their inputs untouched.  The ones a graph-engine
+cycle and exchange run (:func:`cycle`, :func:`stage_drain`,
+:func:`stage_fill`) have in-place twins (:func:`cycle_`,
+:func:`stage_drain_`, :func:`stage_fill_`) that write ``buf``/``head``/
+``tail`` where they lie, with the same bits and no host sync (no boolean
+indexing), for a state the engine owns on the card: the functional form
+copies the whole buffer each call.  ``%`` on tensors is
 ``torch.remainder``, which takes the divisor's sign like Python and
 ``jnp``, so ``(head - tail) % capacity`` is never negative.
 """
@@ -126,6 +132,27 @@ def cycle(
     head = torch.where(do_push, (q.head + 1) % q.capacity, q.head)
     tail = torch.where(do_pop, (q.tail + 1) % q.capacity, q.tail)
     return q.replace(buf=buf, head=head, tail=tail), do_push, do_pop
+
+
+def cycle_(
+    q: QueueArray,
+    push_payload: torch.Tensor,
+    push_valid: torch.Tensor,
+    pop_ready: torch.Tensor,
+) -> tuple[QueueArray, torch.Tensor, torch.Tensor]:
+    """:func:`cycle` in place: the same bits written into ``q``'s own
+    ``buf``, ``head`` and ``tail`` (one slot a queue, its head's, read and
+    written back).  Returns (q, did_push, did_pop)."""
+    do_push = push_valid & ~full(q)
+    do_pop = pop_ready & ~empty(q)
+    rows = torch.arange(q.n, device=q.buf.device)
+    h = q.head.long()
+    q.buf[rows, h] = torch.where(
+        do_push[:, None], push_payload.to(q.buf.dtype), q.buf[rows, h]
+    )
+    q.head.copy_(torch.where(do_push, (q.head + 1) % q.capacity, q.head))
+    q.tail.copy_(torch.where(do_pop, (q.tail + 1) % q.capacity, q.tail))
+    return q, do_push, do_pop
 
 
 # --------------------------------------------------------------------------
@@ -318,3 +345,34 @@ def stage_fill(
     buf[idx[sel]] = sub2.buf[sel]
     head[idx[sel]] = sub2.head[sel]
     return q.replace(buf=buf, head=head)
+
+
+def stage_drain_(
+    q: QueueArray, idx: torch.Tensor, max_n: int,
+    limit: torch.Tensor | None = None,
+):
+    """:func:`stage_drain` in place.  Every staged row's tail is written
+    back, a row whose count is 0 with the value it had, so padding ``idx``
+    entries that repeat one scratch row all write that row's own tail and
+    the result does not depend on the scatter's order.  Returns
+    ``(q, slab, count)``."""
+    idx = idx.long()
+    sub = _sub(q, idx)
+    sub2, slab, count = drain(sub, max_n, limit=limit)
+    q.tail[idx] = torch.where(count > 0, sub2.tail, sub.tail)
+    return q, slab, count
+
+
+def stage_fill_(
+    q: QueueArray, idx: torch.Tensor, payloads: torch.Tensor, count: torch.Tensor,
+) -> QueueArray:
+    """:func:`stage_fill` in place.  Every staged row is written back, a row
+    that takes no packet with what it held, so repeated padding rows write
+    one value whatever the scatter's order.  Returns ``q``."""
+    idx = idx.long()
+    sub = _sub(q, idx)
+    sel = torch.minimum(count.to(torch.int32), free(sub)) > 0
+    sub2 = fill(sub, payloads, count)
+    q.buf[idx] = torch.where(sel[:, None, None], sub2.buf, sub.buf)
+    q.head[idx] = torch.where(sel, sub2.head, sub.head)
+    return q

@@ -36,7 +36,7 @@ from ..obs.registry import REGISTRY
 
 Tree = Any
 
-_ENGINE_KINDS = ("single", "fused", "register")
+_ENGINE_KINDS = ("single", "graph", "fused", "register")
 _DEFAULT_MAX_EPOCHS = 100_000
 STATS_SCHEMA = "repro-stats-v1"
 

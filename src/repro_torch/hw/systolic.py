@@ -114,6 +114,18 @@ class SystolicCell(Block):
         )
 
     def step(self, state: CellState, rx, tx_ready):
+        return self._step(state, rx, tx_ready)
+
+    def step_(self, state: CellState, rx, tx_ready, enable=None):
+        """:meth:`step` for an engine that owns ``state`` and updates it in
+        place (``distributed.granule_local_cycle`` on the card): ``y_buf``,
+        (n, M), takes each collected output where it lies instead of being
+        copied every cycle.  ``enable`` (a () bool tensor, or None) gates
+        that write as the engine gates the other leaves; the returned state
+        holds ``state.y_buf`` itself.  The same bits as :meth:`step`."""
+        return self._step(state, rx, tx_ready, inplace=True, enable=enable)
+
+    def _step(self, state: CellState, rx, tx_ready, inplace=False, enable=None):
         (w_pay, w_valid) = rx["w_in"]
         (n_pay, n_valid) = rx["n_in"]
         e_ready = tx_ready["e_out"]
@@ -147,8 +159,15 @@ class SystolicCell(Block):
 
         collect = fire & state.is_south
         slot = (state.y_idx % M).long()[:, None]
-        y_buf = torch.where(collect[:, None],
-                            state.y_buf.scatter(1, slot, y[:, None]), state.y_buf)
+        if inplace:
+            write = collect if enable is None else collect & enable
+            rows = torch.arange(slot.shape[0], device=slot.device)
+            held = state.y_buf[rows, slot[:, 0]]
+            state.y_buf[rows, slot[:, 0]] = torch.where(write, y, held)
+            y_buf = state.y_buf
+        else:
+            y_buf = torch.where(collect[:, None],
+                                state.y_buf.scatter(1, slot, y[:, None]), state.y_buf)
         new_state = state.replace(
             a_idx=state.a_idx + (fire & state.is_west).to(torch.int32),
             y_buf=y_buf,

@@ -11,6 +11,7 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.convert import lm_params_from_numpy, lm_state_from_numpy, params_from_numpy
 from repro_torch.core import ChannelGraph, Network, NetworkSim
+from repro_torch.core.distributed import GraphEngine, GridEngine
 from repro_torch.core.fastgrid import RegisterGridEngine
 from repro_torch.core.fused import FusedEngine
 from repro_torch.core.struct import tree_paths
@@ -20,7 +21,8 @@ from repro_torch.launch.serve import serve
 from repro_torch.models import model as lm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path: pathlib.Path):
@@ -50,7 +52,9 @@ def test_scan_sees_the_package():
             "systolic.py", "chip_smoke.py", "flash_attention.py", "rglru_scan.py",
             "slstm_scan.py", "ops.py", "ref.py", "lm_checks.py", "layers.py",
             "recurrent.py", "model.py", "config.py", "registry.py",
-            "recurrentgemma_2b.py", "xlstm_125m.py", "serve.py"} <= names
+            "recurrentgemma_2b.py", "xlstm_125m.py", "serve.py", "pipestage.py",
+            "torch_wafer_scale.py", "torch_systolic_matmul.py",
+            "torch_heterogeneous_soc.py"} <= names
     assert {"flash_attention.cu", "rglru_scan.cu", "slstm_scan.cu"} <= {
         p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
@@ -67,6 +71,8 @@ def test_engines_default_to_cuda():
     quietly; ``device="cpu"`` runs there."""
     makers = [
         lambda **kw: FusedEngine(_graph(), None, **kw),
+        lambda **kw: GraphEngine(_graph(), None, **kw),
+        lambda **kw: GridEngine(SystolicCell(2), 2, 2, K=2, **kw),
         lambda **kw: NetworkSim(_graph(), **kw),
         lambda **kw: Network().build(**kw),
         lambda **kw: RegisterGridEngine(2, 2, K=2, m_stream=2, **kw),

@@ -143,9 +143,15 @@ def test_chain_host_io_cycle_by_cycle():
 
 
 def test_build_engine_names():
+    from repro_torch.core import GraphEngine
+
     net = chain(TNetwork, TIncrement(), 2, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        net.build(engine="graph", device="cpu")
+    sim = net.build(engine="graph", device="cpu", partition=[0, 1], K=2,
+                    batch_axes={"g": 2})
+    assert isinstance(sim.engine, GraphEngine) and sim.kind == "graph"
+    sim.reset(0).tx("tx").send([5.0, 0.0])
+    sim.run(cycles=8)
+    assert sim.cycle == 8 and sim.rx("rx").recv()[0] == 7.0
     with pytest.raises(NotImplementedError, match="item 10"):
         net.build(engine="procs", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
