@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-Five paths, each through the entry points a user calls:
+Six paths, each through the entry points a user calls:
 
   * the paper's wafer-scale torus: 1024x1024 ``ManycoreCell`` cores running
     a two-phase ring allreduce, partitioned over 2 pods x 2x2 granules with
@@ -24,6 +24,11 @@ Five paths, each through the entry points a user calls:
     and its ``GridEngine`` preset (``build(engine="graph")``), plain
     PyTorch on the card as the reference's ``GraphEngine`` is plain XLA
     (it reaches no Pallas kernel), run to the end in the device loop;
+  * the session surface (``core/session.py``): monitors, ``trace``,
+    ``save``/``load`` through ``checkpoint/checkpointing.py`` and the
+    ``obs`` schema and report, on all four engines and on wafer-1M through
+    ``FusedEngine`` (``granule_step``; the register engine's
+    ``systolic_step`` in the small scenario);
   * LM serving: ``launch.serve.serve`` -> ``models.model.init_params`` ->
     ``prefill`` -> greedy ``decode_step``s for recurrentgemma-2b,
     xlstm-125m and the dense llama3.2-1b at their published widths (batch
@@ -143,21 +148,49 @@ Phases (a failing phase raises, and the script exits non-zero):
              share, device events a cycle); then ``GridEngine`` on the
              1024^2 systolic matmul at K = 62, whose Y must equal the
              register engine's bit for bit.
-  10. lm-small  each LM kernel against its plain version on the card, at
+  10. session-small  the rest of the session surface on the card: the
+             four-engine scenario of ``tests/test_session.py`` (a 6x4 @ 4x4
+             systolic network on single, graph, fused and register: reset,
+             ``run(cycles=12)``, ``save``, ``run(until)``, then a fresh
+             session's ``load`` and resume), every Y bit-identical to the
+             single engine's and each resume to its run; the interactive
+             chain scenario (send, run, checkpoint, send more, drain) of
+             Increment blocks on single and graph and of SystolicCell
+             relays (``granule_step``'s device step) on single, graph and
+             fused, equal across engines and across resume; monitor cadence
+             on a 32x32 wafer on ``FusedEngine`` (10x1, 3+7 and 10 epochs
+             sample alike) and ``run(until)`` with a monitor every 1, 3 and
+             16 epochs stopping at the monitor-free cycle, state bit for bit;
+             a traced host-I/O run, traffic bit-identical to the untraced
+             one, its file valid (``obs.schema``) and summarized
+             (``obs.report``); ``examples/torch_quickstart.py``; with
+             ``granule_step`` and ``systolic_step`` launched.
+  11. session-full  wafer-1M as a session on ``FusedEngine``:
+             ``run(until=allreduce_done)`` without and with a monitor every
+             16 epochs (reading ``sim.cycle`` and ``sim.probe(0).total``),
+             both stopping at cycle 4,352 with the same state, samples at
+             epochs 16, 32, 48 and 64, every core's final total 4,718,592;
+             the warm walls, host syncs and captures of both; ``save`` at
+             epoch 32 (seconds, bytes on disk), ``load`` into the running
+             session (in place: its resume captures no span) and into a
+             fresh one, both resuming to a final state bit-identical to the
+             uninterrupted run; one warm ``run(epochs=8)`` traced, its
+             ``epoch_window`` span beside the untraced window's wall.
+  12. lm-small  each LM kernel against its plain version on the card, at
              the CPU tests' shapes (``kernels.lm_checks``): attention MHA,
              GQA and MQA, causal with and without a window, f32 (the
              CUDA-core route) and bf16 (the tensor-core route; each case
              must take its dtype's route), D up to 256, T not a multiple
              of 128; the RG-LRU with and without h0; the sLSTM at T = 1
              and longer, R in f32 and bf16, up to xlstm-125m's width.
-  11. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
+  13. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
              size, on the card); then llama3.2-1b at full width (16 layers,
              d 2048, GQA 32/8, head dim 64) through ``serve`` with the flash
              launch count set to 0 just before and read just after (16,
              all on the tensor-core route), every logit finite, and the
              first layer's flash call held against the plain version at the
              run's own inputs.
-  12. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
+  14. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
              attention layers, window 2048): ``serve`` with every kernel's
              launch count set to 0 just before and read just after (8
              ``flash_attention``, all on the tensor-core route, 18
@@ -176,7 +209,7 @@ Phases (a failing phase raises, and the script exits non-zero):
              call also without); last, a warm prefill and one decode step
              under ``torch.profiler``: device idle share and time by kernel
              (``rglru_clear``: the RG-LRU's status clear).
-  13. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
+  15. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
              prefill, 6 in each of the 15 decode steps), at the first
              decode step's inputs and the first prefill's: the cluster
              plan, the T = 1 call by CUDA events and the wrapper's host
@@ -191,6 +224,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --phases build,small,sys-small
     python3 chip_smoke.py --phases build,fsys-small,fsys-full
     python3 chip_smoke.py --phases build,graph-small,graph-full
+    python3 chip_smoke.py --phases build,session-small,session-full
     python3 chip_smoke.py --phases build,lm-small,lm-dense,rg-full,xl-full
 """
 from __future__ import annotations
@@ -215,8 +249,8 @@ KERNELS = ("granule_step", "systolic_step", "flash_attention", "rglru_scan",
 #: and these, built as variants (``-DRGLRU_CHUNK``).
 RGLRU_SWEEP_VARIANTS = (64, 128, 512)
 PHASES = ("build", "small", "full", "sys-small", "sys-full", "fsys-small",
-          "fsys-full", "graph-small", "graph-full", "lm-small", "lm-dense", "rg-full",
-          "xl-full")
+          "fsys-full", "graph-small", "graph-full", "session-small", "session-full",
+          "lm-small", "lm-dense", "rg-full", "xl-full")
 
 
 def log(msg: str) -> None:
@@ -2087,6 +2121,411 @@ def phase_xl_full(results: list) -> None:
     trace_serving("xlstm-125m", "xl-full")
 
 
+# ------------------------------------------------------------ session surface
+def relay_network(n: int, M: int):
+    """A chain of ``n`` SystolicCells fed by the host: each passes the
+    packet east unchanged and collects ``a * b`` into its ``y_buf`` (its
+    north and south edges synthesized), the last hands it back to the
+    host.  Host I/O through ``granule_step``'s SystolicCell device step."""
+    import numpy as np
+    from repro_torch.core import Network
+    from repro_torch.hw.systolic import SystolicCell, SystolicParams
+
+    net = Network(payload_words=2, capacity=4)
+    cell = SystolicCell(M)
+    insts = [net.instantiate(cell, name=f"r{i}", params=SystolicParams(
+        b=np.float32(i + 2), is_west=np.bool_(False), is_north=np.bool_(True),
+        is_south=np.bool_(True), is_east=np.bool_(False),
+        a_buf=np.zeros(M, np.float32))) for i in range(n)]
+    net.external_in(insts[0]["w_in"], "tx")
+    for a, b in zip(insts, insts[1:]):
+        net.connect(a["e_out"], b["w_in"])
+    net.external_out(insts[-1]["e_out"], "rx")
+    return net
+
+
+def interactive(sim, count, ckpt=None, resume=None):
+    """``tests/test_session.py``'s interactive scenario: send, run 8
+    cycles, save (or load), send more, run and drain.  Returns the traffic,
+    ``count(state)`` of each of the 3 blocks, and the cycle."""
+    import numpy as np
+
+    sim.reset(0)
+    if resume is None:
+        sim.tx("tx").send_many([[v, 0.0] for v in (10.0, 20.0, 30.0)])
+        sim.run(cycles=8)
+        if ckpt is not None:
+            sim.save(ckpt)
+    else:
+        sim.load(resume)
+    sim.tx("tx").send_many([[v, 1.0] for v in (40.0, 50.0)])
+    out = []
+    for _ in range(5):
+        sim.run(cycles=10)
+        out.extend(np.asarray(sim.rx("rx").drain()))
+    return np.asarray(out), [int(count(sim.probe(i))) for i in range(3)], sim.cycle
+
+
+def io_script(sim):
+    """Pseudo-random host sends and drains, one boundary at a time."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    tx, rx = sim.tx("tx"), sim.rx("rx")
+    trace = []
+    for step in range(12):
+        k = int(rng.randint(0, 3))
+        if k:
+            tx.send_many([[100.0 * step + j, float(step)] for j in range(k)])
+        sim.run(cycles=sim.period)
+        trace.append(np.asarray(rx.drain()))
+    sim.run(cycles=16 * sim.period)
+    trace.append(np.asarray(rx.drain()))
+    return trace
+
+
+def phase_session_small() -> None:
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import Network, Simulation
+    from repro_torch.hw.manycore import allreduce_done
+    from repro_torch.hw.systolic import make_systolic_network
+    from repro_torch.kernels import granule_step, systolic_step
+    from repro_torch.kernels.fused_checks import compare
+    from repro_torch.obs import report, schema
+    from repro_torch.obs import trace as obs_trace
+
+    granule_step.launches = systolic_step.launches = 0
+    tmp = tempfile.mkdtemp(prefix="session-small-")
+    try:
+        # the four-engine scenario of tests/test_session.py on the card
+        rng = np.random.RandomState(3)
+        M, K, N = 6, 4, 4
+        A, B = rng.randn(M, K).astype(np.float32), rng.randn(K, N).astype(np.float32)
+
+        def build(engine):
+            net, _ = make_systolic_network(A, B)
+            if engine == "single":
+                return net.build(device="cuda")
+            return net.build(engine=engine, device="cuda", K=4)
+
+        def done_for(sim):
+            if sim.kind == "register":
+                return lambda cell: ((~cell["is_south"]) | (cell["y_idx"] >= M)).all()
+            return lambda s: ((~s.block_states[0].is_south)
+                              | (s.block_states[0].y_idx >= M)).all()
+
+        def result_of(sim):
+            if sim.kind == "register":
+                return np.asarray(sim.engine.result(sim.state))
+            return np.stack([sim.probe((K - 1) * N + c).y_buf.cpu().numpy()
+                             for c in range(N)], 1)
+
+        results, resumed, stops = {}, {}, {}
+        for engine in ("single", "graph", "fused", "register"):
+            sim = build(engine).reset(0)
+            sim.run(cycles=12)
+            ckpt = os.path.join(tmp, f"sys_{engine}")
+            sim.save(ckpt)
+            sim.run(until=done_for(sim), max_epochs=100_000, cache_key="done")
+            results[engine], stops[engine] = result_of(sim), sim.cycle
+            sim2 = build(engine).reset(0)
+            sim2.load(ckpt)
+            if sim2.cycle != 12:
+                raise AssertionError(f"[session-small] {engine}: loaded cycle {sim2.cycle}")
+            sim2.run(until=done_for(sim2), max_epochs=100_000, cache_key="done")
+            resumed[engine] = result_of(sim2)
+            schema.validate_stats(sim2.stats())
+        for engine in results:
+            for got, what in ((results[engine], "run"), (resumed[engine], "resume")):
+                if not np.array_equal(got.view(np.int32), results["single"].view(np.int32)):
+                    raise AssertionError(f"[session-small] {engine} {what}: Y differs "
+                                         "from the single engine's")
+        if not np.allclose(results["single"], A @ B, rtol=1e-4, atol=1e-5):
+            raise AssertionError("[session-small] Y is not A @ B")
+        log(f"[session-small] systolic {M}x{K} @ {K}x{N} on single, graph, fused and "
+            f"register: reset, run(cycles=12), save, run(until) and a fresh session's "
+            f"load and resume; every Y bit-identical to the single engine's, each "
+            f"resume to its run (stop cycles {stops})")
+
+        # the interactive chain scenario: Increment blocks (no device step:
+        # single and graph), SystolicCell relays (fused, through granule_step)
+        quickstart = load_example("torch_quickstart")
+        dut = quickstart.IncrementDut()
+
+        def chain(block_net, engine):
+            net = block_net()
+            if engine == "single":
+                return net.build(device="cuda")
+            return net.build(engine=engine, device="cuda", K=2)
+
+        def inc_net():
+            net = Network(payload_words=2, capacity=4)
+            insts = [net.instantiate(dut, name=f"b{i}") for i in range(3)]
+            net.external_in(insts[0]["to_rtl"], "tx")
+            for a, b in zip(insts, insts[1:]):
+                net.connect(a["from_rtl"], b["to_rtl"])
+            net.external_out(insts[-1]["from_rtl"], "rx")
+            return net
+
+        for name, block_net, count, engines, want in (
+                ("Increment", inc_net, lambda s: s.handshakes, ("single", "graph"),
+                 [13.0, 23.0, 33.0, 43.0, 53.0]),
+                ("SystolicCell relay", lambda: relay_network(3, 8), lambda s: s.y_idx,
+                 ("single", "graph", "fused"), [10.0, 20.0, 30.0, 40.0, 50.0])):
+            ref = None
+            for engine in engines:
+                ckpt = os.path.join(tmp, f"chain_{name[:3]}_{engine}")
+                full = interactive(chain(block_net, engine), count, ckpt=ckpt)
+                res = interactive(chain(block_net, engine), count, resume=ckpt)
+                if not (np.array_equal(full[0], res[0]) and full[1:] == res[1:]):
+                    raise AssertionError(f"[session-small] {name} {engine}: the resumed "
+                                         "run differs from the uninterrupted one")
+                if sorted(full[0][:, 0].tolist()) != want or full[1] != [5, 5, 5]:
+                    raise AssertionError(f"[session-small] {name} {engine}: got "
+                                         f"{full[0][:, 0].tolist()}, counts {full[1]}")
+                ref = full if ref is None else ref
+                if not (np.array_equal(full[0], ref[0]) and full[1:] == ref[1:]):
+                    raise AssertionError(f"[session-small] {name} {engine} differs "
+                                         f"from {engines[0]}")
+            log(f"[session-small] {name} chain, interactive checkpoint/resume on "
+                f"{', '.join(engines)}: traffic {ref[0][:, 0].tolist()}, counts {ref[1]}, "
+                f"cycle {ref[2]}, equal across engines and across resume")
+        try:
+            interactive(chain(inc_net, "fused"), lambda s: s.handshakes)
+        except NotImplementedError as e:
+            log(f"[session-small] the fused engine refuses the Increment chain on "
+                f"the card (no device step): {str(e)[:70]}...")
+        else:
+            raise AssertionError("the fused engine ran a block without a device step")
+
+        # monitor cadence and the monitor-invariant stop on FusedEngine
+        eng, _ = wafer_engine(32, 32, 2, 4, 4, False, "cuda")
+        done = lambda s: allreduce_done(s.block_states[0], s.tables.active[0])  # noqa: E731
+        samples = {}
+        for slices in ((1,) * 10, (3, 7), (10,)):
+            sim = Simulation(eng).reset(0)
+            got = samples[slices] = []
+            sim.add_monitor(lambda s, got=got: got.append(
+                (s.epoch, int(s.engine.gather_group(s.state, 0).fires.sum()))), every=2)
+            for n in slices:
+                sim.run(epochs=n)
+        if len({tuple(v) for v in samples.values()}) != 1 or \
+                [e for e, _ in samples[(10,)]] != [2, 4, 6, 8, 10]:
+            raise AssertionError(f"[session-small] monitor samples {samples}")
+        free = Simulation(eng).reset(0).run(until=done, max_epochs=1000)
+        for every in (1, 3, 16):
+            sim = Simulation(eng).reset(0)
+            seen = []
+            sim.add_monitor(lambda s: seen.append(s.epoch), every=every)
+            sim.run(until=done, max_epochs=1000)
+            if sim.cycle != free.cycle or seen != list(range(every, sim.epoch + 1, every)):
+                raise AssertionError(f"[session-small] monitor every {every}: stop "
+                                     f"{sim.cycle} (free {free.cycle}), samples {seen}")
+            compare(sim.state, free.state)
+        # traced, a monitored until-run records a span for every stretch it ran
+        sim = Simulation(eng).reset(0)
+        sim.add_monitor(lambda s: None, every=16)
+        path = os.path.join(tmp, "until_trace.json")
+        obs_trace.recorder().clear()
+        with sim.trace(path):
+            sim.run(until=done, max_epochs=1000)
+        spans = [e for e in schema.validate_trace_file(path)["traceEvents"]
+                 if e["name"] == "epoch_window"]
+        if sim.cycle != free.cycle or sum(e["args"]["epochs"] for e in spans) != sim.epoch:
+            raise AssertionError(f"[session-small] traced monitored run: stop {sim.cycle} "
+                                 f"(free {free.cycle}), spans {[e['args'] for e in spans]}")
+        compare(sim.state, free.state)
+        log(f"[session-small] FusedEngine 32x32 wafer: a monitor every 2 epochs samples "
+            f"{samples[(10,)][:3]}... alike over 10x1, 3+7 and 10 epochs; run(until) "
+            f"with a monitor every 1, 3 and 16 epochs stops at the monitor-free cycle "
+            f"{free.cycle} with its state bit for bit; traced with a monitor every 16, "
+            f"{len(spans)} epoch_window spans cover its {sim.epoch} epochs")
+
+        # the flight recorder: traced traffic bit-identical, a valid file
+        ref = io_script(chain(lambda: relay_network(3, 8), "fused").reset(0))
+        sim = chain(lambda: relay_network(3, 8), "fused").reset(0)
+        path = os.path.join(tmp, "trace.json")
+        obs_trace.recorder().clear()
+        with sim.trace(path):
+            got = io_script(sim)
+        if len(ref) != len(got) or not all(np.array_equal(a, b) for a, b in zip(ref, got)):
+            raise AssertionError("[session-small] traced traffic differs from untraced")
+        doc = schema.validate_trace_file(path)
+        spans = [e for e in doc["traceEvents"] if e["name"] == "epoch_window"]
+        text = report.summarize(doc)
+        log(f"[session-small] traced relay chain on the fused engine: traffic "
+            f"({sum(len(t) for t in got)} packets) bit-identical to the untraced run; "
+            f"{len(spans)} epoch_window spans, valid; report: {text.splitlines()[3].strip()}")
+
+        stats = quickstart.main(["--device", "cuda"])
+        log(f"[session-small] examples/torch_quickstart.py on cuda: cycle "
+            f"{stats['cycle']}, sent {stats['ports']['tx']['to_rtl.q']['sent']}, "
+            f"received {stats['ports']['rx']['from_rtl.q']['received']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = {"granule_step": granule_step.launches, "systolic_step": systolic_step.launches}
+    if min(launched.values()) <= 0:
+        raise AssertionError(f"[session-small] kernel launches {launched}")
+    log(f"[session-small] kernel launches in the phase: {launched}")
+
+
+def phase_session_full() -> None:
+    """wafer-1M as a session on ``FusedEngine``: a monitor every 16 epochs,
+    a save at epoch 32, loads in place and into a fresh session, a trace."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.manycore import CONFIG
+    from repro_torch.core import Simulation
+    from repro_torch.core.struct import tree_leaves
+    from repro_torch.hw.manycore import allreduce_done
+    from repro_torch.kernels import granule_step
+    from repro_torch.kernels.fused_checks import clone, compare
+    from repro_torch.obs import report, schema
+    from repro_torch.obs import trace as obs_trace
+
+    R, C, every, save_at = CONFIG.grid_rows, CONFIG.grid_cols, 16, 32
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    eng, values = wafer_engine(R, C, CONFIG.k_outer, CONFIG.k_inner,
+                               CONFIG.queue_capacity, False, "cuda")
+    total = float(values.astype(np.float64).sum())  # 4,718,592 at full width
+    sim = Simulation(eng).reset(0)
+    start = clone(sim.state)
+    sync()
+    leaves = [x for x in tree_leaves(sim.state) if isinstance(x, torch.Tensor)]
+    state_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    log(f"[session-full] wafer {R}x{C} on FusedEngine (tiers {eng.K_tiers}, capacity "
+        f"{eng.capacity}, {eng.cycles_per_epoch} cycles an epoch): set-up "
+        f"{time.perf_counter() - t0:.2f} s; state {len(leaves)} tensor leaves, "
+        f"{state_bytes} B ({state_bytes / 2**20:.1f} MiB)")
+    done = lambda s: allreduce_done(s.block_states[0], s.tables.active[0])  # noqa: E731
+
+    def timed_run(**kw):
+        assign(sim.state, start)
+        sync()
+        c0 = until_counts()
+        t = time.perf_counter()
+        sim.run(**kw)
+        sync()
+        return time.perf_counter() - t, counts_since(c0)
+
+    granule_step.launches = 0
+    # 1. run to allreduce_done without a monitor, then with one every 16
+    # epochs; each cold (its capture) and warm
+    timed_run(until=done, max_epochs=1000)
+    free_s, free = timed_run(until=done, max_epochs=1000)
+    stop, final = sim.cycle, clone(sim.state)
+    samples = []
+
+    def sample(s):
+        samples.append((s.epoch, s.cycle, float(s.probe(0).total)))
+
+    mon = sim.add_monitor(sample, every=every)
+    cold_s, cold = timed_run(until=done, max_epochs=1000)
+    mon.remove()
+    samples.clear()
+    mon = sim.add_monitor(sample, every=every)
+    mon_s, warm = timed_run(until=done, max_epochs=1000)
+    if sim.cycle != stop:
+        raise AssertionError(f"[session-full] the monitored run stopped at {sim.cycle}, "
+                             f"the monitor-free run at {stop}")
+    compare(sim.state, final)
+    per = sim.period
+    want_epochs = list(range(every, stop // per + 1, every))
+    if [e for e, _, _ in samples] != want_epochs or \
+            [c for _, c, _ in samples] != [e * per for e in want_epochs]:
+        raise AssertionError(f"[session-full] monitor samples {samples}")
+    totals = eng.gather_group(sim.state, 0).total
+    if not np.array_equal(totals, np.full_like(totals, total)):
+        raise AssertionError(f"[session-full] totals {np.unique(totals)[:5]} != {total}")
+    if warm["captures"] != 0:
+        raise AssertionError(f"[session-full] the warm monitored run captured "
+                             f"{warm['captures']} spans")
+    log(f"[session-full] run(until=allreduce_done) stops at cycle {stop} "
+        f"({stop // per} epochs) with and without a monitor every {every} epochs, state "
+        f"bit for bit; every core's total {total:.0f}; samples (epoch, cycle, "
+        f"probe(0).total) {samples}")
+    log(f"[session-full] warm wall: monitor-free {free_s:.4f} s ({int(free['syncs'])} host "
+        f"syncs, {int(free['spans'])} spans), monitored {mon_s:.4f} s "
+        f"({int(warm['syncs'])} host syncs, {int(warm['spans'])} spans, "
+        f"{mon.samples} samples), {mon_s / free_s:.3f}x; captures: warm runs "
+        f"{int(free['captures'] + warm['captures'])}, the monitored cold run "
+        f"{int(cold['captures'])} ({cold['capture_s']:.3f} s, wall {cold_s:.3f} s)")
+
+    # 2. save at epoch 32; load into the running session and into a fresh one
+    mon.remove()
+    assign(sim.state, start)
+    sim.run(epochs=save_at)
+    tmp = tempfile.mkdtemp(prefix="session-full-")
+    try:
+        sync()
+        t = time.perf_counter()
+        path = sim.save(tmp)
+        save_s = time.perf_counter() - t
+        disk = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        sim.run(until=done, max_epochs=1000)
+        c0 = until_counts()
+        t = time.perf_counter()
+        sim.load(tmp)
+        sync()
+        load_in_place_s = time.perf_counter() - t
+        if sim.cycle != save_at * per:
+            raise AssertionError(f"[session-full] loaded cycle {sim.cycle}")
+        sim.run(until=done, max_epochs=1000)
+        resumed = counts_since(c0)
+        if resumed["captures"] != 0:
+            raise AssertionError(f"[session-full] the in-place load's resume captured "
+                                 f"{resumed['captures']} spans")
+        if sim.cycle != stop:
+            raise AssertionError(f"[session-full] in-place resume stopped at {sim.cycle}")
+        compare(sim.state, final)
+        fresh = Simulation(eng).reset(0)
+        sync()
+        t = time.perf_counter()
+        fresh.load(tmp)
+        sync()
+        load_fresh_s = time.perf_counter() - t
+        fresh.run(until=done, max_epochs=1000)
+        if fresh.cycle != stop:
+            raise AssertionError(f"[session-full] fresh resume stopped at {fresh.cycle}")
+        compare(fresh.state, final)
+        del fresh
+        log(f"[session-full] save at epoch {save_at}: {save_s:.3f} s, {disk} B on disk "
+            f"({disk / 2**20:.1f} MiB); load into the running session (in place) "
+            f"{load_in_place_s:.3f} s, into a fresh one {load_fresh_s:.3f} s; both "
+            f"resume to cycle {stop}, every leaf bit for bit the uninterrupted run's; "
+            f"the in-place resume captured 0 spans ({int(resumed['spans'])} replayed)")
+
+        # 3. one warm run(epochs=8), untraced and traced
+        walls = [timed_run(epochs=8)[0] for _ in range(3)]
+        untraced = clone(sim.state)
+        trace_path = os.path.join(tmp, "trace.json")
+        assign(sim.state, start)
+        sync()
+        obs_trace.recorder().clear()
+        with sim.trace(trace_path):
+            sim.run(epochs=8)
+        compare(sim.state, untraced)
+        doc = schema.validate_trace_file(trace_path)
+        span = [e for e in doc["traceEvents"] if e["name"] == "epoch_window"][-1]
+        report.summarize(doc)
+        log(f"[session-full] run(epochs=8) warm: untraced wall {min(walls):.4f}-"
+            f"{max(walls):.4f} s (3 runs); traced epoch_window span "
+            f"{span['dur'] / 1e6:.4f} s (args {span['args']}), state bit for bit the "
+            f"untraced run's; trace valid")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if granule_step.launches <= 0:
+        raise AssertionError("[session-full] granule_step launched 0 times")
+    log(f"[session-full] granule_step launches in the phase: {granule_step.launches}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2136,6 +2575,8 @@ def main(argv=None) -> int:
                        ("fsys-full", lambda: phase_fsys_full(kernels[2])),
                        ("graph-small", phase_graph_small),
                        ("graph-full", phase_graph_full),
+                       ("session-small", phase_session_small),
+                       ("session-full", phase_session_full),
                        ("lm-small", phase_lm_small),
                        ("lm-dense", phase_lm_dense),
                        ("rg-full", lambda: phase_rg_full(lm_kernels)),

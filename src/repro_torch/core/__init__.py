@@ -15,7 +15,9 @@ The counterpart of ``repro.core``: Network description -> channel-graph IR
               epoch program (the Hopper kernel on CUDA)
   fastgrid    register engine: the systolic grid, one systolic_step call an
               epoch (the Hopper kernel on CUDA)
-  session     Simulation facade: reset/run/probe/tx/rx/stats
+  session     Simulation facade: reset/run/probe/tx/rx/stats, monitors,
+              trace, save/load and the legacy shims
+  perfmodel   the §II-C measurement model and rate control (pure math)
 """
 from .block import Block
 from .network import Network, NetworkSim, NetworkState
@@ -31,5 +33,5 @@ from .distributed import (
 )
 from .fused import FusedEngine, FusedState
 from .fastgrid import RegGridState, RegisterGridEngine
-from .session import RxPort, Simulation, TxPort
+from .session import DonatedStateError, Monitor, RxPort, Simulation, TxPort
 from . import packet

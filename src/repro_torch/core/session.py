@@ -9,6 +9,7 @@ as in ``repro.core.session`` (paper §III-E/§IV-A; DESIGN.md §4).
     tx.send([41.0, 1.0])                  # host -> network queue handle
     sim.run(cycles=1000)
     print(rx.recv(), sim.cycle)
+    sim.save("/tmp/ckpt")                 # checkpoint; sim.load() resumes
 
 **The host is the outermost tier.**  Host packets enter and leave at
 *boundaries* — every ``cycles_per_epoch`` simulated cycles — through the
@@ -21,24 +22,89 @@ The register engine (``engine="register"``) has no external ports; its
 predicate sees the tile-local cell dict.
 
 **State ownership.**  The session owns the engine state and lets the
-engine update it in place (``donate=True``).  Monitors, ``trace`` and
-``save``/``load`` of the JAX session are not ported yet.
+engine update it in place (``donate=True``).  The legacy
+engine-state-threading surface (``init(key)`` / ``run(state, n)`` /
+``run_epochs(state, n)`` / ``push_external``) keeps working through
+deprecation shims, and an input a shim donated is *poisoned*: touching it
+afterwards raises ``DonatedStateError``.
+
+**Probes and monitors** (the paper's PyMonitor): ``sim.probe(inst)``
+returns one instance's live state; ``sim.stats()`` reports the
+``repro-stats-v1`` schema (``obs.schema``); ``sim.add_monitor(fn,
+every=...)`` samples a host callback at epoch boundaries during ``run``,
+counted on the global boundary index.  ``sim.trace(path)`` records the
+run's windows into a Chrome/Perfetto ``trace.json`` (``obs.trace``), and
+``sim.save``/``sim.load`` checkpoint the state and the ports' buffers
+(``checkpoint.checkpointing``).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
+import functools
+import math
+import time
+import warnings
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from ..obs import trace as _trace
 from ..obs.registry import REGISTRY
+from ..obs.schema import STATS_SCHEMA
+from .struct import tree_leaves
 
 Tree = Any
 
 _ENGINE_KINDS = ("single", "graph", "fused", "register")
 _DEFAULT_MAX_EPOCHS = 100_000
-STATS_SCHEMA = "repro-stats-v1"
+
+
+class DonatedStateError(RuntimeError):
+    """A state that was donated to an engine run was reused."""
+
+
+class _Donated:
+    """Poison sentinel installed over a donated state's fields."""
+
+    __slots__ = ("_api",)
+
+    def __init__(self, api: str):
+        object.__setattr__(self, "_api", api)
+
+    def _fail(self, *a, **k):
+        raise DonatedStateError(
+            f"state was donated to {object.__getattribute__(self, '_api')}; "
+            "use Simulation (which owns its state) or pass donate=False"
+        )
+
+    __getattr__ = __array__ = __iter__ = __len__ = __bool__ = _fail
+    __getitem__ = __add__ = __mul__ = _fail
+
+    def __repr__(self):
+        return f"<donated state ({object.__getattribute__(self, '_api')})>"
+
+
+def poison_donated(state: Tree, api: str) -> None:
+    """Overwrite a donated state's fields with a guard that raises a clear
+    ``DonatedStateError`` on any later use (a CUDA run may have updated
+    its tensors in place).  Mutates ``state`` in place; no-op for
+    non-dataclass states."""
+    if not dataclasses.is_dataclass(state):
+        return
+    guard = _Donated(api)
+    for f in dataclasses.fields(state):
+        object.__setattr__(state, f.name, guard)
+
+
+def _poison_input(state: Tree, out: Tree, api: str) -> None:
+    """Poison the donated input ``state`` unless the engine returned that
+    very object (a CUDA until-run updates the state in place and returns
+    its input): the state the caller gets back stays usable."""
+    if out is not state:
+        poison_donated(state, api)
 
 
 class TxPort:
@@ -100,14 +166,45 @@ class RxPort:
         return f"RxPort({self.name!r}, received={self.received})"
 
 
+class Monitor:
+    """A host callback sampled at epoch boundaries during ``run``.
+
+    Cadence is counted on the GLOBAL boundary index (simulated cycle /
+    period), not per ``run`` call — ten ``run(epochs=1)`` calls sample
+    exactly like one ``run(epochs=10)``.
+    """
+
+    def __init__(self, sim: "Simulation", fn: Callable[["Simulation"], None],
+                 every: int):
+        self._sim = sim
+        self.fn = fn
+        self.every = max(int(every), 1)  # boundary cadence, in epochs
+        self.samples = 0
+        self._last = 0  # last global boundary index fired at
+
+    def remove(self) -> None:
+        if self in self._sim._monitors:
+            self._sim._monitors.remove(self)
+
+    def _fire(self):
+        self.samples += 1
+        self.fn(self._sim)
+
+
 class Simulation:
     """One session facade over an engine of the port.
 
-    Lifecycle: ``reset(seed)`` -> [``tx``/``rx``/``probe``/``run``]*.  The
-    raw engine stays reachable as ``.engine``.
+    Lifecycle: ``reset(seed)`` -> [``tx``/``rx``/``probe``/``run``]* ->
+    ``save``/``load``.  The raw engine stays reachable as ``.engine``;
+    unknown attributes delegate to it, and the legacy state-threading
+    surface keeps working via deprecation shims (with donated inputs
+    poisoned — see ``DonatedStateError``).
+
+    ``period`` (cycles between host boundaries) defaults to the engine's
+    epoch and must be a multiple of it.
     """
 
-    def __init__(self, engine):
+    def __init__(self, engine, *, period: int | None = None):
         kind = getattr(engine, "engine_kind", None)
         if kind not in _ENGINE_KINDS:
             raise TypeError(
@@ -117,17 +214,32 @@ class Simulation:
         self.engine = engine
         self.kind = kind
         self.device = engine.device
+        if period is not None and kind != "single":
+            cpe = int(engine.cycles_per_epoch)
+            if period % cpe:
+                raise ValueError(
+                    f"period={period} must be a multiple of the engine's "
+                    f"epoch ({cpe} cycles)"
+                )
+        self._period = period
         self._state: Tree | None = None
         self._tx_ports: dict[str, TxPort] = {}
         self._rx_ports: dict[str, RxPort] = {}
+        self._monitors: list[Monitor] = []
         graph = getattr(engine, "graph", None)
         self._ext_in = dict(graph.ext_in) if graph is not None else {}
         self._ext_out = dict(graph.ext_out) if graph is not None else {}
+        # flight recorder: REPRO_TRACE=<path> arms the process-global
+        # recorder (exported at interpreter exit)
+        _trace.maybe_enable_from_env()
 
     # ------------------------------------------------------------- lifecycle
     @property
     def period(self) -> int:
-        """Cycles between host boundaries (the engine's epoch length)."""
+        """Cycles between host boundaries (the engine's epoch length unless
+        the session was given a ``period``)."""
+        if self._period is not None:
+            return self._period
         return int(self.engine.cycles_per_epoch)
 
     def reset(self, key: int | torch.Generator = 0, **init_kw) -> "Simulation":
@@ -144,6 +256,9 @@ class Simulation:
             p._pending.clear()
         for p in self._rx_ports.values():
             p.received = 0
+        for m in self._monitors:
+            m.samples = 0
+            m._last = 0
         return self
 
     @property
@@ -156,6 +271,8 @@ class Simulation:
     def _require_state(self) -> Tree:
         if self._state is None:
             raise RuntimeError("call reset(seed) before using the session")
+        if isinstance(getattr(self._state, "cycle", None), _Donated):
+            self._state.cycle._fail()  # raises DonatedStateError
         return self._state
 
     @property
@@ -240,15 +357,20 @@ class Simulation:
             return np.zeros((0, W), np.float32)
         return np.stack(out)
 
-    # ---------------------------------------------------------------- probes
+    # ------------------------------------------------------ probes / monitors
     def probe(self, inst) -> Tree:
         """One instance's live (unstacked) state.  ``inst`` is an
         ``Instance`` or a global instance id."""
         return self.engine.group_state(self._require_state(), inst)
 
     def stats(self) -> dict:
-        """Cycle/epoch counters plus per-port session counters and live
-        queue occupancy/credit, and a snapshot of the metrics registry."""
+        """Cycle/epoch counters plus per-port state, behind the ONE
+        validated schema on every engine (``repro-stats-v1``; see
+        ``obs.schema.validate_stats``): each tx/rx entry nests the session
+        counters (sent/pending resp. received) and the port's live queue
+        occupancy/credit.  Engine-specific extras (the single engine's
+        per-channel push/pop handshake counts) live under ``"detail"``,
+        and ``"metrics"`` is a snapshot of the process-global registry."""
         st = self._require_state()
         occ = self.engine.port_stats(st)
 
@@ -270,6 +392,10 @@ class Simulation:
                        for n, p in self._rx_ports.items()},
             },
         }
+        REGISTRY.set("session.tx.sent",
+                     float(sum(p.sent for p in self._tx_ports.values())))
+        REGISTRY.set("session.rx.received",
+                     float(sum(p.received for p in self._rx_ports.values())))
         if self.kind == "single":
             d["detail"] = {
                 "push_count": st.push_count.cpu().numpy(),
@@ -278,18 +404,91 @@ class Simulation:
         d["metrics"] = REGISTRY.snapshot()
         return d
 
+    @contextlib.contextmanager
+    def trace(self, path: str):
+        """Flight-recorder window: record span/instant events for the body,
+        then export a Perfetto/Chrome-loadable ``trace.json`` to ``path``::
+
+            with sim.trace("/tmp/trace.json"):
+                sim.run(epochs=200)
+
+        Tracing changes no simulated behavior: final state and host Rx
+        traffic stay bit-identical to an untraced run.  On a CUDA state
+        each ``epoch_window`` span ends after the stream has finished the
+        window's work.  The ``REPRO_TRACE=<path>`` env knob is the
+        non-contextual variant (exports at interpreter exit)."""
+        rec = _trace.recorder()
+        prev = rec.enabled
+        rec.enabled = True
+        try:
+            yield self
+        finally:
+            try:
+                # an engine that buffers its own events (the reference's
+                # procs workers) hands them to the recorder first
+                flush = getattr(self.engine, "flush_telemetry", None)
+                if flush is not None:
+                    flush()
+            finally:
+                rec.export(path)
+                rec.enabled = prev
+
+    def add_monitor(self, fn: Callable[["Simulation"], None],
+                    every: int = 1) -> Monitor:
+        """Register a host callback fired every ``every`` epoch boundaries
+        during ``run`` (the paper's PyMonitor).  Returns a removable
+        handle."""
+        mon = Monitor(self, fn, every)
+        self._monitors.append(mon)
+        return mon
+
     # ------------------------------------------------------------------- run
-    def _advance(self, n_epochs: int) -> None:
+    def _window_span(self, t0: float, args: dict) -> None:
+        """Record the ``epoch_window`` span begun at ``t0``, ended once the
+        stream has finished the window (a CUDA run returns at launch)."""
+        self.block_until_ready()
+        _trace.recorder().span("epoch_window", t0, time.monotonic() - t0,
+                               cat="session", args=args)
+
+    def _advance_epochs(self, n_epochs: int) -> None:
+        """``n_epochs`` boundary periods through the engine, which may
+        update the owned state in place."""
         if n_epochs <= 0:
             return
         st = self._require_state()
+        rec = _trace.recorder()
+        t0 = time.monotonic() if rec.enabled else 0.0
         if self.kind == "single":
-            self._state = self.engine.run(st, n_epochs)
+            self._state = self.engine.run(st, n_epochs * self.period)
         else:
-            self._state = self.engine.run_epochs(st, n_epochs, donate=True)
+            per = self.period // int(self.engine.cycles_per_epoch)
+            self._state = self.engine.run_epochs(st, n_epochs * per, donate=True)
         REGISTRY.inc("session.epochs", float(n_epochs))
+        if rec.enabled:
+            self._window_span(t0, {"epochs": int(n_epochs)})
 
-    def run(
+    def _advance_cycles_single(self, n_cycles: int) -> None:
+        if n_cycles > 0:
+            rec = _trace.recorder()
+            t0 = time.monotonic() if rec.enabled else 0.0
+            self._state = self.engine.run(self._require_state(), n_cycles)
+            REGISTRY.inc("session.cycles", float(n_cycles))
+            if rec.enabled:
+                self._window_span(t0, {"cycles": int(n_cycles)})
+
+    def _host_done(self, done_fn) -> bool:
+        """The predicate read on the host, on the view the engine's
+        ``run_until`` shows it: the full state (single), the cell dict
+        (register), or the granule-local state via ``_done_view``."""
+        st = self._require_state()
+        if self.kind == "single":
+            return bool(done_fn(st))
+        if self.kind == "register":
+            return bool(self.engine.tiles_done(st.cell, done_fn))
+        local = self.engine._local_view(st)
+        return bool(torch.as_tensor(done_fn(self.engine._done_view(local))).all())
+
+    def _session_run(
         self,
         cycles: int | None = None,
         *,
@@ -299,62 +498,274 @@ class Simulation:
         max_epochs: int | None = None,
         cache_key: Any = None,
     ) -> "Simulation":
-        """Advance the simulation.
+        """Advance the simulation — the implementation behind
+        ``run(cycles=... | epochs=... | until=...)``.
 
         cycles / epochs:  advance at least this far (cycles round UP to
             whole boundary periods on epoch-batched engines).
         until:  run until a predicate holds, within the ``max_cycles`` /
             ``max_epochs`` budget (relative to now; default 100k epochs).
             The predicate sees the engine's ``run_until`` view, and is
-            checked at every boundary.  On the epoch engines it runs in
+            checked before every epoch.  On the epoch engines it runs in
             the engine's device loop: it must return a device tensor
             without reading it back.  ``cache_key`` pins the engine's
             captured loop when the predicate is a fresh lambda per call.
 
-        Pending Tx packets are flushed at every boundary.
+        Pending Tx packets are flushed and monitors sampled at every
+        boundary; with no monitors and no pending traffic the whole run
+        is a single engine call.
         """
         if (cycles is None) + (epochs is None) + (until is None) != 2:
             raise TypeError("run() takes exactly one of cycles/epochs/until")
         self._require_state()
         self._flush_all_tx()
-        per = self.period
         if until is not None:
-            if max_cycles is not None and max_epochs is not None:
-                raise TypeError("pass max_cycles or max_epochs, not both")
-            if max_epochs is None:
-                max_epochs = (-(-int(max_cycles) // per) if max_cycles is not None
-                              else _DEFAULT_MAX_EPOCHS)
-            if not any(p._pending for p in self._tx_ports.values()):
-                st = self._require_state()
-                if self.kind == "single":
-                    self._state = self.engine.run_until(st, until, max_epochs * per)
-                else:
-                    self._state = self.engine.run_until(
-                        st, until, max_epochs, cache_key=cache_key, donate=True)
-                return self
-            ran = 0  # pending host traffic: one boundary at a time
-            while ran < max_epochs and not self._host_done(until):
-                self._advance(1)
-                ran += 1
-                self._flush_all_tx()
-            return self
+            return self._run_until(until, max_cycles, max_epochs, cache_key)
+
+        per = self.period
         n_ep = int(epochs) if epochs is not None else -(-int(cycles) // per)
-        if not any(p._pending for p in self._tx_ports.values()):
-            self._advance(n_ep)
+        exact_cycles = (
+            int(cycles) if (cycles is not None and self.kind == "single")
+            else None
+        )
+
+        chunk = self._boundary_chunk()
+        if chunk is None:  # no boundary work: one engine call
+            if exact_cycles is not None:
+                self._advance_cycles_single(exact_cycles)
+            else:
+                self._advance_epochs(n_ep)
             return self
-        for _ in range(n_ep):
-            self._advance(1)
-            self._flush_all_tx()
+
+        total_c = exact_cycles if exact_cycles is not None else n_ep * per
+        done_c = 0
+        while done_c < total_c:
+            if chunk == 1:
+                step_c = min(per, total_c - done_c)
+            else:
+                # align chunks to the GLOBAL boundary grid so monitor
+                # cadences are invariant to how runs are sliced
+                cur_b = self.cycle // per
+                step_c = min((chunk - cur_b % chunk) * per, total_c - done_c)
+            if exact_cycles is not None:
+                self._advance_cycles_single(step_c)
+            else:
+                self._advance_epochs(step_c // per)
+            done_c += step_c
+            self._boundary()
         return self
 
-    def _host_done(self, done_fn) -> bool:
+    def _boundary_chunk(self) -> int | None:
+        """Epochs between host boundaries, or None when nothing needs
+        them (one engine call).  The gcd of the monitor cadences, so
+        boundaries land on every multiple of every monitor's ``every``
+        (min would silently skip non-dividing cadences)."""
+        cadences = [m.every for m in self._monitors]
+        if any(p._pending for p in self._tx_ports.values()):
+            cadences.append(1)
+        if not cadences:
+            return None
+        return functools.reduce(math.gcd, cadences)
+
+    def _boundary(self) -> None:
+        self._flush_all_tx()
+        if not self._monitors:
+            return
+        cyc = self.cycle
+        if cyc % self.period:
+            return  # mid-period (single-engine exact-cycle remainder)
+        b = cyc // self.period  # global boundary index
+        for mon in list(self._monitors):
+            if b and b % mon.every == 0 and b != mon._last:
+                mon._last = b
+                mon._fire()
+                REGISTRY.inc("session.monitor.fired")
+
+    def _run_until(self, done_fn, max_cycles, max_epochs, cache_key):
+        per = self.period
+        if max_cycles is not None and max_epochs is not None:
+            raise TypeError("pass max_cycles or max_epochs, not both")
+        if max_epochs is None:
+            max_epochs = (
+                -(-int(max_cycles) // per) if max_cycles is not None
+                else _DEFAULT_MAX_EPOCHS
+            )
+        if any(p._pending for p in self._tx_ports.values()):
+            # pending host traffic: one boundary at a time, the predicate
+            # read on the host before every epoch
+            ran = 0
+            while ran < max_epochs and not self._host_done(done_fn):
+                self._advance_epochs(1)
+                ran += 1
+                self._boundary()
+            return self
+        chunk = self._boundary_chunk()
+        if chunk is None:
+            self._until(done_fn, max_epochs, cache_key)
+            return self
+        # monitors: each stretch up to the next boundary runs in the
+        # engine's until-loop with the stretch as its budget.  The loop
+        # checks the predicate before every epoch and its budget is
+        # relative, so it stops where the monitor-free run stops, and a
+        # done state runs no epoch.  Each stretch that ran is one
+        # ``epoch_window`` span (the reference records one per epoch).
+        rec = _trace.recorder()
+        ran = 0
+        while ran < max_epochs:
+            c0 = self.cycle
+            t0 = time.monotonic() if rec.enabled else 0.0
+            step = min(chunk - (c0 // per) % chunk, max_epochs - ran)
+            self._until(done_fn, step, cache_key)
+            n = (self.cycle - c0) // per  # fewer than step: the predicate held
+            ran += n
+            if n:
+                REGISTRY.inc("session.epochs", float(n))
+                if rec.enabled:
+                    self._window_span(t0, {"epochs": int(n)})
+            self._boundary()
+            if n < step:
+                break
+        return self
+
+    def _until(self, done_fn, n_epochs: int, cache_key) -> None:
+        """The engine's until-loop within a budget of ``n_epochs`` boundary
+        periods (relative to now)."""
         st = self._require_state()
         if self.kind == "single":
-            return bool(done_fn(st))
-        if self.kind == "register":
-            return bool(self.engine.tiles_done(st.cell, done_fn))
-        local = self.engine._local_view(st)
-        return bool(torch.as_tensor(done_fn(self.engine._done_view(local))).all())
+            self._state = self.engine.run_until(st, done_fn, n_epochs * self.period)
+        else:
+            per_engine = self.period // int(self.engine.cycles_per_epoch)
+            self._state = self.engine.run_until(
+                st, done_fn, n_epochs * per_engine, cache_key=cache_key,
+                donate=True)
+
+    # ---------------------------------------------------------- checkpoints
+    def save(self, path: str, step: int | None = None, *,
+             keep_last: int = 3) -> str:
+        """Checkpoint the session (engine state + host-port buffers) under
+        ``path`` via ``checkpoint.checkpointing`` (atomic tmp+rename).
+        Returns the written directory."""
+        from ..checkpoint import checkpointing
+
+        st = self._require_state()
+        if step is None:
+            step = self.cycle
+        meta = {
+            "engine_kind": self.kind,
+            "cycle": self.cycle,
+            "ports": {
+                "tx": {
+                    n: {"sent": p.sent,
+                        "pending": [np.asarray(r).tolist()
+                                    for r in p._pending]}
+                    for n, p in self._tx_ports.items()
+                },
+                "rx": {n: {"received": p.received}
+                       for n, p in self._rx_ports.items()},
+            },
+        }
+        return checkpointing.save(path, step, st, meta=meta,
+                                  keep_last=keep_last)
+
+    def load(self, path: str, step: int | None = None) -> "Simulation":
+        """Restore a checkpoint into this session; the current state is the
+        template, so call ``reset`` first.  On a CUDA state the leaves are
+        copied into the live state's own tensors: their addresses stay,
+        and an until-loop the engine captured for this state replays
+        after the load instead of capturing again."""
+        from ..checkpoint import checkpointing
+
+        template = self._require_state()
+        tree, meta = checkpointing.restore(path, template, step)
+        if meta.get("engine_kind") not in (None, self.kind):
+            raise ValueError(
+                f"checkpoint was saved from engine "
+                f"{meta['engine_kind']!r}, this session is {self.kind!r}"
+            )
+        if self.device.type == "cuda":
+            for dst, src in zip(tree_leaves(template), tree_leaves(tree)):
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(src)
+        else:
+            self._state = tree
+        for n, rec in meta.get("ports", {}).get("tx", {}).items():
+            port = self.tx(n)
+            port.sent = int(rec.get("sent", 0))
+            port._pending = collections.deque(
+                np.asarray(r) for r in rec.get("pending", [])
+            )
+        for n, rec in meta.get("ports", {}).get("rx", {}).items():
+            self.rx(n).received = int(rec.get("received", 0))
+        return self
+
+    # ------------------------------------------------------ deprecation shims
+    # The pre-session surface: explicit engine-state threading.  Each shim
+    # warns, delegates to the engine, and poisons a donated input so stale
+    # reuse raises DonatedStateError.
+    def _shim(self, old: str, new: str) -> None:
+        warnings.warn(
+            f"Simulation.{old} is the legacy engine-state-threading surface;"
+            f" use {new} (see DESIGN.md §4 migration notes)",
+            DeprecationWarning, stacklevel=3,
+        )
+
+    def init(self, *args, **kw):
+        self._shim("init(...)", "reset(key)")
+        return self.engine.init(*args, **kw)
+
+    def run_epochs(self, state, n_epochs, **kw):
+        self._shim("run_epochs(state, n)", "run(epochs=n)")
+        out = self.engine.run_epochs(state, n_epochs, **kw)
+        if kw.get("donate", True):
+            _poison_input(state, out, "run_epochs")
+        return out
+
+    def run_cycles(self, state, n_cycles):
+        self._shim("run_cycles(state, n)", "run(cycles=n)")
+        out = self.engine.run_cycles(state, n_cycles)
+        _poison_input(state, out, "run_cycles")  # run_cycles always donates
+        return out
+
+    def run_until(self, state, done_fn, max_epochs, **kw):
+        self._shim("run_until(state, ...)", "run(until=...)")
+        out = self.engine.run_until(state, done_fn, max_epochs, **kw)
+        if kw.get("donate", True):
+            _poison_input(state, out, "run_until")
+        return out
+
+    def run_until_done(self, state, max_epochs, **kw):
+        self._shim("run_until_done(state, ...)", "run(until=...)")
+        out = self.engine.run_until_done(state, max_epochs, **kw)
+        if kw.get("donate", True):
+            _poison_input(state, out, "run_until_done")
+        return out
+
+    def push_external(self, state, name, payload):
+        self._shim("push_external(state, ...)", "tx(name).send(...)")
+        return self.engine.host_push(state, name, payload)
+
+    def pop_external(self, state, name):
+        self._shim("pop_external(state, ...)", "rx(name).recv()")
+        return self.engine.host_pop(state, name)
+
+    def run(self, *args, **kw):
+        """``run(cycles=... | epochs=... | until=...)`` — see
+        ``_session_run``.  Also accepts the legacy ``run(state, n_cycles)``
+        call shape of the single engine as a deprecation shim (which
+        donates nothing: ``NetworkSim.run`` returns a new state)."""
+        if args and not isinstance(args[0], (int, np.integer)):
+            self._shim("run(state, n)", "run(cycles=n)")
+            return self.engine.run(*args, **kw)
+        if args:
+            kw.setdefault("cycles", int(args[0]))
+        return self._session_run(**kw)
+
+    def __getattr__(self, name: str):
+        # Anything the facade does not define delegates to the engine
+        # (group_state, gather_group, graph, result, ...).
+        if name.startswith("__") or name == "engine":
+            raise AttributeError(name)
+        return getattr(self.engine, name)
 
     def __repr__(self):
         st = "reset" if self._state is not None else "unreset"

@@ -1,4 +1,20 @@
-"""Observability of the port: the process-global metrics registry."""
-from .registry import REGISTRY, MetricsRegistry
+"""Flight recorder of the port (``repro.obs`` without the procs engine's
+``telemetry`` ring and ``drift``, which wait for that engine).
 
-__all__ = ["REGISTRY", "MetricsRegistry"]
+  * ``registry`` — process-global metrics registry (counters / gauges /
+    histograms under stable dotted names; near-zero-cost when disabled);
+  * ``trace`` — bounded structured trace buffers (span / instant events)
+    exported as Chrome/Perfetto ``trace.json``, driven by
+    ``Simulation.trace(path)`` or the ``REPRO_TRACE`` env knob;
+  * ``schema`` — the ONE validated ``Simulation.stats()`` schema every
+    engine shares, plus the Perfetto trace-format validator (CLI:
+    ``python -m repro_torch.obs.schema trace.json``);
+  * ``report`` — ``python -m repro_torch.obs.report trace.json``: top
+    stalls, straggler ranking, per-phase breakdown from a trace file.
+"""
+from . import registry, schema, trace  # noqa: F401
+from .registry import REGISTRY, MetricsRegistry  # noqa: F401
+from .trace import TraceRecorder  # noqa: F401
+
+__all__ = ["REGISTRY", "MetricsRegistry", "TraceRecorder", "registry", "schema",
+           "trace"]

@@ -54,7 +54,10 @@ def test_scan_sees_the_package():
             "recurrent.py", "model.py", "config.py", "registry.py",
             "recurrentgemma_2b.py", "xlstm_125m.py", "serve.py", "pipestage.py",
             "torch_wafer_scale.py", "torch_systolic_matmul.py",
-            "torch_heterogeneous_soc.py"} <= names
+            "torch_heterogeneous_soc.py", "session.py", "trace.py", "schema.py",
+            "report.py", "checkpointing.py", "perfmodel.py",
+            "torch_quickstart.py"} <= names
+    assert {"obs", "checkpoint", "core"} <= {p.parent.name for p in PORT_FILES}
     assert {"flash_attention.cu", "rglru_scan.cu", "slstm_scan.cu"} <= {
         p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
     assert _forbidden("jax.numpy") and _forbidden("repro.core")

@@ -330,8 +330,9 @@ def test_donate_false_keeps_input(config):
 
 
 def test_run_until_signatures_match_jax():
-    """``run_until`` of both engines and ``Simulation.run`` take the JAX
-    package's parameters, ``cache_key`` included, with its defaults."""
+    """``run_until`` of both engines and ``Simulation.run`` (and the
+    ``_session_run`` behind it) take the JAX package's parameters,
+    ``cache_key`` included, with its defaults."""
     def params(fn):
         return [(p.name, p.kind, p.default)
                 for p in inspect.signature(fn).parameters.values()]
@@ -339,7 +340,8 @@ def test_run_until_signatures_match_jax():
     assert params(TGraphEngine.run_until) == params(JGraphEngine.run_until)
     assert params(TFused.run_until) == params(JFused.run_until)
     assert params(TReg.run_until) == params(JReg.run_until)
-    assert params(Simulation.run)[1:] == params(JSimulation._session_run)[1:]
+    assert params(Simulation._session_run)[1:] == params(JSimulation._session_run)[1:]
+    assert params(Simulation.run) == params(JSimulation.run)
 
 
 @pytest.mark.parametrize("config", ["grid-2x2", "register"])
