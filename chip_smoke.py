@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-Six paths, each through the entry points a user calls:
+Seven paths, each through the entry points a user calls:
 
   * the paper's wafer-scale torus: 1024x1024 ``ManycoreCell`` cores running
     a two-phase ring allreduce, partitioned over 2 pods x 2x2 granules with
@@ -29,6 +29,13 @@ Six paths, each through the entry points a user calls:
     ``obs`` schema and report, on all four engines and on wafer-1M through
     ``FusedEngine`` (``granule_step``; the register engine's
     ``systolic_step`` in the small scenario);
+  * real mesh axes (``core/mesh.py``): the wafer with its pods real (two
+    shards of four batched granules) and on the reference example's
+    all-real (pod, gr, gc) mesh (eight shards), and the systolic matmul on
+    a 2x2 mesh of the register engine, every shard its own state on the
+    one card, launching its own ``granule_step`` / ``systolic_step``
+    programs, the exchange classes that leave a shard copied between
+    shards;
   * LM serving: ``launch.serve.serve`` -> ``models.model.init_params`` ->
     ``prefill`` -> greedy ``decode_step``s for recurrentgemma-2b,
     xlstm-125m and the dense llama3.2-1b at their published widths (batch
@@ -176,21 +183,58 @@ Phases (a failing phase raises, and the script exits non-zero):
              fresh one, both resuming to a final state bit-identical to the
              uninterrupted run; one warm ``run(epochs=8)`` traced, its
              ``epoch_window`` span beside the untraced window's wall.
-  12. lm-small  each LM kernel against its plain version on the card, at
+  12. mesh-small  real mesh axes, every shard on the card: the 32x32 wafer
+             (tiers (2, 4), capacity 4) on ``GraphEngine`` and
+             ``FusedEngine`` with the pods real and the granules batched
+             and on the all-real (pod, gr, gc) mesh, overlap off and on,
+             every leaf after each of 10 epochs bit-exact against the same
+             sharded engine run on the CPU and, but for the credit columns
+             (a real axis colors its classes per shift), against the
+             one-shard run; ``run_until`` in the device loop stopping where
+             the host loop and the one-shard run stop, state bit for bit;
+             the register engine at (M, R, C) = (33, 18, 24), K = 3 and 62,
+             on a 2x2 mesh, every epoch bit-exact against its CPU run and
+             the 2x2 tiles stacked on one shard, one ``systolic_step``
+             launch a shard an epoch, Y bit-identical to one tile's; a
+             session of four SystolicCell relays whose host ports home on
+             shards 3 and 1 (graph and fused): traffic and probes
+             bit-identical to the CPU and the one-shard session, a save,
+             an in-place load (addresses kept) whose resume equals a CPU
+             session's resume from the same checkpoint.
+  13. mesh-full  at full width, nothing cut, every shard on the card:
+             the all-batch wafer-1M run (the ``full`` cell) as the
+             yardstick; wafer-1M-pods (``FusedEngine``, pods real, 2
+             shards of 4 granules: the inner tier resident in each shard's
+             ``granule_step`` program, the pod tier across shards) and
+             wafer-1M-mesh8 (the example's (2, 2, 2) mesh, 8 shards of one
+             granule, every exchange across shards) through
+             ``Simulation.run(until=allreduce_done)`` with the launch count
+             set to 0 just before and read just after, stopping at cycle
+             4,352 (68 epochs) with every block state bit-identical to the
+             all-batch run's; ``compare_loops`` (the host loop's stop and
+             state, a warm replay, both loops traced over 8 epochs: idle
+             share, device events a cycle); the warm seconds beside the
+             all-batch run's, the bytes that cross shards an epoch
+             (``shard_move_bytes``) and their device time in a traced
+             eager epoch (``trace_shard_moves``); systolic-1M-mesh
+             (``RegisterGridEngine``, 2x2 mesh, 4 shards of 512x512): Y
+             bit-identical to one tile's, the stop the 2x2-stacked tiles',
+             ``compare_loops``, launches, bytes.
+  14. lm-small  each LM kernel against its plain version on the card, at
              the CPU tests' shapes (``kernels.lm_checks``): attention MHA,
              GQA and MQA, causal with and without a window, f32 (the
              CUDA-core route) and bf16 (the tensor-core route; each case
              must take its dtype's route), D up to 256, T not a multiple
              of 128; the RG-LRU with and without h0; the sLSTM at T = 1
              and longer, R in f32 and bf16, up to xlstm-125m's width.
-  13. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
+  15. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
              size, on the card); then llama3.2-1b at full width (16 layers,
              d 2048, GQA 32/8, head dim 64) through ``serve`` with the flash
              launch count set to 0 just before and read just after (16,
              all on the tensor-core route), every logit finite, and the
              first layer's flash call held against the plain version at the
              run's own inputs.
-  14. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
+  16. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
              attention layers, window 2048): ``serve`` with every kernel's
              launch count set to 0 just before and read just after (8
              ``flash_attention``, all on the tensor-core route, 18
@@ -209,7 +253,7 @@ Phases (a failing phase raises, and the script exits non-zero):
              call also without); last, a warm prefill and one decode step
              under ``torch.profiler``: device idle share and time by kernel
              (``rglru_clear``: the RG-LRU's status clear).
-  15. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
+  17. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
              prefill, 6 in each of the 15 decode steps), at the first
              decode step's inputs and the first prefill's: the cluster
              plan, the T = 1 call by CUDA events and the wrapper's host
@@ -225,6 +269,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --phases build,fsys-small,fsys-full
     python3 chip_smoke.py --phases build,graph-small,graph-full
     python3 chip_smoke.py --phases build,session-small,session-full
+    python3 chip_smoke.py --phases build,mesh-small,mesh-full
     python3 chip_smoke.py --phases build,lm-small,lm-dense,rg-full,xl-full
 """
 from __future__ import annotations
@@ -250,7 +295,7 @@ KERNELS = ("granule_step", "systolic_step", "flash_attention", "rglru_scan",
 RGLRU_SWEEP_VARIANTS = (64, 128, 512)
 PHASES = ("build", "small", "full", "sys-small", "sys-full", "fsys-small",
           "fsys-full", "graph-small", "graph-full", "session-small", "session-full",
-          "lm-small", "lm-dense", "rg-full", "xl-full")
+          "mesh-small", "mesh-full", "lm-small", "lm-dense", "rg-full", "xl-full")
 
 
 def log(msg: str) -> None:
@@ -2526,6 +2571,519 @@ def phase_session_full() -> None:
     log(f"[session-full] granule_step launches in the phase: {granule_step.launches}")
 
 
+# ---------------------------------------------------------------- the mesh
+#: mesh-full's cells: the wafer's pods real (two shards of four batched
+#: granules) and the reference example's all-real (pod, gr, gc) mesh
+#: (eight shards of one granule), every shard on the one card
+#: where the [full] wafer's allreduce stops: (cycle, epoch)
+WAFER_STOP = (4352, 68)
+MESH_LAYOUTS = {
+    "pods": dict(mesh={"pod": 2}, batch_axes={"gr": 2, "gc": 2}),
+    "mesh8": dict(mesh={"pod": 2, "gr": 2, "gc": 2}),
+}
+
+
+def mesh_wafer(R, C, k_outer, k_inner, capacity, overlap, device, engine, layout):
+    """The wafer torus on 2 pods x 2x2 granules with real mesh axes
+    (``MESH_LAYOUTS[layout]``), on ``engine`` (a class), every shard on
+    ``device``; the partition and the values are ``wafer_engine``'s."""
+    import numpy as np
+    from repro_torch.core import ChannelGraph, tiered_grid_partition
+    from repro_torch.hw.manycore import ManycoreCell, make_core_params
+
+    values = ((np.arange(R * C, dtype=np.int64) % 8) + 1).astype(np.float32)
+    graph = ChannelGraph.torus(
+        ManycoreCell(R, C), R, C, params=make_core_params(values.reshape(R, C)),
+        capacity=capacity,
+    )
+    return engine(
+        graph, tiered_grid_partition(R, C, [(2, 1), (2, 2)]),
+        tiers=[(("pod",), k_outer), (("gr", "gc"), k_inner)], overlap=overlap,
+        device=device, **MESH_LAYOUTS[layout],
+    ), values
+
+
+def compare_global(a, b, skip=()) -> float:
+    """Every leaf of two engine states in the global layout (a sharded
+    state gathered by ``core.mesh.unshard``; tables excluded, floats
+    compared as bits, the leading granule dims flattened), but those whose
+    path starts with one of ``skip``; raises unless every one is
+    bit-exact, else returns the max |diff| over the float leaves."""
+    import torch
+    from repro_torch.core.mesh import unshard
+    from repro_torch.core.struct import tree_paths
+
+    def leaves(st):
+        st = unshard(st)
+        st = st.replace(tables=None) if hasattr(st, "tables") else st
+        return {k: v.cpu() for k, v in tree_paths(st) if not k.startswith(tuple(skip))}
+
+    def bits(x):  # granule dims flattened: (pod, g) and (pod, gr, gc) agree
+        x = x.reshape(-1)
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    la, lb = leaves(a), leaves(b)
+    if sorted(la) != sorted(lb):
+        raise AssertionError(f"leaf sets differ: {sorted(set(la) ^ set(lb))}")
+    bad = [k for k, x in la.items() if x.numel() != lb[k].numel()
+           or x.dtype != lb[k].dtype or not torch.equal(bits(x), bits(lb[k]))]
+    if bad:
+        raise AssertionError(f"states differ in {bad}")
+    # equal NaNs give NaN, equal infinities NaN: both count as 0
+    return max([float((x.reshape(-1) - lb[k].reshape(-1)).abs().nan_to_num(0.0).max())
+                for k, x in la.items() if x.is_floating_point() and x.numel()] or [0.0])
+
+
+def shard_move_bytes(eng) -> int:
+    """Bytes an epoch copies between shards: for every exchange class's
+    (src, dst) shard pair, its column window of the slab (B rows x cmax x
+    E_t x W f32) and of the counts forward and of the credits back, once a
+    tier-t exchange, ``cycles_per_epoch / periods[t]`` times an epoch."""
+    total = 0
+    for t, classes in enumerate(eng.tier_classes):
+        n_x = eng.cycles_per_epoch // eng.periods[t]
+        for cl in classes:
+            per_row = cl.cmax * (eng.E_tiers[t] * eng.W * 4 + 4 + 4)
+            total += n_x * len(cl.shard_perm()) * eng.B * per_row
+    return total
+
+
+def trace_shard_moves(eng, state, method: str = "_shard_move") -> dict:
+    """One eager epoch of ``state`` (which it advances) under
+    ``torch.profiler``, each call of the engine's cross-shard move
+    (``_shard_move``; the register engine's ``_pshift``) in a
+    ``record_function`` range: the device seconds of the kernels the
+    moves launched (their copies, zero fills and landing buffers, read as
+    the ranges' device time), the number of moves, and the epoch's device
+    busy seconds and wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    move = getattr(eng, method)
+
+    def traced(*args, **kw):
+        with record_function("shard_move"):
+            return move(*args, **kw)
+
+    setattr(eng, method, traced)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.run_epochs(state, 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        delattr(eng, method)
+    events = prof.events()
+    # the host-side ranges: their device time is the kernels launched in
+    # them (the trace's device-side copy of a range spans its gaps too)
+    ranges = [e for e in events if e.name == "shard_move" and e.device_type == DeviceType.CPU]
+    device = [(e.time_range.start, e.time_range.end) for e in events
+              if e.device_type == DeviceType.CUDA]
+    busy, reach = 0.0, float("-inf")
+    for lo, hi in sorted(device):
+        if hi > reach:
+            busy += hi - max(lo, reach)
+            reach = hi
+    moves_us = sum(getattr(e, "device_time_total", 0.0) for e in ranges)
+    return {"moves": len(ranges), "moves_s": moves_us * 1e-6,
+            "busy_s": busy * 1e-6 if device else None, "wall": wall}
+
+
+def moves_line(tm: dict) -> str:
+    """``trace_shard_moves``'s numbers, in words."""
+    moves = (f"{tm['moves_s'] * 1e3:.4f} ms" if tm["moves_s"] else
+             "not measured (the trace gives its ranges no device time)")
+    busy = "not measured" if tm["busy_s"] is None else f"{tm['busy_s'] * 1e3:.4f} ms"
+    return (f"their device time in a traced eager epoch {moves} (the copies, zero "
+            f"fills and landing buffers), of the epoch's {busy} device busy and "
+            f"{tm['wall'] * 1e3:.2f} ms wall")
+
+
+def phase_mesh_small() -> None:
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import Simulation
+    from repro_torch.core.distributed import GraphEngine
+    from repro_torch.core.fastgrid import RegisterGridEngine
+    from repro_torch.core.fused import FusedEngine
+    from repro_torch.core.mesh import ShardedState
+    from repro_torch.hw.manycore import allreduce_done
+    from repro_torch.kernels import granule_step
+    from repro_torch.kernels import systolic_step as sk
+
+    done = lambda s: allreduce_done(s.block_states[0], s.tables.active[0])  # noqa: E731
+    for Engine in (GraphEngine, FusedEngine):
+        kind = Engine.engine_kind
+        for layout in MESH_LAYOUTS:
+            for overlap in (False, True):
+                eng, _ = mesh_wafer(32, 32, 2, 4, 4, overlap, "cuda", Engine, layout)
+                one, _ = wafer_engine(32, 32, 2, 4, 4, overlap, "cuda", Engine)
+                gpu = eng.init(0)
+                if not isinstance(gpu, ShardedState) or len(gpu.shards) != eng.G_real:
+                    raise AssertionError(f"[mesh-small] {layout}: not {eng.G_real} shards")
+                cpu, ref = to_cpu(gpu), one.init(0)
+                calls = 0
+                for ep in range(10):
+                    n0 = granule_step.launches
+                    gpu = eng.run_epochs(gpu, 1)
+                    calls += granule_step.launches - n0
+                    cpu, ref = eng.run_epochs(cpu, 1), one.run_epochs(ref, 1)
+                    torch.cuda.synchronize()
+                    compare_global(gpu, cpu)
+                    # the class layout differs (the coloring is refined per
+                    # real shift), so the credit columns do
+                    compare_global(gpu, ref, skip=("credits",))
+                dev = eng.run_until(eng.init(0), done, 1000)
+                host = eng.run_until_host(eng.init(0), done, 1000)
+                ref = one.run_until(one.init(0), done, 1000)
+                torch.cuda.synchronize()
+                compare_global(dev, host)
+                compare_global(dev, ref, skip=("credits",))
+                cyc = int(dev.cycle.reshape(-1)[0])
+                log(f"[mesh-small] {kind} 32x32 {layout} ({eng.G_real} shards of "
+                    f"{eng.B} granules on the card) overlap={overlap}: 10 epochs "
+                    f"bit-exact against the CPU run of the same engine and, but "
+                    f"for the credit columns, the one-shard run"
+                    + (f" (granule_step calls an epoch: {calls / 10:g})" if kind == "fused" else "")
+                    + f"; run_until stops at cycle {cyc} as the host loop and the "
+                    f"one-shard run do, state bit-identical")
+
+    # the register engine: one systolic_step launch a shard an epoch
+    M, R, C = 33, 18, 24
+    A, B = sys_operands(M, R, C, SYS_SEED)
+    for K in (3, 62):
+        mesh = RegisterGridEngine.from_graph(sys_graph(A, B), K=K, mesh={"gr": 2, "gc": 2})
+        stacked = RegisterGridEngine.from_graph(sys_graph(A, B), K=K, tiles=(2, 2))
+        gpu = mesh.init()
+        cpu, ref = to_cpu(gpu), stacked.init()
+        calls, epochs = 0, 0
+        while not mesh.host_done(gpu, mesh.y_done):
+            n0 = sk.launches
+            gpu = mesh.run_epochs(gpu, 1)
+            calls += sk.launches - n0
+            cpu, ref = mesh.run_epochs(cpu, 1), stacked.run_epochs(ref, 1)
+            epochs += 1
+            torch.cuda.synchronize()
+            compare_global(gpu, cpu)
+            compare_global(gpu, ref)
+        if calls != 4 * epochs:
+            raise AssertionError(f"[mesh-small] {calls} systolic_step launches for "
+                                 f"{epochs} epochs of 4 shards")
+        one = RegisterGridEngine.from_graph(sys_graph(A, B), K=K)
+        y1 = one.result(one.run_until_done(one.init(), 10_000))
+        dev = mesh.run_until_done(mesh.init(), 10_000)
+        if not np.array_equal(mesh.result(dev).view(np.uint32), y1.view(np.uint32)):
+            raise AssertionError("[mesh-small] the mesh's Y differs from one tile's")
+        compare_global(dev, gpu)
+        log(f"[mesh-small] register (M, R, C)={(M, R, C)} K={K} on a 2x2 mesh (4 shards "
+            f"on the card): {epochs} epochs bit-exact against its CPU run and the "
+            f"2x2-stacked one-shard run, one launch a shard an epoch; run_until's Y "
+            f"bit-identical to one tile's")
+
+    # a session whose host ports home on shards 3 and 1: traffic, probe,
+    # save and load in place, against the CPU and the one-shard session
+    part = {"r0": 3, "r1": 2, "r2": 2, "r3": 1}
+    tmp = tempfile.mkdtemp()
+    try:
+        for kind in ("graph", "fused"):
+            traces = {}
+            for where, dev, kw in (("card", "cuda", {"mesh": {"gx": 4}}),
+                                   ("cpu", "cpu", {"mesh": {"gx": 4}}),
+                                   ("one-shard", "cuda", {"batch_axes": {"gx": 4}})):
+                sim = relay_network(4, 4).build(engine=kind, partition=part, K=1,
+                                                device=dev, **kw)
+                sim.reset(0)
+                traces[where] = (io_script(sim), sim.cycle,
+                                 [int(sim.probe(i).fires) for i in range(4)])
+                if where == "card":
+                    homes = (sim.engine._ext_at(sim.engine.graph.ext_in, "tx")[0],
+                             sim.engine._ext_at(sim.engine.graph.ext_out, "rx")[0])
+                    ck = sim.save(os.path.join(tmp, kind))
+                    sim.run(cycles=5)
+                    ptrs = [x.data_ptr() for x in to_leaves(sim.state)]
+                    sim.load(os.path.join(tmp, kind))
+                    if [x.data_ptr() for x in to_leaves(sim.state)] != ptrs:
+                        raise AssertionError("[mesh-small] load moved the shards' tensors")
+                    back = io_script(sim)
+                    # the same checkpoint resumed by a CPU session
+                    twin = relay_network(4, 4).build(engine=kind, partition=part, K=1,
+                                                     device="cpu", **kw).reset(0)
+                    twin.load(os.path.join(tmp, kind))
+                    if not all(np.array_equal(x, y) for x, y in zip(back, io_script(twin))):
+                        raise AssertionError("[mesh-small] the resumed traffic differs "
+                                             "from the CPU session's resume")
+            for where in ("cpu", "one-shard"):
+                a, b = traces["card"], traces[where]
+                if a[1:] != b[1:] or len(a[0]) != len(b[0]) or not all(
+                        np.array_equal(x, y) for x, y in zip(a[0], b[0])):
+                    raise AssertionError(f"[mesh-small] {kind} session traffic differs "
+                                         f"from the {where} run")
+            log(f"[mesh-small] {kind} session on 4 shards, ext-in homed on shard "
+                f"{homes[0]}, ext-out on {homes[1]}: {sum(len(t) for t in traces['card'][0])} "
+                f"packets back, traffic and probes bit-identical to the CPU and the "
+                f"one-shard session; saved ({os.path.basename(ck)}), loaded in place "
+                f"(addresses kept), {sum(len(t) for t in back)} more packets, as a CPU "
+                f"session resumed from the same checkpoint gives them")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def to_leaves(state) -> list:
+    import torch
+    from repro_torch.core.struct import tree_leaves
+
+    return [x for x in tree_leaves(state) if isinstance(x, torch.Tensor)]
+
+
+def phase_mesh_full(kernels: list) -> None:
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.manycore import CONFIG
+    from repro_torch.core import Simulation, device_loop
+    from repro_torch.core.fastgrid import RegisterGridEngine
+    from repro_torch.core.fused import FusedEngine
+    from repro_torch.hw.manycore import allreduce_done
+    from repro_torch.kernels import granule_step
+    from repro_torch.kernels import systolic_step as sk
+    from repro_torch.kernels.fused_checks import clone
+
+    R, C = CONFIG.grid_rows, CONFIG.grid_cols
+    done = lambda s: allreduce_done(s.block_states[0], s.tables.active[0])  # noqa: E731
+    launches, errs = {}, {}
+
+    def until(sim, start, tag):
+        """The first run from ``start`` (capture included) and a warm
+        replay; returns (first counters, warm seconds, warm counters)."""
+        assign(sim.state, start)
+        torch.cuda.synchronize()
+        c0 = until_counts()
+        t0 = time.perf_counter()
+        sim.run(until=done, max_epochs=1000)
+        sim.block_until_ready()
+        first = dict(counts_since(c0), wall=time.perf_counter() - t0)
+        assign(sim.state, start)
+        torch.cuda.synchronize()
+        c1 = until_counts()
+        t1 = time.perf_counter()
+        sim.run(until=done, max_epochs=1000)
+        sim.block_until_ready()
+        warm_s, warm = time.perf_counter() - t1, counts_since(c1)
+        if warm["captures"]:
+            raise AssertionError(f"[{tag}] a warm replay captured anew")
+        return first, warm_s, warm
+
+    # the all-batch [full] cell in this call: the yardstick of both layouts
+    one, values = wafer_engine(R, C, CONFIG.k_outer, CONFIG.k_inner,
+                               CONFIG.queue_capacity, False, "cuda")
+    sim1 = Simulation(one).reset(0)
+    start1 = clone(sim1.state)
+    _, warm1_s, warm1 = until(sim1, start1, "mesh-full/all-batch")
+    blocks1 = one.gather_group(sim1.state, 0)
+    cycles1 = sim1.cycle
+    log(f"[mesh-full] all-batch wafer-1M (1 shard of 8 granules): stops at cycle "
+        f"{cycles1}; warm until-run {warm1_s:.4f} s, "
+        f"{R * C * cycles1 / warm1_s:.4e} core-cycles/s, {int(warm1['syncs'])} host syncs")
+    sim1._state = None
+    del start1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for layout, cell in (("pods", "wafer-1M-pods"), ("mesh8", "wafer-1M-mesh8")):
+        t0 = time.perf_counter()
+        eng, _ = mesh_wafer(R, C, CONFIG.k_outer, CONFIG.k_inner, CONFIG.queue_capacity,
+                            False, "cuda", FusedEngine, layout)
+        sim = Simulation(eng).reset(0)
+        sim.block_until_ready()
+        setup_s = time.perf_counter() - t0
+        start = clone(sim.state)
+        log(f"[{cell}] {R}x{C} torus, {eng.G_real} shards of {eng.B} granules on the "
+            f"card, tiers K={eng.K_tiers}, resident from tier {eng._resident_from} "
+            f"(program {eng._resident_program(eng._resident_from)}); set-up {setup_s:.2f} s")
+
+        # one epoch from the start: every shard's granule_step programs at
+        # this cell's shapes against their plain versions, as the same
+        # sharded engine runs them on a CPU copy
+        t2 = time.perf_counter()
+        plain = eng.run_epochs(to_cpu(start), 1)
+        plain_s = time.perf_counter() - t2
+        kern = eng.run_epochs(clone(start), 1)
+        torch.cuda.synchronize()
+        errs[cell] = compare_global(kern, plain)
+        del plain, kern
+        log(f"[{cell}] one epoch bit-exact against the same sharded engine on a CPU "
+            f"copy, each shard's programs in their plain version (max |diff| "
+            f"{errs[cell]}; the CPU copy took {plain_s:.2f} s)")
+
+        # the main path: Simulation.run(until=allreduce_done) in the device
+        # loop, the launch count set to 0 just before and read just after
+        granule_step.launches = 0
+        c0 = until_counts()
+        t1 = time.perf_counter()
+        sim.run(until=done, max_epochs=1000)
+        sim.block_until_ready()
+        first = dict(counts_since(c0), wall=time.perf_counter() - t1)
+        launches[cell] = granule_step.launches
+        blocks = eng.gather_group(sim.state, 0)
+        if (sim.cycle, sim.epoch) != WAFER_STOP:
+            raise AssertionError(f"[{cell}] stopped at cycle {sim.cycle} ({sim.epoch} "
+                                 f"epochs), not {WAFER_STOP}")
+        if not np.array_equal(blocks.total, np.full_like(blocks.total, TOTAL)):
+            raise AssertionError(f"[{cell}] allreduce totals {np.unique(blocks.total)[:5]}")
+        for name in blocks1._data_fields:
+            if not np.array_equal(getattr(blocks, name).view(np.uint8),
+                                  getattr(blocks1, name).view(np.uint8)):
+                raise AssertionError(f"[{cell}] block state {name} differs from the "
+                                     "all-batch run's")
+        calls = launches[cell] / (device_loop.SPAN * (first["spans"] + first["captures"]))
+        if calls != int(calls) or calls < eng.G_real:
+            raise AssertionError(f"[{cell}] {launches[cell]} granule_step calls are not a "
+                                 "whole number a gated epoch, one or more a shard")
+        log(f"[{cell}] converged: every one of {R * C} cores holds {TOTAL:.0f} after "
+            f"{sim.cycle} cycles ({sim.epoch} epochs), every block state bit-identical "
+            f"to the all-batch run's; granule_step calls {launches[cell]} ({calls:g} an "
+            f"epoch: one program a shard a tier-{eng._resident_from} round), capture "
+            f"{first['capture_s']:.4f} s")
+
+        # the device loop against the host loop, a warm replay, and both
+        # loops traced over an 8-epoch window
+        cycles = sim.cycle
+        out = compare_loops(cell, eng, sim, start, done, 1000, first, clone,
+                            compare_global, R * C, trace_epochs=8)
+        tr = out["dev_trace"]
+        log(f"[{cell}] warm until-run {out['warm_s']:.4f} s against the all-batch "
+            f"run's {warm1_s:.4f} s in this call ({out['warm_s'] / warm1_s:.2f}x); "
+            f"{R * C * cycles / out['warm_s']:.4e} core-cycles/s; "
+            f"{int(out['warm_syncs'])} host syncs; capture {first['capture_s']:.4f} s; "
+            f"device events a cycle in the traced window "
+            f"{tr['events'] / out['traced_cycles']:.1f}; idle share {idle_share(tr)}")
+
+        # the bytes that cross shards an epoch, and their device time in a
+        # traced epoch
+        assign(sim.state, start)
+        nbytes = shard_move_bytes(eng)
+        tm = trace_shard_moves(eng, sim.state)
+        log(f"[{cell}] cross-shard copies: {nbytes} B an epoch "
+            f"({nbytes / (CONFIG.k_inner * CONFIG.k_outer):.0f} B a cycle) in "
+            f"{tm['moves']} moves; {moves_line(tm)}")
+        sim._state = None
+        del start, sim, eng, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # systolic-1M-mesh: the [sys-full] array on four shards of 512x512
+    M, K = SYS_M, SYS_K
+    A, B = sys_operands(M, SYS_R, SYS_C, SYS_SEED)
+    graph = sys_graph(A, B)
+    ref = RegisterGridEngine.from_graph(graph, K=K)
+    sim1 = Simulation(ref).reset()
+    start1, done1 = clone(sim1.state), ref.y_done
+    t0 = time.perf_counter()
+    sim1.run(until=done1, max_epochs=1000)
+    sim1.block_until_ready()
+    first1_s = time.perf_counter() - t0
+    Y1, cycles1 = ref.result(sim1.state).copy(), sim1.cycle
+    assign(sim1.state, start1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sim1.run(until=done1, max_epochs=1000)
+    sim1.block_until_ready()
+    warm1_s = time.perf_counter() - t1
+    sim1._state = None
+    del start1
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 2x2 tiles stacked on one shard: the mesh's dynamics (tiles exchange
+    # once an epoch), so its stop cycle
+    stacked = Simulation(RegisterGridEngine.from_graph(graph, K=K, tiles=(2, 2))).reset()
+    stacked.run(until=stacked.engine.y_done, max_epochs=1000)
+    Y4, cycles4 = stacked.engine.result(stacked.state), stacked.cycle
+    stacked._state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not np.array_equal(Y4.view(np.uint32), Y1.view(np.uint32)):
+        raise AssertionError("[systolic-1M-mesh] 2x2 stacked tiles' Y is not one tile's")
+    log(f"[systolic-1M-mesh] one tile: Y after {cycles1} cycles, first run "
+        f"{first1_s:.4f} s (a capture included), warm {warm1_s:.4f} s; 2x2 tiles "
+        f"stacked on one shard: the same Y after {cycles4} cycles")
+
+    eng = RegisterGridEngine.from_graph(graph, K=K, mesh={"gr": 2, "gc": 2})
+    sim = Simulation(eng).reset()
+    sim.block_until_ready()
+    start, done = clone(sim.state), eng.y_done  # one predicate object: one cache key
+
+    # one mid-run epoch (every cell busy): each shard's systolic_step launch
+    # at its 512x512 tile against systolic_step_ref on a copy on the card,
+    # the cross-shard shifts included
+    n0 = (2 * M + SYS_R + SYS_C) // (2 * K)
+    mid = eng.run_epochs(clone(start), n0)
+    t2 = time.perf_counter()
+    plain = eng._join(eng._epoch_all(eng._shards(clone(mid)), step=sk.systolic_step_ref))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t2
+    kern = eng._join(eng._epoch_all(eng._shards(mid)))
+    torch.cuda.synchronize()
+    errs["systolic-1M-mesh"] = compare_global(kern, plain)
+    del mid, plain, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[systolic-1M-mesh] epoch {n0 + 1} (cycles {n0 * K}-{(n0 + 1) * K}) of the "
+        f"4 shards bit-exact against systolic_step_ref on a copy on the card (max "
+        f"|diff| {errs['systolic-1M-mesh']}; the plain epoch took {plain_s:.2f} s)")
+
+    sk.launches = 0
+    c0 = until_counts()
+    t3 = time.perf_counter()
+    sim.run(until=done, max_epochs=1000)
+    sim.block_until_ready()
+    first = dict(counts_since(c0), wall=time.perf_counter() - t3)
+    launches["systolic-1M-mesh"] = sk.launches
+    Y = eng.result(sim.state)
+    if sim.cycle != cycles4 or not np.array_equal(Y.view(np.uint32), Y1.view(np.uint32)):
+        raise AssertionError(f"[systolic-1M-mesh] Y after {sim.cycle} cycles is not the "
+                             f"one-tile Y, or the stacked tiles' stop ({cycles4})")
+    check_loop_counts("systolic-1M-mesh", "systolic_step", sk.launches // 4, first,
+                      sim.epoch)
+    cycles, epochs = sim.cycle, sim.epoch
+    out = compare_loops("systolic-1M-mesh", eng, sim, start, done, 1000, first,
+                        clone, compare_global, SYS_R * SYS_C, ("systolic_window",))
+    tr = out["dev_trace"]
+    Tr, Tc = eng.Tr, eng.Tc
+    # east and south: the slab (K f32) and count forward, the credit back,
+    # between the two pairs of neighbouring shards along each axis
+    nbytes = 2 * (Tr * K * 4 + Tr * 4 + Tr * 4) + 2 * (Tc * K * 4 + Tc * 4 + Tc * 4)
+    assign(sim.state, start)
+    tm = trace_shard_moves(eng, sim.state, "_pshift")
+    log(f"[systolic-1M-mesh] 4 shards of {Tr}x{Tc}: Y bit-identical to one tile's "
+        f"after {cycles} cycles ({epochs} epochs); systolic_step launches "
+        f"{launches['systolic-1M-mesh']} (4 an epoch); warm until-run "
+        f"{out['warm_s']:.4f} s against one tile's {warm1_s:.4f} s in this call "
+        f"({out['warm_s'] / warm1_s:.2f}x); "
+        f"{SYS_R * SYS_C * cycles / out['warm_s']:.4e} core-cycles/s; "
+        f"{int(out['warm_syncs'])} host syncs; capture {first['capture_s']:.4f} s; "
+        f"device events a cycle {tr['events'] / out['traced_cycles']:.2f}; idle share "
+        f"{idle_share(tr)}; cross-shard copies {nbytes} B an epoch in "
+        f"{tm['moves']} shifts; {moves_line(tm)}")
+    sim._state = None
+    del start
+    gc.collect()
+    torch.cuda.empty_cache()
+    for cell, n in launches.items():
+        log(f"[mesh-full] {cell}: {n} launches on the main path, max |diff| against "
+            f"the plain version {errs[cell]}")
+    for row, cells in ((kernels[0], ("wafer-1M-pods", "wafer-1M-mesh8")),
+                       (kernels[1], ("systolic-1M-mesh",))):
+        row["mesh_launches"] = {c: launches[c] for c in cells}
+        row["mesh_max_abs_err"] = {c: errs[c] for c in cells}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2577,6 +3135,8 @@ def main(argv=None) -> int:
                        ("graph-full", phase_graph_full),
                        ("session-small", phase_session_small),
                        ("session-full", phase_session_full),
+                       ("mesh-small", phase_mesh_small),
+                       ("mesh-full", lambda: phase_mesh_full(kernels)),
                        ("lm-small", phase_lm_small),
                        ("lm-dense", phase_lm_dense),
                        ("rg-full", lambda: phase_rg_full(lm_kernels)),
@@ -2585,7 +3145,8 @@ def main(argv=None) -> int:
             t1 = time.perf_counter()
             run()
             log(f"[{phase}] phase took {time.perf_counter() - t1:.1f} s")
-    print(json.dumps({"kernels": [k for k in kernels + lm_kernels if k]}), flush=True)
+    print(json.dumps({"kernels": [k for k in kernels + lm_kernels if k.get("name")]}),
+          flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

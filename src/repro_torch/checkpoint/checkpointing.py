@@ -139,6 +139,14 @@ def restore(path: str, template: Tree, step: int | None = None) -> tuple[Tree, d
     final = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(final, "tree.json")) as f:
         spec = json.load(f)
+    if "paths" not in spec:
+        # the JAX package writes its treedef string instead: nothing ties
+        # its leaf order to this template, so its leaves are not read
+        raise ValueError(
+            f"{final} has no leaf paths (a checkpoint of the JAX package, "
+            f"which records {'a treedef' if 'treedef' in spec else 'none'}); "
+            "carry a reference state across with repro_torch.convert's "
+            "*_state_from_numpy instead")
     t_paths = [p for p, _ in tree_paths(template)]
     if len(t_paths) != spec["n_leaves"]:
         raise ValueError(

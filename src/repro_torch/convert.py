@@ -24,7 +24,11 @@ nothing of JAX:
     mesh.
 
 That lets a test start both packages from one state, including mid-run.
-Tables are not state: the target engine builds its own.
+Tables are not state: the target engine builds its own.  A sharded
+engine's state (``core.mesh.ShardedState``) crosses in the global layout
+too — the reference's arrays with their leading real mesh dims, as
+``jax.device_get`` of a placed state gives them — gathered from the
+shards by ``*_to_numpy`` and placed onto them by ``*_from_numpy``.
 
 For the LM stack the weights are the model's parameters, and the state is
 the decode state:
@@ -49,6 +53,7 @@ from .core.device import resolve_device, to_tensor
 from .core.distributed import GraphEngine, GraphState
 from .core.fastgrid import RegGridState, RegisterGridEngine
 from .core.fused import FusedEngine, FusedState
+from .core.mesh import unshard
 from .core.struct import tree_map_with_path, tree_paths
 
 
@@ -137,10 +142,11 @@ def _from_numpy(template, arrays: Mapping[str, np.ndarray], device):
 
 
 def _state_to_numpy(state) -> dict[str, np.ndarray]:
-    """Every leaf of an engine state except its tables, by dotted path."""
+    """Every leaf of an engine state except its tables, by dotted path, in
+    the global layout."""
     return {
         path: leaf.detach().cpu().numpy()
-        for path, leaf in tree_paths(state.replace(tables=None))
+        for path, leaf in tree_paths(unshard(state).replace(tables=None))
     }
 
 
@@ -158,9 +164,9 @@ def fused_state_from_numpy(engine: FusedEngine,
     ``group_params`` are the ``init`` overrides of an engine whose IR holds
     no params (the JAX ``FusedEngine.grid``'s stacked cell params, from
     ``params_from_numpy``)."""
-    template = engine.init(0, group_params=group_params)
+    template = unshard(engine.init(0, group_params=group_params))
     body = _from_numpy(template.replace(tables=None), arrays, engine.device)
-    return body.replace(tables=template.tables)
+    return engine.place(body.replace(tables=template.tables))
 
 
 def graph_state_to_numpy(state: GraphState) -> dict[str, np.ndarray]:
@@ -176,14 +182,16 @@ def graph_state_from_numpy(engine: GraphEngine,
     device.  Every leaf must be present with the engine's shape; extra keys
     are ignored.  ``group_params`` are the ``init`` overrides of an engine
     whose IR holds no params (a ``GridEngine``'s flat cell params)."""
-    template = GraphEngine.init(engine, 0, group_params=group_params)
+    template = unshard(GraphEngine.init(engine, 0, group_params=group_params))
     body = _from_numpy(template.replace(tables=None), arrays, engine.device)
-    return body.replace(tables=template.tables)
+    return engine.place(body.replace(tables=template.tables))
 
 
 def register_state_to_numpy(state: RegGridState) -> dict[str, np.ndarray]:
-    """Every leaf of a register engine state, by dotted path."""
-    return {path: leaf.detach().cpu().numpy() for path, leaf in tree_paths(state)}
+    """Every leaf of a register engine state, by dotted path, in the
+    global layout."""
+    return {path: leaf.detach().cpu().numpy()
+            for path, leaf in tree_paths(unshard(state))}
 
 
 def register_state_from_numpy(engine: RegisterGridEngine,
@@ -193,4 +201,5 @@ def register_state_from_numpy(engine: RegisterGridEngine,
     Every leaf must be present with the engine's shape."""
     zeros = (np.zeros((engine.M, engine.R), np.float32),
              np.zeros((engine.R, engine.C), np.float32))
-    return _from_numpy(engine.init(*zeros), arrays, engine.device)
+    return engine.place(_from_numpy(unshard(engine.init(*zeros)), arrays,
+                                    engine.device))

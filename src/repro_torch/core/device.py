@@ -11,15 +11,41 @@ import numpy as np
 import torch
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda"):
     """``torch.device`` for ``device``; raises when CUDA is asked for and
-    absent."""
+    absent.  A sequence of devices (a sharded engine's, one a shard) gives
+    a tuple of ``torch.device``, each checked: a ``cuda`` entry must name a
+    card that is present, and none moves to the CPU quietly."""
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("an empty device sequence")
+        return tuple(resolve_device(d) for d in device)
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU"
+            )
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"{dev} is not present: this machine has "
+                f"{torch.cuda.device_count()} CUDA device(s)"
+            )
     return dev
+
+
+def shard_devices(device, n: int) -> tuple:
+    """The device of each of ``n`` shards, row-major over the real mesh
+    axes: one device holds every shard, a sequence names one device a
+    shard (the counterpart of a ``jax.sharding.Mesh``'s devices)."""
+    devs = resolve_device(device)
+    if isinstance(devs, torch.device):
+        if devs.type == "cuda" and devs.index is None:
+            devs = torch.device("cuda", torch.cuda.current_device())
+        return (devs,) * n
+    if len(devs) != n:
+        raise ValueError(f"{len(devs)} devices given for {n} shards")
+    return devs
 
 
 def to_tensor(x, device) -> torch.Tensor:

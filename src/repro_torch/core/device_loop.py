@@ -33,6 +33,13 @@ loop, the predicate read back on the host before every epoch.
 A predicate must return a tensor on the state's device without reading it
 back (no ``bool()``, ``.item()`` or ``.cpu()``), as a JAX predicate must
 be traceable; one that reads back raises :class:`HostSyncError`.
+
+A sharded state (``core.mesh.ShardedState``) runs here as one state: the
+engine's ``enter`` gives every shard's view, its epoch runs them all and
+its ``done`` combines their predicates on the device.  With every shard on
+one card, one capture holds every shard's work and the cache keys on every
+shard's addresses; a CUDA graph holds one card's work, so the engines
+refuse shards on several cards before they get here.
 """
 from __future__ import annotations
 
@@ -69,8 +76,10 @@ def _tensors(tree) -> list:
     return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
 
 
-def _flag(done, device: torch.device) -> torch.Tensor:
-    """The predicate's result as a () bool tensor: it holds everywhere."""
+def flag(done, device: torch.device) -> torch.Tensor:
+    """The predicate's result as a () bool tensor on ``device``: it holds
+    everywhere.  Raises :class:`HostSyncError` where a CUDA state's
+    predicate gave anything but a tensor on its device."""
     if isinstance(done, torch.Tensor) and done.device == device:
         return done.all()
     if device.type == "cpu":
@@ -109,8 +118,8 @@ def _span_fn(enter, leave, epoch, done, max_epochs: int, span: int, device):
 
     def check(c, stop, ran):
         with _no_sync(device):
-            flag = _flag(done(c), device)
-        stop.logical_or_(flag | (ran >= max_epochs))
+            flag_ = flag(done(c), device)
+        stop.logical_or_(flag_ | (ran >= max_epochs))
 
     def run(state, stop, ran):
         c = enter(state)
@@ -274,4 +283,4 @@ def host_loop(state: Tree, *, epoch: Callable, done: Callable,
     return leave(c)
 
 
-__all__ = ["CACHE_SIZE", "HostSyncError", "SPAN", "host_loop", "run_until"]
+__all__ = ["CACHE_SIZE", "HostSyncError", "SPAN", "flag", "host_loop", "run_until"]

@@ -16,11 +16,16 @@ tier's cadence:
                                | synchronized every K_outer * K_inner cycles
     ready/valid backpressure   | credit return on the reverse gather
 
-This port runs every granule on one device, stacked on one batch axis
-(``batch_axes``): a tier exchange is then a slab gather between batch
-rows (``bat_fwd``/``bat_rev``), with no collective.  A real (non-batch)
-granule axis larger than 1 needs the multi-GPU exchange and raises
-``NotImplementedError``.
+Granule axes are *real* (sized by ``mesh``: one shard a position) or
+*batch* (``batch_axes``: stacked on one leading axis of a shard).  The
+granules of one shard exchange by a slab gather between batch rows
+(``bat_fwd``/``bat_rev``).  Real axes are sharded by a single controller
+(``core.mesh``): one process holds every shard, each on its own device,
+and the part of an exchange class that leaves a shard (its ``real_perm``,
+the reference's ``ppermute``) is a copy from the sender shard's slab
+columns into the receiver's, zeros where a shard has no sender.  Shards
+that share a card still run one epoch each, with the same copies between
+them that several cards would make.
 
 ``GraphEngine`` is the queue interpreter: every channel a granule touches
 is a ring of ``capacity`` slots, and one cycle (:func:`granule_local_cycle`)
@@ -41,8 +46,9 @@ subclasses it for the fast path.
 
 Routes (one per directed granule pair of a tier) are edge-colored into
 **exchange classes** by the König construction, exactly as in the JAX
-package, so the per-tier slot layout — and with it every credit and slab
-table — is the same on both.
+package — refined per real-axis shift when the engine is batched — so the
+per-tier slot layout, and with it every credit and slab table, is the
+same on both.
 
 Credit protocol (DESIGN.md §3): the receiver of a boundary channel
 advertises ``free(ingress)`` after each fill; the sender drains at most
@@ -63,11 +69,12 @@ from . import queue as qmod
 from ..kernels import granule_step
 from ..obs.registry import REGISTRY
 from .block import Block
-from .device import group_generator, resolve_device, to_tensor
+from .device import group_generator, resolve_device, shard_devices, to_tensor
 from .graph import (
     NULL_RX, NULL_TX, ChannelGraph, PartitionTree, Tier, grid_partition,
     lower_partition, normalize_partition, normalize_tiers,
 )
+from .mesh import Placement, ShardedState, all_shards, gather, require_one_card
 from .struct import tensor_dataclass, tree_map
 
 Tree = Any
@@ -81,9 +88,11 @@ class GraphTables:
     *local* queue ids (0 = NULL_RX sentinel, 1 = NULL_TX sentinel).  The
     exchange tables are concatenated per *tier*: slot ``j`` of tier ``t``
     belongs to the class whose ``[col0, col0+cmax)`` column window holds
-    ``j``.  ``bat_fwd[t][..., bd, col] = bs``: the receiver's batch row
-    ``bd`` reads slab row ``bs``; ``bat_rev`` is the credit return's
-    inverse.  Both are empty when the engine runs unbatched.
+    ``j``.  ``bat_fwd[t][real..., bd, col] = bs``: on the *source* shard,
+    send-buffer row ``bd`` (the receiver's batch row) reads slab row
+    ``bs``; ``bat_rev[t][real..., bs, col] = bd``: on the *dest* shard, the
+    credit-return row ``bs`` reads credit row ``bd``.  Both are empty when
+    the engine runs unbatched.
     """
 
     rx_idx: tuple  # per group: (dev..., n_slot, n_in) int32
@@ -119,6 +128,16 @@ class _ExchangeClass:
     tier: int = 0  # which tier's exchange runs this class
     depth: int = 1  # slab depth E = min(period, cap-1)
     col0: int = 0  # column offset in the tier slab
+    # batched engines only: the deduped ((src_shard, dst_shard), ...) map
+    # over the real mesh axes; () = the whole class moves between batch
+    # rows of one shard.  None on unbatched engines (where ``perm`` itself
+    # is the shard map).
+    real_perm: tuple | None = None
+
+    def shard_perm(self) -> tuple:
+        """The ((src_shard, dst_shard), ...) copies this class makes
+        between shards; () when it stays on each shard."""
+        return self.perm if self.real_perm is None else self.real_perm
 
 
 def _perfect_matching(adj: np.ndarray) -> np.ndarray:
@@ -233,6 +252,29 @@ def merge_compatible_classes(
     return [sorted(m.items()) for m in merged]
 
 
+def route_shift_groups(
+    pairs: Sequence[tuple[int, int]], dev_shape: Sequence[int]
+) -> dict[tuple[int, ...], list[tuple[int, int]]]:
+    """Group directed granule routes by their coordinate *shift*.
+
+    The shift of a route is the plain per-axis difference of the granule
+    coordinates (no modular wrap), so a 2-D torus tiling has exactly four:
+    east, east-wrap, south, south-wrap.  A fixed shift is injective, hence
+    every group is a partial permutation — one copy a shard.  The
+    distinct-shift count therefore bounds the class count any
+    decomposition needs from above; König (max in/out degree) is always
+    <= it, which ``GraphEngine`` asserts at build time.
+    """
+    dev_shape = tuple(int(s) for s in dev_shape)
+    groups: dict[tuple[int, ...], list[tuple[int, int]]] = {}
+    for s, d in pairs:
+        sc = np.unravel_index(int(s), dev_shape)
+        dc = np.unravel_index(int(d), dev_shape)
+        shift = tuple(int(b) - int(a) for a, b in zip(sc, dc))
+        groups.setdefault(shift, []).append((int(s), int(d)))
+    return groups
+
+
 def granule_local_cycle(groups, n_local: int, W: int, dtype, st, *,
                         stop: torch.Tensor | None = None,
                         inplace: bool = False):
@@ -319,17 +361,16 @@ def granule_local_cycle(groups, n_local: int, W: int, dtype, st, *,
                       cycle=st.cycle + step)
 
 
-class GraphEngine:
-    """Epoch-batched queue interpreter of a partitioned ChannelGraph, with
-    every granule on one device.
+class GraphEngine(Placement):
+    """Epoch-batched queue interpreter of a partitioned ChannelGraph.
 
     graph:     the channel-graph IR (``Network.graph()`` or a builder).
     partition: a ``graph.PartitionTree`` (carries both the instance ->
                granule map and the tier structure), or any flat instance ->
                granule map ``normalize_partition`` accepts.
-    mesh:      ``None`` or ``{axis name: size}`` of the real device axes.
-               The port runs on one device, so a real axis larger than 1
-               raises ``NotImplementedError``; axes of size 1 may be named.
+    mesh:      ``None`` or ``{axis name: size}`` of the real device axes:
+               the granules along them are shards, each a state of its
+               own on its own device (``core.mesh``).
     K:         innermost sync rate (ignored when ``partition`` is a
                PartitionTree or ``tiers`` is given).
     tiers:     per-tier spec (``graph.Tier`` or ``(axes, K)`` pairs,
@@ -342,8 +383,11 @@ class GraphEngine:
     overlap:   split every tier exchange into issue and commit halves
                ("auto"/bool, ``REPRO_OVERLAP`` env override).  Bit-identical
                to the serial schedule by construction.
-    device:    where state and tables live; ``"cuda"`` by default, and
-               raises without CUDA (pass ``device="cpu"``).
+    device:    where state and tables live: one device for every shard,
+               or a sequence of ``prod(real_shape)`` devices, one a shard
+               in row-major order of the real axes (the devices of a
+               ``jax.sharding.Mesh``).  ``"cuda"`` by default (the current
+               card), and raises without CUDA (pass ``device="cpu"``).
     """
 
     engine_kind = "graph"
@@ -360,7 +404,6 @@ class GraphEngine:
         overlap: Any = "auto",
         device="cuda",
     ):
-        self.device = resolve_device(device)
         self.graph = graph
         self.mesh = dict(mesh) if mesh is not None else {}
         self.overlap = granule_step.resolve_overlap(overlap)
@@ -448,12 +491,12 @@ class GraphEngine:
         self.real_axes = tuple(ptree.axes[: self.nd_real])
         self.real_shape = ptree.dev_shape[: self.nd_real]
         self.batch_shape = ptree.dev_shape[self.nd_real:]
-        if int(np.prod(self.real_shape)) > 1:
-            raise NotImplementedError(
-                f"real granule axes {dict(zip(self.real_axes, self.real_shape))} "
-                "span several devices; the multi-GPU tier exchange is ROADMAP "
-                "Queue 1 item 8 — stack the granules on batch_axes instead"
-            )
+        self.G_real = int(np.prod(self.real_shape)) if self.real_shape else 1
+        self._sharded = self.G_real > 1
+        self.devices = shard_devices(device, self.G_real)
+        # one shard: its device (a sequence of one is unwrapped)
+        self.device = (self.devices[0] if self._sharded or isinstance(device, (list, tuple))
+                       else resolve_device(device))
         self.B = int(np.prod(self.batch_shape)) if self.batch_shape else 1
         self.G = ptree.n_granules
         self.K_tiers = ptree.K_tiers
@@ -473,7 +516,9 @@ class GraphEngine:
         # the card's path updates the state it owns in place
         self._inplace = self.device.type == "cuda"
         self._until_cache: dict = {}  # run_until's captured spans
+        self._n_row = None  # queue rows a granule (the exchange's row stride)
         self._build_tables()
+        self._n_row = self.n_local
 
     # ------------------------------------------------- host-side lowering
     def _build_tables(self) -> None:
@@ -484,8 +529,11 @@ class GraphEngine:
         method adds the per-tier exchange-class coloring and the
         concatenated slab tables of the batched exchange: per tier, König
         classes, then compatible-permutation merging, then concatenation
-        into ONE (G, S_t) slot table, with the batch-row gathers
-        ``bat_fwd``/``bat_rev`` of the on-device slab move.
+        into ONE (G, S_t) slot table.  Under ``batch_axes`` the coloring is
+        refined per *real-axis* shift first: every route of a class then
+        shares one injective shard->shard map (its ``real_perm``, () when
+        the class never leaves a shard), and the within-shard move becomes
+        the ``bat_fwd``/``bat_rev`` batch-row gathers.
         """
         g, G, B = self.graph, self.G, self.B
         low = lower_partition(g, self.ptree)
@@ -507,11 +555,36 @@ class GraphEngine:
         self.tier_classes: list[list[_ExchangeClass]] = []
         send_i, send_m, recv_i, recv_m = [], [], [], []
         bat_f, bat_r = [], []
+        G_real = self.G_real
         for t in range(len(self.tiers)):
-            # every granule sits on one device, so every route has the zero
-            # real-axis shift: one coloring per tier
             pairs = sorted((s, d) for tt, s, d in routes if tt == t)
-            colors = merge_compatible_classes(edge_color_routes(pairs, G))
+            if self._batched:
+                shift_groups: dict[tuple, list[tuple[int, int]]] = {}
+                for s, d in pairs:
+                    sc = np.unravel_index(s, self.dev_shape)
+                    dc = np.unravel_index(d, self.dev_shape)
+                    shift = tuple(
+                        int(dc[i]) - int(sc[i]) for i in range(self.nd_real)
+                    )
+                    shift_groups.setdefault(shift, []).append((s, d))
+                colors, rperms = [], []
+                for shift in sorted(shift_groups):
+                    for color in merge_compatible_classes(
+                        edge_color_routes(shift_groups[shift], G)
+                    ):
+                        colors.append(color)
+                        rperms.append(tuple(sorted(
+                            {(s // B, d // B) for s, d in color}
+                        )) if any(shift) else ())
+            else:
+                colors = merge_compatible_classes(edge_color_routes(pairs, G))
+                rperms = [None] * len(colors)
+                if pairs:
+                    # a fixed shift is one permutation, so no decomposition
+                    # needs more classes than distinct shifts (König: fewer)
+                    n_shifts = len(route_shift_groups(pairs, self.dev_shape))
+                    if len(colors) > n_shifts:
+                        raise AssertionError((len(colors), n_shifts))
             cmaxes = [
                 max(len(routes[(t, s, d)]) for s, d in color) for color in colors
             ]
@@ -520,11 +593,11 @@ class GraphEngine:
             sm = np.zeros((G, S_t), bool)
             ri = np.zeros((G, S_t), np.int64)
             rm = np.zeros((G, S_t), bool)
-            bf = np.zeros((1, B, S_t), np.int64)
-            br = np.zeros((1, B, S_t), np.int64)
+            bf = np.zeros((G_real, B, S_t), np.int64)
+            br = np.zeros((G_real, B, S_t), np.int64)
             cls_t: list[_ExchangeClass] = []
             col0 = 0
-            for color, cmax in zip(colors, cmaxes):
+            for color, cmax, rperm in zip(colors, cmaxes, rperms):
                 for s, d in color:
                     chans = routes[(t, s, d)]
                     k = len(chans)
@@ -532,11 +605,13 @@ class GraphEngine:
                     sm[s, col0:col0 + k] = True
                     ri[d, col0:col0 + k] = rx_local[chans]
                     rm[d, col0:col0 + k] = True
-                    bf[0, d, col0:col0 + k] = s
-                    br[0, s, col0:col0 + k] = d
+                    rs, bs = divmod(s, B)
+                    rd, bd = divmod(d, B)
+                    bf[rs, bd, col0:col0 + k] = bs
+                    br[rd, bs, col0:col0 + k] = bd
                 cls = _ExchangeClass(
                     perm=tuple(color), cmax=cmax, tier=t,
-                    depth=self.E_tiers[t], col0=col0,
+                    depth=self.E_tiers[t], col0=col0, real_perm=rperm,
                 )
                 cls_t.append(cls)
                 self.classes.append(cls)
@@ -550,7 +625,8 @@ class GraphEngine:
             bat_r.append(br.astype(np.int32))
         self._send_idx, self._send_mask = send_i, send_m
         self._recv_idx, self._recv_mask = recv_i, recv_m
-        self._bat_fwd, self._bat_rev = bat_f, bat_r
+        self._bat_fwd = bat_f if self._batched else []
+        self._bat_rev = bat_r if self._batched else []
 
         # Trailing tiers with NO exchange classes never synchronize, so
         # their loop nesting is pure overhead: tiers >= _fold_from run as
@@ -568,7 +644,7 @@ class GraphEngine:
         )
 
     def _dev_bat(self, arr: np.ndarray) -> torch.Tensor:
-        """(1, B, S_t) batch-gather table -> (dev_shape..., S_t)."""
+        """(G_real, B, S_t) batch-gather table -> (dev_shape..., S_t)."""
         return torch.as_tensor(
             np.ascontiguousarray(
                 arr.reshape(self.real_shape + self.batch_shape + arr.shape[2:])
@@ -577,6 +653,7 @@ class GraphEngine:
         )
 
     def tables(self) -> GraphTables:
+        """Every granule's tables, in the global layout."""
         return GraphTables(
             rx_idx=tuple(self._dev(t) for t in self._rx_tables),
             tx_idx=tuple(self._dev(t) for t in self._tx_tables),
@@ -585,10 +662,8 @@ class GraphEngine:
             send_mask=tuple(self._dev(t) for t in self._send_mask),
             recv_idx=tuple(self._dev(t) for t in self._recv_idx),
             recv_mask=tuple(self._dev(t) for t in self._recv_mask),
-            bat_fwd=(tuple(self._dev_bat(t) for t in self._bat_fwd)
-                     if self._batched else ()),
-            bat_rev=(tuple(self._dev_bat(t) for t in self._bat_rev)
-                     if self._batched else ()),
+            bat_fwd=tuple(self._dev_bat(t) for t in self._bat_fwd),
+            bat_rev=tuple(self._dev_bat(t) for t in self._bat_rev),
         )
 
     # ------------------------------------------------------------------ init
@@ -620,14 +695,15 @@ class GraphEngine:
         """Initial state.  ``key`` is an int seed or a ``torch.Generator``
         for block ``init_state``; ``group_params[gi]`` overrides the IR's
         stacked per-member params of group ``gi`` (leading dim =
-        n_members, in global instantiation order)."""
+        n_members, in global instantiation order).  A sharded engine's
+        state is a ``core.mesh.ShardedState`` (see :meth:`place`)."""
         states = self._init_block_states(key, group_params)
         lead = self.dev_shape
         q = qmod.make_queues(self.n_local, self.W, self.capacity, self.dtype,
                              self.device)
         zi = lambda shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
                                        device=self.device)
-        return GraphState(
+        return self.place(GraphState(
             queues=tree_map(lambda x: x.expand(lead + x.shape).contiguous(), q),
             block_states=tuple(states),
             credits=tuple(
@@ -638,13 +714,28 @@ class GraphEngine:
             cycle=zi(lead),
             epoch=zi(lead),
             tables=self.tables(),
-        )
+        ))
+
+    # ------------------------------------------------- shards and placement
+    def _gathered(self, state, pick: Callable) -> Tree:
+        """``pick(shard state)`` of every shard in the global layout, as
+        numpy leaves."""
+        parts = [pick(s) for s in self._shards(state)]
+        tree = gather(parts, self.real_shape) if self._sharded else parts[0]
+        return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+    def _locate(self, didx: Sequence[int]) -> tuple[int, tuple]:
+        """(shard, index within the shard's leading dims) of the granule at
+        ``dev_shape`` coordinates ``didx``."""
+        nd = self.nd_real
+        r = int(np.ravel_multi_index(tuple(didx[:nd]), self.real_shape)) if nd else 0
+        return r, (0,) * nd + tuple(int(i) for i in didx[nd:])
 
     # -------------------------------------------------- local <-> global view
     def _local_view(self, state: GraphState) -> GraphState:
-        """Per-device view of the state: the batch axes flattened into ONE
-        leading (B,) axis, or, unbatched, the (1,)*nd device dims stripped
-        (views, no copies)."""
+        """Per-shard view of a shard's state: the batch axes flattened into
+        ONE leading (B,) axis, or, unbatched, the (1,)*nd device dims
+        stripped (views, no copies)."""
         nd = self.nd
         if not self._batched:
             return tree_map(lambda x: x.reshape(x.shape[nd:]), state)
@@ -655,6 +746,14 @@ class GraphEngine:
             return tree_map(lambda x: x.reshape((1,) * self.nd + x.shape), local)
         lead = (1,) * self.nd_real + self.batch_shape
         return tree_map(lambda x: x.reshape(lead + x.shape[1:]), local)
+
+    def _enter(self, state) -> tuple:
+        """The local view of every shard: what an epoch runs on."""
+        return tuple(self._local_view(s) for s in self._shards(state))
+
+    def _leave(self, locs: Sequence):
+        """The engine state holding the local views ``locs``."""
+        return self._join([self._global_view(x) for x in locs])
 
     def _fold(self, local: GraphState) -> GraphState:
         """An epoch's working form of the local view: the B granules folded
@@ -685,26 +784,50 @@ class GraphEngine:
                        work.replace(tables=None), local.replace(tables=None))
         return out.replace(tables=local.tables)
 
-    # ------------------------------------------------ batched tier exchange
+    # ------------------------------------------------------- tier exchange
     @staticmethod
-    def _bat_move(x: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
-        """The on-device slab move: ``out[b, s] = x[tbl[b, s], s]``.
-
-        Every class of a tier moves between batch rows of one device, and
-        the classes' column windows tile the tier's slot axis, so the whole
-        tier is one gather.  Garbage rows from the 0-padded tables are
-        killed by the send/recv masks downstream."""
+    def _bat_move(x: torch.Tensor, tbl: torch.Tensor | None) -> torch.Tensor:
+        """The within-shard slab move: ``out[b, s] = x[tbl[b, s], s]``, the
+        whole tier in one gather (the classes' column windows tile the
+        slot axis); ``tbl`` None (unbatched: one granule a shard) moves
+        nothing.  Garbage rows from the 0-padded tables are killed by the
+        send/recv masks downstream."""
+        if tbl is None:
+            return x
         idx = tbl.long().reshape(tbl.shape + (1,) * (x.ndim - 2)).expand_as(x)
         return torch.gather(x, 0, idx)
 
-    def _exchange_issue_batched(self, q: qmod.QueueArray, n_row: int,
-                                credits: tuple, t: int, tb, stop=None,
-                                inplace: bool = False):
-        """Tier t's exchange, issue half, on queue rows flattened as
+    def _shard_move(self, xs: Sequence[torch.Tensor], t: int,
+                    rev: bool = False) -> tuple:
+        """The part of tier ``t``'s exchange that leaves a shard (the
+        reference's ``ppermute``): for every class with a shard map
+        (``real_perm``, or ``perm`` unbatched), each shard's column window
+        of ``xs`` (per-shard ``(B, S_t, ...)`` tensors, through the local
+        gather already) becomes a copy of its sender's — device-local on
+        one card, a peer copy across cards — and zeros where no shard
+        sends.  ``rev`` runs the reverse maps (the credit return).  The
+        columns of classes that stay on a shard keep the local gather."""
+        moves = [cl for cl in self.tier_classes[t] if cl.shard_perm()]
+        if not moves:
+            return tuple(xs)
+        out = [x.clone() for x in xs]
+        for cl in moves:
+            cols = slice(cl.col0, cl.col0 + cl.cmax)
+            src_of = {(s if rev else d): (d if rev else s) for s, d in cl.shard_perm()}
+            for r, o in enumerate(out):
+                if r in src_of:
+                    o[:, cols].copy_(xs[src_of[r]][:, cols])
+                else:
+                    o[:, cols].zero_()
+        return tuple(out)
+
+    def _drain_tier(self, q: qmod.QueueArray, n_row: int, credits: tuple,
+                    t: int, tb, stop=None, inplace: bool = False):
+        """Tier t's issue on one shard, on queue rows flattened as
         ``b * n_row + k``: credit-bounded ``stage_drain`` of every egress
-        row + the forward ``bat_fwd`` slab move.  Returns
-        ``(q, (slab_in, cnt_in))``; touches egress rows and reads this
-        tier's credits only.  Where ``stop`` is set nothing drains;
+        row, then the local ``bat_fwd`` gather.  Returns ``(q, slab, cnt)``
+        (``(B, S_t, E_t, W)``, ``(B, S_t)``); touches egress rows and reads
+        this tier's credits only.  Where ``stop`` is set nothing drains;
         ``inplace`` drains with ``stage_drain_``."""
         sidx, smask = tb.send_idx[t], tb.send_mask[t]  # (B, S_t)
         B, S = sidx.shape
@@ -717,22 +840,16 @@ class GraphEngine:
         q, slab, cnt = drain(
             q, (base + sidx).reshape(-1), self.E_tiers[t], limit=limit.reshape(-1)
         )
-        slab = slab.reshape((B, S) + slab.shape[1:])
-        cnt = cnt.reshape(B, S)
-        bfw = tb.bat_fwd[t]
-        slab_in = self._bat_move(slab, bfw)
-        cnt_in = torch.where(tb.recv_mask[t], self._bat_move(cnt, bfw),
-                             torch.zeros_like(cnt))
-        return q, (slab_in, cnt_in)
+        bfw = tb.bat_fwd[t] if tb.bat_fwd else None
+        return (q, self._bat_move(slab.reshape((B, S) + slab.shape[1:]), bfw),
+                self._bat_move(cnt.reshape(B, S), bfw))
 
-    def _exchange_commit_batched(self, q: qmod.QueueArray, n_row: int,
-                                 credits: tuple, t: int, tb, pending, stop=None,
-                                 inplace: bool = False):
-        """commit half: ``stage_fill`` of every ingress row + the
-        ``bat_rev`` credit return.  Returns ``(q, credits)``; touches
-        ingress rows and this tier's credits only.  Where ``stop`` is set
-        the credits stay (the slab is empty then); ``inplace`` fills with
-        ``stage_fill_``."""
+    def _fill_tier(self, q: qmod.QueueArray, n_row: int, t: int, tb, pending,
+                   inplace: bool = False):
+        """Tier t's commit on one shard: ``stage_fill`` of every ingress row
+        from the arrived ``(slab_in, cnt_in)``, then each receiver's fresh
+        credit (its free space) through the local ``bat_rev`` gather.
+        Returns ``(q, cred)``; touches ingress rows only."""
         slab_in, cnt_in = pending
         ridx, rmask = tb.recv_idx[t], tb.recv_mask[t]
         B, S = ridx.shape
@@ -745,10 +862,20 @@ class GraphEngine:
         free = qmod.free(q).reshape(B, n_row)
         cred = torch.where(rmask, torch.gather(free, 1, ridx.long()),
                            torch.zeros_like(ridx))
-        new = self._bat_move(cred, tb.bat_rev[t])
+        return q, self._bat_move(cred, tb.bat_rev[t] if tb.bat_rev else None)
+
+    @staticmethod
+    def _arrived(cnt: torch.Tensor, tb, t: int) -> torch.Tensor:
+        """The receiver's counts: zero where its recv mask is off."""
+        return torch.where(tb.recv_mask[t], cnt, torch.zeros_like(cnt))
+
+    @staticmethod
+    def _new_credits(credits: tuple, t: int, new: torch.Tensor, stop=None) -> tuple:
+        """``credits`` with tier t's replaced by ``new`` (kept where ``stop``
+        is set: the slab was empty then)."""
         if stop is not None:
             new = torch.where(stop, credits[t], new)
-        return q, credits[:t] + (new,) + credits[t + 1:]
+        return credits[:t] + (new,) + credits[t + 1:]
 
     # ----------------------------------------------------------- local cycle
     def _in_place(self, st: GraphState) -> bool:
@@ -759,61 +886,75 @@ class GraphEngine:
         return self._inplace and st.queues.buf.device.type == self.device.type
 
     def _local_cycle(self, st: GraphState, stop=None) -> GraphState:
-        """One cycle of every granule (the folded working state)."""
+        """One cycle of every granule of a shard (the folded working
+        state)."""
         return granule_local_cycle(self.graph.groups, self.n_local, self.W,
                                    self.dtype, st, stop=stop,
                                    inplace=self._in_place(st))
 
     # ---------------------------------------------------------------- epoch
-    def _exchange_issue(self, st: GraphState, t: int, stop=None):
-        """Tier t's exchange, issue half: drain every egress queue of the
-        tier (credit-bounded) into the slab and move it to its receivers'
-        rows.  Returns ``(st, pending)``, pending ``None`` when the tier
-        has no exchange classes."""
+    # The schedule below runs on ``sts``: the working state of every shard.
+    def _exchange_issue(self, sts: tuple, t: int, stop=None):
+        """Tier t's exchange, issue half: every shard drains its egress
+        queues (credit-bounded) into the slab, the slab moves to its
+        receivers — between batch rows, then between shards.  Returns
+        ``(sts, pending)``, pending a ``(slab_in, cnt_in)`` a shard, or
+        ``None`` when the tier has no exchange classes."""
         if not self.tier_classes[t]:
-            return st, None
-        q, pending = self._exchange_issue_batched(
-            st.queues, self.n_local, st.credits, t, st.tables, stop, self._in_place(st))
-        return st.replace(queues=q), pending
+            return sts, None
+        drained = [self._drain_tier(st.queues, self._n_row, st.credits, t,
+                                    st.tables, stop, self._in_place(st))
+                   for st in sts]
+        slabs = self._shard_move([d[1] for d in drained], t)
+        cnts = self._shard_move([d[2] for d in drained], t)
+        sts = tuple(st.replace(queues=d[0]) for st, d in zip(sts, drained))
+        return sts, tuple((s, self._arrived(c, st.tables, t))
+                          for st, s, c in zip(sts, slabs, cnts))
 
-    def _exchange_commit(self, st: GraphState, t: int, pending,
-                         stop=None) -> GraphState:
-        """Tier t's exchange, commit half: land the slab in the ingress
-        queues and return fresh credits to the senders."""
+    def _exchange_commit(self, sts: tuple, t: int, pending, stop=None) -> tuple:
+        """Tier t's exchange, commit half: every shard lands its slab in
+        the ingress queues, and fresh credits return to the senders on the
+        reverse maps."""
         if pending is None:
-            return st
-        q, credits = self._exchange_commit_batched(
-            st.queues, self.n_local, st.credits, t, st.tables, pending, stop,
-            self._in_place(st))
-        return st.replace(queues=q, credits=credits)
+            return sts
+        filled = [self._fill_tier(st.queues, self._n_row, t, st.tables, p,
+                                  self._in_place(st))
+                  for st, p in zip(sts, pending)]
+        creds = self._shard_move([f[1] for f in filled], t, rev=True)
+        return tuple(st.replace(queues=f[0],
+                                credits=self._new_credits(st.credits, t, c, stop))
+                     for st, f, c in zip(sts, filled, creds))
 
-    def _exchange_tier(self, st: GraphState, t: int, stop=None) -> GraphState:
+    def _exchange_tier(self, sts: tuple, t: int, stop=None) -> tuple:
         """Tier t's serial exchange: commit∘issue, so the serial and
         overlapped schedules share every operation and differ only in
         order."""
-        st, pending = self._exchange_issue(st, t, stop)
-        return self._exchange_commit(st, t, pending, stop)
+        sts, pending = self._exchange_issue(sts, t, stop)
+        return self._exchange_commit(sts, t, pending, stop)
 
-    def _inner_cycles(self, st: GraphState, K: int, stop=None) -> GraphState:
-        """K granule-local cycles — the innermost hot loop."""
-        for _ in range(K):
-            st = self._local_cycle(st, stop)
-        return st
+    def _inner_cycles(self, sts: tuple, K: int, stop=None, program=None) -> tuple:
+        """K granule-local cycles of every shard — the innermost hot loop."""
+        out = []
+        for st in sts:
+            for _ in range(K):
+                st = self._local_cycle(st, stop)
+            out.append(st)
+        return tuple(out)
 
-    def _tier_round(self, st: GraphState, t: int, stop=None) -> GraphState:
+    def _tier_round(self, sts: tuple, t: int, stop=None, program=None) -> tuple:
         """One round of tier t: K_t sub-rounds (granule-local cycles at the
         innermost tier, tier-(t+1) rounds otherwise), then tier t's
         exchange — so tier t synchronizes every ``periods[t]`` cycles.
         Exchange-free trailing tiers are folded into one contiguous
         inner-cycle block."""
         if t >= self._fold_from:
-            return self._inner_cycles(st, int(np.prod(self.K_tiers[t:])), stop)
+            return self._inner_cycles(sts, int(np.prod(self.K_tiers[t:])), stop, program)
         if t == len(self.tiers) - 1:
-            st = self._inner_cycles(st, self.tiers[t].K, stop)
+            sts = self._inner_cycles(sts, self.tiers[t].K, stop, program)
         else:
             for _ in range(self.tiers[t].K):
-                st = self._tier_round(st, t + 1, stop)
-        return self._exchange_tier(st, t, stop)
+                sts = self._tier_round(sts, t + 1, stop, program)
+        return self._exchange_tier(sts, t, stop)
 
     # --------------------------------------------- overlapped (split) schedule
     def _pend_tiers(self, t0: int) -> tuple:
@@ -825,18 +966,17 @@ class GraphEngine:
         inner = () if t0 == len(self.tiers) - 1 else self._pend_tiers(t0 + 1)
         return inner + ((t0,) if self.tier_classes[t0] else ())
 
-    def _commit_chain(self, st: GraphState, t0: int, pend: tuple,
-                      stop=None) -> GraphState:
+    def _commit_chain(self, sts: tuple, t0: int, pend: tuple, stop=None) -> tuple:
         """Commit a pending chain from ``_round_split(·, t0)`` — fills land
         deepest tier first, the order the serial schedule fills them."""
         tiers = self._pend_tiers(t0)
         if len(tiers) != len(pend):
             raise AssertionError((tiers, len(pend)))
         for t, p in zip(tiers, pend):
-            st = self._exchange_commit(st, t, p, stop)
-        return st
+            sts = self._exchange_commit(sts, t, p, stop)
+        return sts
 
-    def _round_split(self, st: GraphState, t: int, stop=None):
+    def _round_split(self, sts: tuple, t: int, stop=None, program=None):
         """One round of tier t with *split* exchanges: every sub-round's
         boundary transfers are issued at its window's end and committed at
         the start of the next sub-round's window; the final boundary's
@@ -846,44 +986,51 @@ class GraphEngine:
         only, those sets are disjoint across tiers, and every commit still
         precedes the first cycle that could consume what it fills."""
         if t >= self._fold_from:
-            return self._inner_cycles(st, int(np.prod(self.K_tiers[t:])), stop), ()
+            return self._inner_cycles(sts, int(np.prod(self.K_tiers[t:])), stop,
+                                      program), ()
         if t == len(self.tiers) - 1:
-            st, pend = self._inner_cycles(st, self.tiers[t].K, stop), ()
+            sts, pend = self._inner_cycles(sts, self.tiers[t].K, stop, program), ()
         else:
-            st, pend = self._round_split(st, t + 1, stop)
+            sts, pend = self._round_split(sts, t + 1, stop, program)
             for _ in range(self.tiers[t].K - 1):
-                st = self._commit_chain(st, t + 1, pend, stop)
-                st, pend = self._round_split(st, t + 1, stop)
+                sts = self._commit_chain(sts, t + 1, pend, stop)
+                sts, pend = self._round_split(sts, t + 1, stop, program)
         if self.tier_classes[t]:
-            st, p_t = self._exchange_issue(st, t, stop)
+            sts, p_t = self._exchange_issue(sts, t, stop)
             pend = pend + (p_t,)
-        return st, pend
+        return sts, pend
+
+    def _epoch_all(self, locs: tuple, stop=None, program=None) -> tuple:
+        """One outermost round of every shard = ``cycles_per_epoch`` local
+        cycles, every tier exchanged at its own cadence (the split schedule
+        under ``overlap``, its last chain committed before returning: epoch
+        boundaries are host-I/O points).  ``locs`` is each shard's local
+        view.  Where ``stop`` (the until-loop's () bool tensor) is set, the
+        epoch leaves the state as it was; a gated epoch bumps no registry
+        counter (``until.epochs`` counts the loop's)."""
+        sts = tuple(self._fold(x) for x in locs)
+        if self.overlap:
+            sts, pend = self._round_split(sts, 0, stop, program)
+            sts = self._commit_chain(sts, 0, pend, stop)
+        else:
+            sts = self._tier_round(sts, 0, stop, program)
+        if stop is None:  # the until-loop counts its own epochs
+            REGISTRY.inc(f"{self.engine_kind}.dispatch.count")
+            REGISTRY.inc(f"{self.engine_kind}.epochs")
+        step = 1 if stop is None else (~stop).to(locs[0].epoch.dtype)
+        return tuple(self._unfold(st, x).replace(epoch=x.epoch + step)
+                     for st, x in zip(sts, locs))
 
     def _epoch(self, local: GraphState, stop=None) -> GraphState:
-        """One outermost round = ``cycles_per_epoch`` local cycles, every
-        tier exchanged at its own cadence (the split schedule under
-        ``overlap``, its last chain committed before returning: epoch
-        boundaries are host-I/O points).  Where ``stop`` (the until-loop's
-        () bool tensor) is set, the epoch leaves the state as it was; a
-        gated epoch bumps no registry counter (``until.epochs`` counts the
-        loop's)."""
-        st = self._fold(local)
-        if self.overlap:
-            st, pend = self._round_split(st, 0, stop)
-            st = self._commit_chain(st, 0, pend, stop)
-        else:
-            st = self._tier_round(st, 0, stop)
-        if stop is None:  # the until-loop counts its own epochs
-            REGISTRY.inc("graph.dispatch.count")
-            REGISTRY.inc("graph.epochs")
-        step = 1 if stop is None else (~stop).to(local.epoch.dtype)
-        out = self._unfold(st, local)
-        return out.replace(epoch=local.epoch + step)
+        """One epoch of an unsharded engine's local view."""
+        return self._epoch_all((local,), stop)[0]
 
     def _owned(self, state, donate: bool):
-        """The state a run may update: the device path updates tensors in
-        place, so a caller who keeps its input (``donate=False``) gets a
-        copy run instead."""
+        """The state a run may update, placed: the device path updates
+        tensors in place, so a caller who keeps its input
+        (``donate=False``) gets a copy run instead."""
+        if self._sharded and not isinstance(state, ShardedState):
+            return self.place(state)  # a copy on the shards already
         if donate or not self._inplace:
             return state
         return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
@@ -895,10 +1042,10 @@ class GraphEngine:
         ``donate=True`` (default) lets the CUDA path update the state's
         tensors in place: the *input* state must not be reused afterwards.
         Pass ``donate=False`` to keep the input alive."""
-        local = self._local_view(self._owned(state, donate))
+        locs = self._enter(self._owned(state, donate))
         for _ in range(n_epochs):
-            local = self._epoch(local)
-        return self._global_view(local)
+            locs = self._epoch_all(locs)
+        return self._leave(locs)
 
     def run_cycles(self, state, n_cycles: int, *, donate: bool = True):
         """Advance ``ceil(n_cycles / cycles_per_epoch)`` outermost epochs
@@ -907,8 +1054,16 @@ class GraphEngine:
                                donate=donate)
 
     def _done_view(self, local):
-        """What ``run_until``'s predicate sees (the local state)."""
+        """What ``run_until``'s predicate sees (a shard's local state)."""
         return local
+
+    def _done_all(self, locs: tuple, done_fn: Callable) -> torch.Tensor:
+        """() bool: ``done_fn`` holds on every shard — each shard's result
+        reduced on its own device (``.all()``, which covers a (B,)-shaped
+        batched predicate), then over the shards, the reference's local
+        sum and ``psum`` of not-done.  No host read."""
+        return all_shards([device_loop.flag(done_fn(self._done_view(x)), x.epoch.device)
+                           for x in locs])
 
     def run_until(
         self,
@@ -920,29 +1075,33 @@ class GraphEngine:
         donate: bool = True,
     ):
         """Run epochs until ``done_fn(self._done_view(local))`` holds on
-        every granule, or at most ``max_epochs`` MORE epochs from the input
-        state (a relative budget).  The predicate is checked before every
-        epoch, so an already-done state runs zero epochs.
+        every granule of every shard, or at most ``max_epochs`` MORE epochs
+        from the input state (a relative budget).  The predicate is checked
+        before every epoch, so an already-done state runs zero epochs; it
+        sees one shard's local view at a time, and the shards' results are
+        combined on the device (``_done_all``).
 
         The loop runs on the device (``core.device_loop``): on a CUDA state
         spans of epochs replay from a CUDA graph, the predicate reduced and
         the stop decided on the card, and the host waits once a span.  The
         predicate must return a device tensor without reading it back.  The
         captured span is cached per (predicate, ``max_epochs``, ``donate``)
-        and the state's tensors; the cache pins ``cache_key`` if given,
-        else ``done_fn`` — pass ``cache_key`` when the predicate is a fresh
-        lambda per call but semantically constant.
+        and the state's tensors (every shard's); the cache pins
+        ``cache_key`` if given, else ``done_fn`` — pass ``cache_key`` when
+        the predicate is a fresh lambda per call but semantically constant.
+        Shards on several cards raise ``NotImplementedError``.
 
         ``donate=True`` (default) lets the CUDA path update the state's
         tensors in place: the input state must not be reused afterwards.
         ``donate=False`` runs on a clone at new addresses, so every such
         call captures its span anew, where a donated state that is run
         again replays the span it captured."""
+        require_one_card(self.devices)
         return device_loop.run_until(
             self._until_cache, self._owned(state, donate),
-            enter=self._local_view, leave=self._global_view,
-            epoch=lambda local, stop: self._epoch(local, stop=stop),
-            done=lambda local: done_fn(self._done_view(local)),
+            enter=self._enter, leave=self._leave,
+            epoch=lambda locs, stop: self._epoch_all(locs, stop=stop),
+            done=lambda locs: self._done_all(locs, done_fn),
             max_epochs=max_epochs, donate=donate,
             anchor=done_fn if cache_key is None else cache_key,
         )
@@ -954,11 +1113,15 @@ class GraphEngine:
         yardstick the device loop is held against."""
         return device_loop.host_loop(
             self._owned(state, donate),
-            enter=self._local_view, leave=self._global_view,
-            epoch=lambda local, stop: self._epoch(local, stop=stop),
-            done=lambda local: done_fn(self._done_view(local)),
+            enter=self._enter, leave=self._leave,
+            epoch=lambda locs, stop: self._epoch_all(locs, stop=stop),
+            done=lambda locs: self._done_all(locs, done_fn),
             max_epochs=max_epochs,
         )
+
+    def host_done(self, state, done_fn: Callable) -> bool:
+        """``done_fn`` read on the host, on the view ``run_until`` shows it."""
+        return bool(self._done_all(self._enter(state), done_fn))
 
     # ------------------------------------------------------- host utilities
     def gather_group(self, state, gi: int) -> Tree:
@@ -966,38 +1129,46 @@ class GraphEngine:
         (numpy leaves)."""
         n_slot = self._n_slot[gi]
         idx = self._member_granule[gi] * n_slot + self._member_slot[gi]
-
-        def pick(x):
-            x = x.detach().cpu().numpy()
-            return x.reshape((self.G * n_slot,) + x.shape[self.nd + 1:])[idx]
-
-        return tree_map(pick, state.block_states[gi])
+        return tree_map(
+            lambda x: x.reshape((self.G * n_slot,) + x.shape[self.nd + 1:])[idx],
+            self._gathered(state, lambda s: s.block_states[gi]))
 
     def group_state(self, state, inst) -> Tree:
         """One instance's (unstacked) state — mirrors NetworkSim.group_state."""
         inst_id = inst if isinstance(inst, int) else inst.inst_id
         gi, k = self.graph.locate(inst_id)
-        didx = np.unravel_index(int(self._member_granule[gi][k]), self.dev_shape)
+        r, idx = self._locate(
+            np.unravel_index(int(self._member_granule[gi][k]), self.dev_shape))
         slot = int(self._member_slot[gi][k])
-        return tree_map(lambda x: x[tuple(int(i) for i in didx) + (slot,)],
-                        state.block_states[gi])
+        return tree_map(lambda x: x[idx + (slot,)],
+                        self._shards(state)[r].block_states[gi])
 
     # ---------------------- host-side external ports (PySbTx/PySbRx analogue)
     # External channels are *homed* on the granule that owns their simulated
-    # endpoint: host I/O touches only that granule's queue row.
+    # endpoint: host I/O touches only that granule's queue row, on the shard
+    # that holds it.
     def _ext_loc(self, cid: int) -> tuple[tuple[int, ...], int]:
         g = int(self._chan_owner[cid])
         didx = tuple(int(i) for i in np.unravel_index(g, self.dev_shape))
         return didx, int(max(self._rx_local[cid], self._tx_local[cid]))
 
-    def _ext_idx(self, table: dict, name: str) -> tuple:
+    def _ext_at(self, table: dict, name: str) -> tuple[int, tuple]:
+        """(shard, index into the shard's queue leaves) of port ``name``."""
         didx, row = self._ext_loc(table[name])
-        return didx + (row,)
+        r, idx = self._locate(didx)
+        return r, idx + (row,)
+
+    def _on_shard(self, state, r: int, fn: Callable):
+        """``fn(shard r's state) -> (new shard state, *out)``; returns
+        ``(new state, *out)``."""
+        shards = list(self._shards(state))
+        shards[r], *out = fn(shards[r])
+        return (self._join(shards), *out)
 
     def port_stats(self, state) -> dict:
         """Per external port: occupancy/credit of the queue row homed on
         the owning granule (the ``Simulation.stats()["ports"]`` schema)."""
-        size = qmod.size(state.queues).cpu().numpy()
+        size = self._gathered(state, lambda s: qmod.size(s.queues))
 
         def rec(cid):
             didx, row = self._ext_loc(cid)
@@ -1009,35 +1180,46 @@ class GraphEngine:
             "rx": {n: rec(c) for n, c in self.graph.ext_out.items()},
         }
 
-    def _payload(self, payload) -> torch.Tensor:
+    def _payload(self, payload, sub) -> torch.Tensor:
         return torch.as_tensor(np.asarray(payload), dtype=self.dtype,
-                               device=self.device)
+                               device=sub.queues.buf.device)
 
     def host_push(self, state, name: str, payload):
-        q2, ok = qmod.host_push(
-            state.queues, self._ext_idx(self.graph.ext_in, name),
-            self._payload(payload),
-        )
-        return state.replace(queues=q2), ok
+        r, idx = self._ext_at(self.graph.ext_in, name)
+
+        def push(sub):
+            q2, ok = qmod.host_push(sub.queues, idx, self._payload(payload, sub))
+            return sub.replace(queues=q2), ok
+
+        return self._on_shard(state, r, push)
 
     def host_pop(self, state, name: str):
-        q2, front, valid = qmod.host_pop(
-            state.queues, self._ext_idx(self.graph.ext_out, name)
-        )
-        return state.replace(queues=q2), front, valid
+        r, idx = self._ext_at(self.graph.ext_out, name)
+
+        def pop(sub):
+            q2, front, valid = qmod.host_pop(sub.queues, idx)
+            return sub.replace(queues=q2), front, valid
+
+        return self._on_shard(state, r, pop)
 
     def host_push_many(self, state, name: str, payloads):
-        payloads = self._payload(payloads).reshape(-1, self.W)
-        q2, n = qmod.host_push_many(
-            state.queues, self._ext_idx(self.graph.ext_in, name), payloads
-        )
-        return state.replace(queues=q2), n
+        r, idx = self._ext_at(self.graph.ext_in, name)
+
+        def push(sub):
+            pays = self._payload(payloads, sub).reshape(-1, self.W)
+            q2, n = qmod.host_push_many(sub.queues, idx, pays)
+            return sub.replace(queues=q2), n
+
+        return self._on_shard(state, r, push)
 
     def host_pop_many(self, state, name: str, max_n: int):
-        q2, pays, cnt = qmod.host_pop_many(
-            state.queues, self._ext_idx(self.graph.ext_out, name), max_n
-        )
-        return state.replace(queues=q2), pays, cnt
+        r, idx = self._ext_at(self.graph.ext_out, name)
+
+        def pop(sub):
+            q2, pays, cnt = qmod.host_pop_many(sub.queues, idx, max_n)
+            return sub.replace(queues=q2), pays, cnt
+
+        return self._on_shard(state, r, pop)
 
     def push_external(self, state, name: str, payload):
         warnings.warn(

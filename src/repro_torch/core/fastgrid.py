@@ -13,11 +13,16 @@ The engine runs the §IV-B systolic matmul grid:
     JAX engine.
 
 The JAX engine puts one tile on each device of a ``(gr, gc)`` mesh and
-moves the slabs with ``ppermute``.  Here ``tiles=(Dr, Dc)`` keeps every
-tile on one device, stacked on the leading ``(Dr, Dc)`` dimensions of the
-state, and each ``ppermute`` is a shift along a tile axis; a tile at the
-edge of the tile grid receives zeros, as ``pshift`` gives it.  The state
-layout is the JAX engine's (``repro_torch.convert`` carries it across).
+moves the slabs with ``ppermute``.  Here a ``mesh`` does the same by a
+single controller (``core.mesh``): each tile is a shard, its own state
+on its own device, its epoch one ``systolic_step`` launch, and each
+``pshift`` a copy from the sender shard's slab into the receiver's.  Or
+``tiles=(Dr, Dc)`` keeps every tile on one device, stacked on the leading
+``(Dr, Dc)`` dimensions of the state, and each ``ppermute`` is a shift
+along a tile axis.  Either way a tile at the edge of the tile grid
+receives zeros, as ``pshift`` gives it.  The state layout is the JAX
+engine's (``repro_torch.convert`` carries it across; a sharded state
+gathers to it).
 """
 from __future__ import annotations
 
@@ -29,8 +34,9 @@ import torch
 from ..kernels import systolic_step as sk
 from ..obs.registry import REGISTRY
 from . import device_loop
-from .device import resolve_device
+from .device import resolve_device, shard_devices
 from .graph import ChannelGraph
+from .mesh import Placement, ShardedState, all_shards, require_one_card
 from .struct import tensor_dataclass, tree_map
 
 
@@ -79,18 +85,20 @@ def _shift(x: torch.Tensor, axis: int, step: int) -> torch.Tensor:
     return out
 
 
-class RegisterGridEngine:
-    """The systolic register engine, every tile on one device.
+class RegisterGridEngine(Placement):
+    """The systolic register engine.
 
     R, C:     the grid of cells (rows of B, columns of B).
     K:        cycles per epoch (the sync rate between tiles).
     m_stream: rows of A streamed through the grid (M).
-    tiles:    ``(Dr, Dc)`` tiles stacked on the device; R and C must divide.
-    mesh:     ``None`` or ``{axis name: size}`` of real devices.  The port
-              runs on one device, so an axis larger than 1 raises
-              ``NotImplementedError`` (ROADMAP Queue 1 item 8).
-    device:   ``"cuda"`` by default, and raises without CUDA (pass
-              ``device="cpu"``).
+    tiles:    ``(Dr, Dc)`` tiles stacked on one device; R and C must divide.
+    mesh:     ``None`` or ``{"gr": Dr, "gc": Dc}``: one tile a shard,
+              each its own state on its own device (``core.mesh``), as
+              the reference's mesh puts one on each device.  Pass
+              ``tiles`` or a mesh, not both.
+    device:   one device for every shard, or a sequence of ``Dr * Dc``
+              devices, row-major.  ``"cuda"`` by default, and raises
+              without CUDA (pass ``device="cpu"``).
     """
 
     engine_kind = "register"
@@ -98,17 +106,23 @@ class RegisterGridEngine:
     def __init__(self, R: int, C: int, K: int, m_stream: int, *,
                  tiles: tuple[int, int] = (1, 1),
                  mesh: Mapping[str, int] | None = None, device="cuda"):
-        self.device = resolve_device(device)
-        if mesh is not None and any(int(s) > 1 for s in dict(mesh).values()):
-            raise NotImplementedError(
-                f"mesh {dict(mesh)} spans several devices; the multi-GPU "
-                "exchange is ROADMAP Queue 1 item 8 — stack the tiles on one "
-                "device with tiles=(Dr, Dc) instead"
-            )
+        mesh = {str(a): int(s) for a, s in dict(mesh or {}).items()}
+        extra = sorted(a for a, s in mesh.items() if a not in ("gr", "gc") and s > 1)
+        if extra:
+            raise ValueError(f"mesh axes {extra} are not the grid's ('gr', 'gc')")
+        shards = (mesh.get("gr", 1), mesh.get("gc", 1))
+        self._sharded = shards != (1, 1)
+        if self._sharded and tuple(tiles) != (1, 1):
+            raise ValueError(f"pass tiles={tuple(tiles)} or mesh={mesh}, not both")
         self.R, self.C = int(R), int(C)
-        self.Dr, self.Dc = (int(t) for t in tiles)
+        self.Dr, self.Dc = shards if self._sharded else (int(t) for t in tiles)
         if self.Dr < 1 or self.Dc < 1 or self.R % self.Dr or self.C % self.Dc:
-            raise ValueError(f"grid {R}x{C} not divisible by tiles {tuple(tiles)}")
+            raise ValueError(f"grid {R}x{C} not divisible by tiles {(self.Dr, self.Dc)}")
+        self.real_shape = (self.Dr, self.Dc) if self._sharded else (1, 1)
+        self.devices = shard_devices(device, self.Dr * self.Dc if self._sharded else 1)
+        # one shard: its device (a sequence of one is unwrapped)
+        self.device = (self.devices[0] if self._sharded or isinstance(device, (list, tuple))
+                       else resolve_device(device))
         self.Tr, self.Tc = self.R // self.Dr, self.C // self.Dc
         self.K = int(K)
         self.W = 2 * self.K  # ingress slab capacity (credit-bounded)
@@ -201,7 +215,8 @@ class RegisterGridEngine:
         """The initial state for ``Y = A @ B`` (A: (M, R), B: (R, C)); an
         engine built from the IR takes its operands from there.  The
         (R, C, M) stream buffer is made on the device: only its west column
-        holds A."""
+        holds A.  A sharded engine's state is a ``core.mesh.ShardedState``
+        (see :meth:`place`)."""
         if A is None and B is None and self._graph_ab is not None:
             A, B = self._graph_ab
         if A is None or B is None:
@@ -235,14 +250,14 @@ class RegisterGridEngine:
             is_south=self._tile(rr == R - 1),
             is_east=self._tile(cc == C - 1),
         )
-        return RegGridState(
+        return self.place(RegGridState(
             cell=cell,
             west_slab=zf(Dr, Dc, Tr, self.W), west_cnt=zi(Dr, Dc, Tr),
             north_slab=zf(Dr, Dc, Tc, self.W), north_cnt=zi(Dr, Dc, Tc),
             credit_e=torch.full((Dr, Dc, Tr), self.W, dtype=torch.int32, device=dev),
             credit_s=torch.full((Dr, Dc, Tc), self.W, dtype=torch.int32, device=dev),
             cycle=zi(Dr, Dc), epoch=zi(Dr, Dc),
-        )
+        ))
 
     @property
     def cycles_per_epoch(self) -> int:
@@ -261,110 +276,154 @@ class RegisterGridEngine:
             south_limit=torch.clamp(st.credit_s, max=K),
         )
 
-    def _epoch(self, st: RegGridState, step: Callable | None = None,
-               stop: torch.Tensor | None = None) -> RegGridState:
-        """One epoch of every tile: ``step`` (``systolic_step`` unless a
-        caller holds a version against another) runs the K cycles, then
-        the slabs and credits move one tile east/south (west/north for
-        credits).  On a CUDA state the kernel updates the cell tensors in
-        place.  Where ``stop`` (the until-loop's () bool tensor) is set,
-        the step, the exchange and the counters leave the state as it was
+    def _pshift(self, xs: list, axis: int, step: int) -> list:
+        """Each tile's ``xs`` entry moved ``step`` (+1 or -1) along tile
+        axis ``axis`` (0: rows, 1: columns): the reference's ``pshift``.
+        Stacked tiles shift within their tensor; on a mesh the receiving
+        shard gets a copy of its sender's tensor.  A tile the shift leaves
+        empty gets zeros."""
+        if not self._sharded:
+            return [_shift(xs[0], axis, step)]
+        out = []
+        for r, x in enumerate(xs):
+            i, j = divmod(r, self.Dc)
+            si, sj = (i - step, j) if axis == 0 else (i, j - step)
+            if 0 <= si < self.Dr and 0 <= sj < self.Dc:
+                out.append(torch.empty_like(x).copy_(xs[si * self.Dc + sj]))
+            else:
+                out.append(torch.zeros_like(x))
+        return out
+
+    def _epoch_all(self, sts, step: Callable | None = None,
+                   stop: torch.Tensor | None = None) -> tuple:
+        """One epoch of every tile, ``sts`` one state a shard: ``step``
+        (``systolic_step`` unless a caller holds a version against
+        another) runs each shard's K cycles, then the slabs and credits
+        move one tile east/south (west/north for credits).  On a CUDA
+        state the kernel updates the cell tensors in place.  Where
+        ``stop`` (the until-loop's () bool tensor) is set, the step, the
+        exchange and the counters leave the state as it was
         (``torch.where`` on the slab, count and credit leaves: no host
         read); a gated epoch bumps no registry counter."""
         step = sk.systolic_step if step is None else step
-        inp = self.step_input(st)
-        out = step(inp, self.K) if stop is None else step(inp, self.K, stop)
+        outs = [step(self.step_input(st), self.K) if stop is None
+                else step(self.step_input(st), self.K, stop) for st in sts]
 
         # emission was credit-bounded inside the kernel; send everything
-        slab_e_in = _shift(out["east_slab"], 1, +1)
-        cnt_e_in = _shift(out["east_cnt"], 1, +1)
-        slab_s_in = _shift(out["south_slab"], 0, +1)
-        cnt_s_in = _shift(out["south_cnt"], 0, +1)
-        west_slab, west_cnt = _compact(
-            out["west_slab"], out["west_cnt"], out["widx"], slab_e_in, cnt_e_in
-        )
-        north_slab, north_cnt = _compact(
-            out["north_slab"], out["north_cnt"], out["nidx"], slab_s_in, cnt_s_in
-        )
-        credit_e = _shift(self.W - west_cnt, 1, -1)
-        credit_s = _shift(self.W - north_cnt, 0, -1)
-        new = dict(west_slab=west_slab, west_cnt=west_cnt,
-                   north_slab=north_slab, north_cnt=north_cnt,
-                   credit_e=credit_e, credit_s=credit_s)
+        slab_e_in = self._pshift([o["east_slab"] for o in outs], 1, +1)
+        cnt_e_in = self._pshift([o["east_cnt"] for o in outs], 1, +1)
+        slab_s_in = self._pshift([o["south_slab"] for o in outs], 0, +1)
+        cnt_s_in = self._pshift([o["south_cnt"] for o in outs], 0, +1)
+        west, north = [], []
+        for r, out in enumerate(outs):
+            west.append(_compact(out["west_slab"], out["west_cnt"], out["widx"],
+                                 slab_e_in[r], cnt_e_in[r]))
+            north.append(_compact(out["north_slab"], out["north_cnt"], out["nidx"],
+                                  slab_s_in[r], cnt_s_in[r]))
+        credit_e = self._pshift([self.W - w[1] for w in west], 1, -1)
+        credit_s = self._pshift([self.W - n[1] for n in north], 0, -1)
         if stop is None:  # the until-loop counts its own epochs
-            run = 1
             REGISTRY.inc("register.dispatch.count")
             REGISTRY.inc("register.epochs")
-        else:
-            new = {k: torch.where(stop, getattr(st, k), v) for k, v in new.items()}
-            run = (~stop).to(st.epoch.dtype)
-        return st.replace(
-            cell={k: out[k] for k in st.cell}, **new,
-            cycle=st.cycle + self.K * run, epoch=st.epoch + run,
-        )
+        new_sts = []
+        for r, (st, out) in enumerate(zip(sts, outs)):
+            new = dict(west_slab=west[r][0], west_cnt=west[r][1],
+                       north_slab=north[r][0], north_cnt=north[r][1],
+                       credit_e=credit_e[r], credit_s=credit_s[r])
+            if stop is None:
+                run = 1
+            else:
+                new = {k: torch.where(stop, getattr(st, k), v) for k, v in new.items()}
+                run = (~stop).to(st.epoch.dtype)
+            new_sts.append(st.replace(
+                cell={k: out[k] for k in st.cell}, **new,
+                cycle=st.cycle + self.K * run, epoch=st.epoch + run,
+            ))
+        return tuple(new_sts)
+
+    def _epoch(self, st: RegGridState, step: Callable | None = None,
+               stop: torch.Tensor | None = None) -> RegGridState:
+        """One epoch of an unsharded engine's state (see ``_epoch_all``)."""
+        return self._epoch_all((st,), step, stop)[0]
 
     # ------------------------------------------------------------------- run
-    def _owned(self, state: RegGridState, donate: bool) -> RegGridState:
-        """The state a run may update: the CUDA path updates the cell
-        tensors in place, so a caller who keeps its input (``donate=False``)
-        gets a copy run instead."""
+    def _owned(self, state, donate: bool):
+        """The state a run may update, placed: the CUDA path updates the
+        cell tensors in place, so a caller who keeps its input
+        (``donate=False``) gets a copy run instead."""
+        if self._sharded and not isinstance(state, ShardedState):
+            return self.place(state)  # a copy on the shards already
         if donate or self.device.type == "cpu":
             return state
         return tree_map(lambda x: x.clone(), state)
 
-    def run_epochs(self, state: RegGridState, n_epochs: int, *,
-                   donate: bool = True) -> RegGridState:
+    def run_epochs(self, state, n_epochs: int, *, donate: bool = True):
         """Advance ``n_epochs`` epochs (K cycles each).
 
         ``donate=True`` (default) lets the CUDA kernel update the state's
         tensors in place: the *input* state must not be reused afterwards.
         Pass ``donate=False`` to keep the input alive."""
-        st = self._owned(state, donate)
+        sts = self._shards(self._owned(state, donate))
         for _ in range(n_epochs):
-            st = self._epoch(st)
-        return st
+            sts = self._epoch_all(sts)
+        return self._join(sts)
 
     def tiles_done(self, cell: dict, done_fn: Callable) -> torch.Tensor:
         """() bool on the cells' device: ``done_fn`` holds on every tile's
-        local cell dict (leaves (Tr, Tc, ...)), the view ``run_until``'s
-        predicate gets — each tile's result stacked and reduced, as the
-        reference's ``vmap(done_fn)(...).all()``, with no host read."""
+        local cell dict (leaves (Tr, Tc, ...)) of one state's stacked
+        tiles, the view ``run_until``'s predicate gets — each tile's result
+        stacked and reduced, as the reference's ``vmap(done_fn)(...).all()``,
+        with no host read."""
+        Dr, Dc = cell["b"].shape[:2]
         return torch.stack([
-            torch.as_tensor(done_fn({k: v[dr, dc] for k, v in cell.items()})).all()
-            for dr in range(self.Dr) for dc in range(self.Dc)
+            device_loop.flag(done_fn({k: v[dr, dc] for k, v in cell.items()}),
+                             cell["b"].device)
+            for dr in range(Dr) for dc in range(Dc)
         ]).all()
 
-    def run_until(self, state: RegGridState, done_fn: Callable,
-                  max_epochs: int, *, cache_key=None,
-                  donate: bool = True) -> RegGridState:
+    def _done_all(self, sts, done_fn: Callable) -> torch.Tensor:
+        """() bool: ``done_fn`` holds on every tile of every shard, reduced
+        on each shard's device and then over the shards (the reference's
+        ``psum`` of not-done)."""
+        return all_shards([self.tiles_done(st.cell, done_fn) for st in sts])
+
+    def host_done(self, state, done_fn: Callable) -> bool:
+        """``done_fn`` read on the host, on the view ``run_until`` shows it."""
+        return bool(self._done_all(self._shards(state), done_fn))
+
+    def run_until(self, state, done_fn: Callable, max_epochs: int, *,
+                  cache_key=None, donate: bool = True):
         """Run epochs until ``done_fn(cell)`` holds on every tile (the
         predicate sees the tile-local cell dict), or at most ``max_epochs``
         MORE epochs from the input state (a relative budget).  The predicate
         is checked before every epoch, so an already-done state runs zero
         epochs.  The loop runs on the device, cached and keyed as
         ``GraphEngine.run_until``'s (``core.device_loop``): the predicate
-        must return a device tensor without reading it back."""
+        must return a device tensor without reading it back.  Shards on
+        several cards raise ``NotImplementedError``, as there."""
+        require_one_card(self.devices)
         return device_loop.run_until(
             self._until_cache, self._owned(state, donate),
-            epoch=lambda st, stop: self._epoch(st, stop=stop),
-            done=lambda st: self.tiles_done(st.cell, done_fn),
+            enter=self._shards, leave=self._join,
+            epoch=lambda sts, stop: self._epoch_all(sts, stop=stop),
+            done=lambda sts: self._done_all(sts, done_fn),
             max_epochs=max_epochs, donate=donate,
             anchor=done_fn if cache_key is None else cache_key,
         )
 
-    def run_until_host(self, state: RegGridState, done_fn: Callable,
-                       max_epochs: int, *, donate: bool = True) -> RegGridState:
+    def run_until_host(self, state, done_fn: Callable, max_epochs: int, *,
+                       donate: bool = True):
         """The plain version of :meth:`run_until`: the predicate read back
         on the host before every epoch (``device_loop.host_loop``)."""
         return device_loop.host_loop(
             self._owned(state, donate),
-            epoch=lambda st, stop: self._epoch(st, stop=stop),
-            done=lambda st: self.tiles_done(st.cell, done_fn),
+            enter=self._shards, leave=self._join,
+            epoch=lambda sts, stop: self._epoch_all(sts, stop=stop),
+            done=lambda sts: self._done_all(sts, done_fn),
             max_epochs=max_epochs,
         )
 
-    def run_until_done(self, state: RegGridState, max_epochs: int, *,
-                       donate: bool = True) -> RegGridState:
+    def run_until_done(self, state, max_epochs: int, *, donate: bool = True):
         """Run epochs until every south cell collected all M outputs."""
         return self.run_until(state, self.y_done, max_epochs,
                               cache_key="y_done", donate=donate)
@@ -374,19 +433,28 @@ class RegisterGridEngine:
         return ((~cell["is_south"]) | (cell["y_idx"] >= self.M)).all()
 
     # -------------------------------------------------------- host utilities
-    def group_state(self, state: RegGridState, inst) -> dict:
+    def group_state(self, state, inst) -> dict:
         """One cell's (unstacked) state leaves — the probe surface
         (``Simulation.probe``).  ``inst`` is the row-major instance id of
         the cell (or an ``Instance``), the IR numbering of the same grid."""
         inst_id = inst if isinstance(inst, int) else inst.inst_id
         r, c = divmod(int(inst_id), self.C)
-        idx = (r // self.Tr, c // self.Tc, r % self.Tr, c % self.Tc)
-        return {k: v[idx] for k, v in state.cell.items()}
+        tile, cell = (r // self.Tr, c // self.Tc), (r % self.Tr, c % self.Tc)
+        if self._sharded:
+            st = self._shards(state)[tile[0] * self.Dc + tile[1]]
+            tile = (0, 0)
+        else:
+            st = state
+        return {k: v[tile + cell] for k, v in st.cell.items()}
 
-    def result(self, state: RegGridState) -> np.ndarray:
+    def result(self, state) -> np.ndarray:
         """Y (M, C) from the south-edge cells (only their y_buf is copied
         to the host)."""
-        y = state.cell["y_buf"][self.Dr - 1, :, self.Tr - 1]  # (Dc, Tc, M)
+        if self._sharded:
+            shards = self._shards(state)[(self.Dr - 1) * self.Dc:]
+            y = torch.cat([st.cell["y_buf"][0, 0, self.Tr - 1].cpu() for st in shards])
+        else:
+            y = state.cell["y_buf"][self.Dr - 1, :, self.Tr - 1]  # (Dc, Tc, M)
         return y.reshape(self.C, self.M).T.cpu().numpy()
 
     def port_stats(self, state: RegGridState) -> dict:

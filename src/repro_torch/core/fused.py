@@ -1,5 +1,5 @@
 """Fused-epoch engine — the fast path for ANY channel graph, as in
-``repro.core.fused`` (pure-batch, single device).
+``repro.core.fused``.
 
 The engine lowers a partitioned ``ChannelGraph`` to a *fused* per-granule
 epoch:
@@ -10,16 +10,22 @@ epoch:
   * **boundary + external channels stay real queues** (a small
     ``(n_q, capacity, W)`` array), so the batched tier exchange, slab
     depths and credit protocol are bit-identical to the JAX engines;
-  * every granule is stacked on one batch axis and **folded into the
-    channel/slot axes** (the flat layout): row r's registers live at
-    ``r*n_reg + c``, its queue rows at ``B*n_reg + r*n_q + k`` in the
+  * the granules of a shard are stacked on one batch axis and **folded
+    into the channel/slot axes** (the flat layout): row r's registers live
+    at ``r*n_reg + c``, its queue rows at ``B*n_reg + r*n_q + k`` in the
     combined id space, its block slots at ``r*n_slot + s``, so one cycle
-    body steps every granule with plain gathers;
-  * an epoch is ONE resident op program (``kernels.granule_step``): the
-    K_outer x K_inner cycle blocks and the on-device tier exchanges in
-    between.  On a CUDA state that program is the hand-written Hopper
-    kernel; on the CPU it is the plain PyTorch version built from
-    :meth:`FusedEngine._cycle_body` and the exchange halves below.
+    body steps every granule of the shard with plain gathers;
+  * the tiers from ``_resident_from`` on, whose exchange classes all stay
+    on a shard, run as ONE resident op program a shard
+    (``kernels.granule_step``): their cycle blocks and the on-shard tier
+    exchanges in between.  On a CUDA state that program is the
+    hand-written Hopper kernel; on the CPU it is the plain PyTorch version
+    built from :meth:`FusedEngine._cycle_body` and the exchange halves
+    below.  The tiers above it exchange across shards between those
+    programs (``distributed.GraphEngine``'s schedule, ``core.mesh``): with
+    the pods real and the granules batched, the inner tier runs resident
+    on each shard and the pod tier crosses shards; with every axis real,
+    each shard's program is its cycle blocks and every exchange crosses.
 
 Correctness contract (held against the JAX ``FusedEngine`` in
 ``tests/test_torch_fused.py`` and, for the ``grid`` preset and networks of
@@ -41,7 +47,6 @@ import torch
 
 from . import queue as qmod
 from ..kernels import granule_step
-from ..obs.registry import REGISTRY
 from .distributed import GraphEngine
 from .graph import ChannelGraph, _rank_within, grid_partition
 from .struct import tensor_dataclass, tree_map
@@ -54,7 +59,8 @@ class FusedTables:
     """Fused-engine lookup tables (constant over time), global layout.
 
     Port and inverse tables are FLAT (the batch folded into the slot and
-    channel axes, ``real_shape`` leading dims); because channels are SPSC,
+    channel axes, ``real_shape`` leading dims; unbatched, the per-granule
+    tables, which are the same); because channels are SPSC,
     every combined channel id has at most one local producer and one local
     consumer, so the per-cycle commit is three gathers (producer payload,
     producer valid, consumer ready) through the inverse maps.  Exchange
@@ -72,7 +78,7 @@ class FusedTables:
     inv_tx_mask: torch.Tensor  # (real..., B*(n_reg + n_q)) bool
     inv_rx: torch.Tensor  # (real..., B*(n_reg + n_q)) int32 flat consumer index
     inv_rx_mask: torch.Tensor  # (real..., B*(n_reg + n_q)) bool
-    bat_fwd: tuple  # per tier: (dev..., S_t) int32 source batch row
+    bat_fwd: tuple  # per tier: (dev..., S_t) int32 source batch row; () unbatched
     bat_rev: tuple  # per tier: (dev..., S_t) int32 credit-return batch row
 
 
@@ -99,8 +105,8 @@ class FusedState:
 
 
 class FusedEngine(GraphEngine):
-    """Fused-epoch engine over an arbitrary partitioned graph, every
-    granule on one device.  Accepts everything ``GraphEngine`` accepts."""
+    """Fused-epoch engine over an arbitrary partitioned graph.  Accepts
+    everything ``GraphEngine`` accepts."""
 
     engine_kind = "fused"
 
@@ -113,8 +119,18 @@ class FusedEngine(GraphEngine):
         )
         self._build_fused_tables()
         self._build_flat_tables()
+        self._n_row = self.n_q
+        # First tier from which EVERY exchange class stays on a shard
+        # (batched classes with an empty real_perm; exchange-free tiers
+        # trivially qualify): tiers [_resident_from:] run as ONE resident
+        # program a shard.  Unbatched engines keep the fold region
+        # (real_perm is None there, never ()).
+        r = len(self.tiers)
+        while r > 0 and all(cl.real_perm == () for cl in self.tier_classes[r - 1]):
+            r -= 1
+        self._resident_from = min(r, self._fold_from)
         self._program_cache: dict[int, tuple] = {}
-        self._cons_cache: dict[torch.device, tuple] = {}
+        self._cons_cache: dict[tuple, tuple] = {}
 
     # ---------------------------------------------------- uniform-grid preset
     @classmethod
@@ -191,18 +207,20 @@ class FusedEngine(GraphEngine):
         ]
 
     def _build_flat_tables(self) -> None:
-        """Flatten the batch of B granules into ONE granule: row r's
-        registers at ``r*n_reg + c``, its queue rows at
+        """Flatten each shard's batch of B granules into ONE granule: row
+        r's registers at ``r*n_reg + c``, its queue rows at
         ``B*n_reg + r*n_q + k``, its group slots at ``r*n_slot + s``.  Rows
         need not share table *values*: each row's window gets its own
         granule's table.  The inverse maps are built over the flat id
         space, with every row's sentinels masked (SPSC uniqueness holds per
-        row, and rows map into disjoint flat windows)."""
+        row, and rows map into disjoint flat windows).  Unbatched (B = 1)
+        these are the per-granule tables."""
         G, B = self.G, self.B
+        G_real = G // B
         n_reg, n_q = self.n_reg, self.n_q
 
         def fmap(t: np.ndarray) -> np.ndarray:
-            # (1, B, ...) combined ids -> flat combined ids
+            # (G_real, B, ...) combined ids -> flat combined ids
             r = np.arange(B).reshape((1, B) + (1,) * (t.ndim - 2))
             return np.where(
                 t < n_reg, r * n_reg + t, B * n_reg + r * n_q + (t - n_reg)
@@ -212,23 +230,25 @@ class FusedEngine(GraphEngine):
             out = []
             for tbl in tbls:
                 _, n_slot, n_p = tbl.shape
-                t = fmap(tbl.reshape(1, B, n_slot, n_p))
-                out.append(t.reshape(1, B * n_slot, n_p).astype(np.int32))
+                t = fmap(tbl.reshape(G_real, B, n_slot, n_p))
+                out.append(t.reshape(G_real, B * n_slot, n_p).astype(np.int32))
             return out
 
         self._rx_flat = flat_ports(self._rx_tables_f)
         self._tx_flat = flat_ports(self._tx_tables_f)
 
         n_tot = B * (n_reg + n_q)
+        rows = np.arange(G_real)[:, None]
 
         def inverse(tables):
-            inv = np.zeros((1, n_tot), np.int64)
-            mask = np.zeros((1, n_tot), bool)
+            inv = np.zeros((G_real, n_tot), np.int64)
+            mask = np.zeros((G_real, n_tot), bool)
             off = 0
             for tbl in tables:
                 _, n_fs, n_p = tbl.shape
-                inv[0, tbl.reshape(-1)] = off + np.arange(n_fs * n_p)
-                mask[0, tbl.reshape(-1)] = True
+                flat = np.broadcast_to(off + np.arange(n_fs * n_p), (G_real, n_fs * n_p))
+                inv[rows, tbl.reshape(G_real, -1)] = flat
+                mask[rows, tbl.reshape(G_real, -1)] = True
                 off += n_fs * n_p
             sent = (np.arange(B)[:, None] * n_reg + np.array([0, 1])).ravel()
             mask[:, sent] = False  # sentinels never drive/commit anything
@@ -236,10 +256,9 @@ class FusedEngine(GraphEngine):
 
         self._inv_tx_flat, self._inv_tx_mask_flat = inverse(self._tx_flat)
         self._inv_rx_flat, self._inv_rx_mask_flat = inverse(self._rx_flat)
-        assert G == B  # one device: the batch is every granule
 
     def _dev_flat(self, arr: np.ndarray) -> torch.Tensor:
-        """(1, ...) flat table -> (real_shape..., ...) device tensor."""
+        """(G_real, ...) flat table -> (real_shape..., ...) device tensor."""
         return torch.as_tensor(
             np.ascontiguousarray(arr.reshape(self.real_shape + arr.shape[1:])),
             device=self.device,
@@ -276,7 +295,7 @@ class FusedEngine(GraphEngine):
         cap1 = self.capacity - 1
         zi = lambda shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
                                        device=self.device)
-        return FusedState(
+        return self.place(FusedState(
             reg_val=torch.zeros(lead + (self.n_reg, self.W), dtype=self.dtype,
                                 device=self.device),
             reg_v=torch.zeros(lead + (self.n_reg,), dtype=torch.bool,
@@ -291,7 +310,7 @@ class FusedEngine(GraphEngine):
             cycle=zi(lead),
             epoch=zi(lead),
             tables=self.tables(),
-        )
+        ))
 
     # ------------------------------------------------ flat-batch local views
     def _local_view(self, state: FusedState) -> FusedState:
@@ -501,30 +520,38 @@ class FusedEngine(GraphEngine):
             self._program_cache[t0] = program
         return self._program_cache[t0]
 
-    def _cons_table(self, dev: torch.device) -> tuple | None:
-        """The CUDA program's consumer tables, one a group
-        (``granule_step.consumer_table``), derived once per device; None
-        on the CPU, where the kernel does not run."""
+    def _cons_table(self, dev: torch.device, shard: int = 0) -> tuple | None:
+        """The CUDA program's consumer tables of a shard, one a group
+        (``granule_step.consumer_table``), derived once per device and
+        shard; None on the CPU, where the kernel does not run."""
         if dev.type != "cuda":
             return None
-        if dev not in self._cons_cache:
-            self._cons_cache[dev] = tuple(
+        key = (dev, shard)
+        if key not in self._cons_cache:
+            r = slice(shard, shard + 1)
+            self._cons_cache[key] = tuple(
                 torch.as_tensor(t, device=dev) for t in granule_step.consumer_table(
-                    self._tx_flat, self._inv_tx_flat, self._inv_tx_mask_flat,
-                    self._inv_rx_flat, self._inv_rx_mask_flat, self.B * self.n_reg,
+                    [t[r] for t in self._tx_flat], self._inv_tx_flat[r],
+                    self._inv_tx_mask_flat[r], self._inv_rx_flat[r],
+                    self._inv_rx_mask_flat[r], self.B * self.n_reg,
                 ))
-        return self._cons_cache[dev]
+        return self._cons_cache[key]
 
-    def _consts(self, tb: FusedTables) -> granule_step.ProgramConsts:
-        """The read-only tables of the resident program (local view)."""
+    def _consts(self, tb: FusedTables, shard: int = 0) -> granule_step.ProgramConsts:
+        """The read-only tables of shard ``shard``'s resident program (its
+        local view).  Unbatched, the batch-row gathers are the identity
+        (row 0 of one)."""
+        bfw, brv = tb.bat_fwd, tb.bat_rev
+        if not bfw:
+            bfw = brv = tuple(torch.zeros_like(x) for x in tb.send_idx)
         return granule_step.ProgramConsts(
             rx_idx=tb.rx_idx, tx_idx=tb.tx_idx,
             inv_tx=tb.inv_tx, inv_tx_mask=tb.inv_tx_mask,
             inv_rx=tb.inv_rx, inv_rx_mask=tb.inv_rx_mask,
             send_idx=tb.send_idx, send_mask=tb.send_mask,
             recv_idx=tb.recv_idx, recv_mask=tb.recv_mask,
-            bat_fwd=tb.bat_fwd, bat_rev=tb.bat_rev,
-            cons=self._cons_table(tb.inv_tx.device),
+            bat_fwd=bfw, bat_rev=brv,
+            cons=self._cons_table(tb.inv_tx.device, shard),
             blocks=tuple(g.block for g in self.graph.groups),
             depths=self.E_tiers, n_q=self.n_q,
         )
@@ -535,21 +562,22 @@ class FusedEngine(GraphEngine):
         return self._cycle_body(carry[:5], consts) + (carry[5],)
 
     def _resident_exchange_issue(self, carry, t: int, consts):
-        """ISSUE half of tier t's exchange inside the resident program:
-        credit-bounded ``stage_drain`` of the flat queue rows into the
-        (B, S_t, E_t, W) slab + the ``bat_fwd`` batch-row gather."""
+        """ISSUE half of tier t's exchange inside the resident program
+        (every class stays on the shard): credit-bounded ``stage_drain`` of
+        the flat queue rows into the (B, S_t, E_t, W) slab + the
+        ``bat_fwd`` batch-row gather."""
         reg_val, reg_v, q, block_states, cycle, credits = carry
-        q, pending = self._exchange_issue_batched(q, self.n_q, credits, t, consts)
-        return (reg_val, reg_v, q, block_states, cycle, credits), pending
+        q, slab, cnt = self._drain_tier(q, self.n_q, credits, t, consts)
+        return ((reg_val, reg_v, q, block_states, cycle, credits),
+                (slab, self._arrived(cnt, consts, t)))
 
     def _resident_exchange_commit(self, carry, t: int, pending, consts):
         """COMMIT half: ``stage_fill`` the in-flight slab + the ``bat_rev``
         credit return."""
         reg_val, reg_v, q, block_states, cycle, credits = carry
-        q, credits = self._exchange_commit_batched(
-            q, self.n_q, credits, t, consts, pending
-        )
-        return (reg_val, reg_v, q, block_states, cycle, credits)
+        q, cred = self._fill_tier(q, self.n_q, t, consts, pending)
+        return (reg_val, reg_v, q, block_states, cycle,
+                self._new_credits(credits, t, cred))
 
     def _resident_exchange(self, carry, t: int, consts):
         """Tier t's serial exchange — commit∘issue, so the serial and
@@ -558,32 +586,68 @@ class FusedEngine(GraphEngine):
         carry, pending = self._resident_exchange_issue(carry, t, consts)
         return self._resident_exchange_commit(carry, t, pending, consts)
 
-    def _epoch(self, local: FusedState, program=None, stop=None) -> FusedState:
-        """One outermost epoch: the resident program of every tier, then
-        the epoch counter.  ``program`` (``granule_step.epoch_program``
-        unless a caller holds a version against another) runs it; on a
-        CUDA state the kernel updates the carry's tensors in place.  Where
-        ``stop`` (the until-loop's () bool tensor) is set, the program and
-        the counter leave the state as it was; a gated epoch bumps no
-        registry counter (``until.epochs`` counts the loop's)."""
+    def _run_program(self, local: FusedState, ops, shard: int, stop=None,
+                     program=None) -> FusedState:
+        """Shard ``shard``'s op program ``ops`` on its local view.
+        ``program`` (``granule_step.epoch_program`` unless a caller holds a
+        version against another) runs it; on a CUDA state the kernel
+        updates the carry's tensors in place.  Where ``stop`` is set it
+        leaves the state as it was."""
         program = granule_step.epoch_program if program is None else program
         carry = (local.reg_val, local.reg_v, local.queues, local.block_states,
                  local.cycle, local.credits)
         out = program(
-            self._resident_cycle, carry, self._resident_program(0),
+            self._resident_cycle, carry, ops,
             exchange_fn=self._resident_exchange,
             issue_fn=self._resident_exchange_issue,
             commit_fn=self._resident_exchange_commit,
-            consts=self._consts(local.tables), stop=stop,
+            consts=self._consts(local.tables, shard), stop=stop,
         )
-        if stop is None:  # the until-loop counts its own epochs
-            REGISTRY.inc("fused.dispatch.count")
-            REGISTRY.inc("fused.epochs")
-        step = 1 if stop is None else (~stop).to(local.epoch.dtype)
         return local.replace(
             reg_val=out[0], reg_v=out[1], queues=out[2], block_states=out[3],
-            cycle=out[4], credits=out[5], epoch=local.epoch + step,
+            cycle=out[4], credits=out[5],
         )
+
+    # The schedule of ``GraphEngine`` on every shard's local view (the flat
+    # layout needs no folding): tiers from ``_resident_from`` on run as each
+    # shard's resident program, the tiers above exchange across shards.
+    def _fold(self, local: FusedState) -> FusedState:
+        return local
+
+    @staticmethod
+    def _unfold(work: FusedState, local: FusedState) -> FusedState:
+        return work
+
+    def _inner_cycles(self, sts: tuple, K: int, stop=None, program=None) -> tuple:
+        return tuple(self._run_program(st, (("C", K),), r, stop, program)
+                     for r, st in enumerate(sts))
+
+    def _tier_round(self, sts: tuple, t: int, stop=None, program=None) -> tuple:
+        """Tiers [t:] as each shard's resident program where every class
+        of them stays on a shard; the inherited round above that."""
+        if t >= self._resident_from:
+            return tuple(self._run_program(st, self._resident_program(t), r, stop,
+                                           program)
+                         for r, st in enumerate(sts))
+        return super()._tier_round(sts, t, stop, program)
+
+    def _pend_tiers(self, t0: int) -> tuple:
+        """A resident program commits its own split exchanges, so it adds
+        nothing to the caller's pending chain."""
+        return () if t0 >= self._resident_from else super()._pend_tiers(t0)
+
+    def _round_split(self, sts: tuple, t: int, stop=None, program=None):
+        if t >= self._resident_from:
+            return self._tier_round(sts, t, stop, program), ()
+        return super()._round_split(sts, t, stop, program)
+
+    def _epoch(self, local: FusedState, program=None, stop=None) -> FusedState:
+        """One outermost epoch of an unsharded engine's local view: the
+        resident program of every tier, then the epoch counter.  Where
+        ``stop`` (the until-loop's () bool tensor) is set, the program and
+        the counter leave the state as it was; a gated epoch bumps no
+        registry counter (``until.epochs`` counts the loop's)."""
+        return self._epoch_all((local,), stop, program)[0]
 
     # ------------------------------------------------- host-side external I/O
     def _ext_loc(self, cid: int) -> tuple[tuple[int, ...], int]:

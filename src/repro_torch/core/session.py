@@ -54,6 +54,7 @@ import torch
 from ..obs import trace as _trace
 from ..obs.registry import REGISTRY
 from ..obs.schema import STATS_SCHEMA
+from .mesh import unshard
 from .struct import tree_leaves
 
 Tree = Any
@@ -478,15 +479,13 @@ class Simulation:
 
     def _host_done(self, done_fn) -> bool:
         """The predicate read on the host, on the view the engine's
-        ``run_until`` shows it: the full state (single), the cell dict
-        (register), or the granule-local state via ``_done_view``."""
+        ``run_until`` shows it: the full state (single), each tile's cell
+        dict (register), or each shard's granule-local state via
+        ``_done_view``."""
         st = self._require_state()
         if self.kind == "single":
             return bool(done_fn(st))
-        if self.kind == "register":
-            return bool(self.engine.tiles_done(st.cell, done_fn))
-        local = self.engine._local_view(st)
-        return bool(torch.as_tensor(done_fn(self.engine._done_view(local))).all())
+        return self.engine.host_done(st, done_fn)
 
     def _session_run(
         self,
@@ -607,25 +606,41 @@ class Simulation:
         # engine's until-loop with the stretch as its budget.  The loop
         # checks the predicate before every epoch and its budget is
         # relative, so it stops where the monitor-free run stops, and a
-        # done state runs no epoch.  Each stretch that ran is one
-        # ``epoch_window`` span (the reference records one per epoch).
-        rec = _trace.recorder()
+        # done state runs no epoch.
         ran = 0
         while ran < max_epochs:
-            c0 = self.cycle
-            t0 = time.monotonic() if rec.enabled else 0.0
-            step = min(chunk - (c0 // per) % chunk, max_epochs - ran)
-            self._until(done_fn, step, cache_key)
-            n = (self.cycle - c0) // per  # fewer than step: the predicate held
-            ran += n
-            if n:
-                REGISTRY.inc("session.epochs", float(n))
-                if rec.enabled:
-                    self._window_span(t0, {"epochs": int(n)})
+            step = min(chunk - (self.cycle // per) % chunk, max_epochs - ran)
+            n = self._until_stretch(done_fn, step, cache_key)
+            ran += n  # fewer than step: the predicate held
             self._boundary()
             if n < step:
                 break
         return self
+
+    def _until_stretch(self, done_fn, step: int, cache_key) -> int:
+        """Up to ``step`` epochs of the engine's until-loop; returns how
+        many ran.  While the trace recorder is on, the stretch runs as
+        one-epoch calls, each its own ``epoch_window`` span, as the
+        reference records one span an epoch; untraced it is one call."""
+        per = self.period
+        rec = _trace.recorder()
+        if not rec.enabled:
+            c0 = self.cycle
+            self._until(done_fn, step, cache_key)
+            n = (self.cycle - c0) // per
+            if n:
+                REGISTRY.inc("session.epochs", float(n))
+            return n
+        n = 0
+        while n < step:
+            c0, t0 = self.cycle, time.monotonic()
+            self._until(done_fn, 1, cache_key)
+            if self.cycle == c0:
+                break
+            n += 1
+            REGISTRY.inc("session.epochs")
+            self._window_span(t0, {"epochs": 1})
+        return n
 
     def _until(self, done_fn, n_epochs: int, cache_key) -> None:
         """The engine's until-loop within a budget of ``n_epochs`` boundary
@@ -643,11 +658,12 @@ class Simulation:
     def save(self, path: str, step: int | None = None, *,
              keep_last: int = 3) -> str:
         """Checkpoint the session (engine state + host-port buffers) under
-        ``path`` via ``checkpoint.checkpointing`` (atomic tmp+rename).
-        Returns the written directory."""
+        ``path`` via ``checkpoint.checkpointing`` (atomic tmp+rename).  A
+        sharded engine's state is written in the global layout
+        (``core.mesh.unshard``).  Returns the written directory."""
         from ..checkpoint import checkpointing
 
-        st = self._require_state()
+        st = unshard(self._require_state())
         if step is None:
             step = self.cycle
         meta = {
@@ -676,12 +692,15 @@ class Simulation:
         from ..checkpoint import checkpointing
 
         template = self._require_state()
-        tree, meta = checkpointing.restore(path, template, step)
+        tree, meta = checkpointing.restore(path, unshard(template), step)
         if meta.get("engine_kind") not in (None, self.kind):
             raise ValueError(
                 f"checkpoint was saved from engine "
                 f"{meta['engine_kind']!r}, this session is {self.kind!r}"
             )
+        place = getattr(self.engine, "place", None)
+        if place is not None:
+            tree = place(tree)  # the global layout onto the shards
         if self.device.type == "cuda":
             for dst, src in zip(tree_leaves(template), tree_leaves(tree)):
                 if isinstance(dst, torch.Tensor):

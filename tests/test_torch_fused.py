@@ -121,13 +121,32 @@ def test_donate_false_keeps_input():
 
 
 def test_real_axis_larger_than_one_raises():
-    vals = np.ones((4, 4), np.float32)
-    g = ChannelGraph.torus(ManycoreCell(4, 4), 4, 4, params=make_core_params(vals))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        FusedEngine(g, np.arange(16) % 2, {"gx": 2}, device="cpu")
-    # the same granules stacked on the batch axis run
-    eng = FusedEngine(g, np.arange(16) % 2, {"gx": 2}, batch_axes=("gx",), device="cpu")
-    assert eng.B == 2 and isinstance(eng.init(0).reg_val, torch.Tensor)
+    """A real axis larger than 1 (which raised before the mesh was ported)
+    runs as two shards, each its own state, and after every epoch their
+    state in the global layout equals the one-shard run of the same
+    granules stacked on the batch axis, leaf for leaf."""
+    from repro_torch.core.mesh import ShardedState
+
+    vals = (np.arange(16) % 5 + 1).astype(np.float32).reshape(4, 4)
+
+    def graph():
+        return ChannelGraph.torus(ManycoreCell(4, 4), 4, 4,
+                                  params=make_core_params(vals), capacity=4)
+
+    real = FusedEngine(graph(), np.arange(16) % 2, {"gx": 2}, K=2, device="cpu")
+    one = FusedEngine(graph(), np.arange(16) % 2, {"gx": 2}, K=2,
+                      batch_axes=("gx",), device="cpu")
+    assert (real.G_real, real.B, one.G_real, one.B) == (2, 1, 1, 2)
+    sr, so = real.init(0), one.init(0)
+    assert isinstance(sr, ShardedState) and len(sr.shards) == 2
+    for ep in range(12):
+        sr, so = real.run_epochs(sr, 1), one.run_epochs(so, 1)
+        want = fused_state_to_numpy(so)
+        got = fused_state_to_numpy(sr)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert np.array_equal(got[k], want[k]), (ep, k)
+    assert (real.gather_group(sr, 0).total == vals.sum()).all()
 
 
 def test_overlap_knob_resolution(monkeypatch):

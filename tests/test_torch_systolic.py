@@ -358,7 +358,23 @@ def test_register_build_with_tiles_and_rejections():
     assert np.array_equal(sim.engine.result(sim.state), ref.result(done))
     with pytest.raises(ValueError, match="not divisible"):
         net.build(engine="register", device="cpu", K=3, tiles=(3, 3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        net.build(engine="register", device="cpu", K=3, mesh={"gr": 2})
+    # a real mesh axis (which raised before the mesh was ported) runs as
+    # two shards, and gives the one-tile run's Y and state in the global
+    # layout (the one-tile state stacked as the mesh's two tiles)
+    mesh = net.build(engine="register", device="cpu", K=3, mesh={"gr": 2})
+    assert len(mesh.engine.shardings()) == 2
+    mesh.reset()
+    mesh.run(until=mesh.engine.y_done)
+    assert np.array_equal(mesh.engine.result(mesh.state), ref.result(done))
+    stacked = net.build(engine="register", device="cpu", K=3, tiles=(2, 1))
+    stacked.reset()
+    stacked.run(until=stacked.engine.y_done)
+    assert mesh.cycle == stacked.cycle
+    got, want = register_state_to_numpy(mesh.state), register_state_to_numpy(stacked.state)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+    with pytest.raises(ValueError, match="not both"):
+        net.build(engine="register", device="cpu", K=3, mesh={"gr": 2}, tiles=(1, 2))
     with pytest.raises(TypeError):
         net.build(engine="register", device="cpu", K=3, partition=[0])
