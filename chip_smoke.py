@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-Seven paths, each through the entry points a user calls:
+Eight paths, each through the entry points a user calls:
 
   * the paper's wafer-scale torus: 1024x1024 ``ManycoreCell`` cores running
     a two-phase ring allreduce, partitioned over 2 pods x 2x2 granules with
@@ -36,6 +36,11 @@ Seven paths, each through the entry points a user calls:
     one card, launching its own ``granule_step`` / ``systolic_step``
     programs, the exchange classes that leave a shard copied between
     shards;
+  * the procs engine (``runtime/``): ``build(engine="procs")``, one
+    free-running worker process a granule on the card, joined by
+    shared-memory rings, each worker replaying its captured cycle graphs
+    (plain PyTorch, as the reference's worker is plain XLA: it reaches no
+    Pallas kernel), on the wafer at full width against ``GraphEngine``;
   * LM serving: ``launch.serve.serve`` -> ``models.model.init_params`` ->
     ``prefill`` -> greedy ``decode_step``s for recurrentgemma-2b,
     xlstm-125m and the dense llama3.2-1b at their published widths (batch
@@ -220,21 +225,43 @@ Phases (a failing phase raises, and the script exits non-zero):
              (``RegisterGridEngine``, 2x2 mesh, 4 shards of 512x512): Y
              bit-identical to one tile's, the stop the 2x2-stacked tiles',
              ``compare_loops``, launches, bytes.
-  14. lm-small  each LM kernel against its plain version on the card, at
+  14. procs-small  the procs engine, every worker on the card: the chain's
+             host I/O script (K = 1, capacity 2, 2 workers) and the 4-worker
+             non-zero-home script, traffic bit-identical to ``NetworkSim`` on
+             the card; the 6x4 @ 4x4 systolic scenario on 4 workers
+             (``run(cycles=12)``, ``save``, probe, ``run(until)``, a fresh
+             fleet's ``load`` and resume), ``Y`` bit-identical; the 32x32
+             wafer on 4 workers (``batch_signatures`` and ``overlap`` off,
+             then both on), stop and blocks bit-identical to ``GraphEngine``
+             on the same ``PartitionTree``; SIGKILL of worker 1 raising
+             ``WorkerDiedError`` naming it, "granule 1" in its log tail.
+  15. procs-full  wafer-1M-procs4: ``configs/manycore.py::CONFIG`` at full
+             width on the reference example's procs layout (2 pods x 2 row
+             strips, 4 worker processes of 262,144 cores, all on the card),
+             ``run(until=allreduce_done)``; then the same with
+             ``batch_signatures`` (2 workers of 2 strips: the torus has two
+             strip shapes); the yardstick ``GraphEngine`` on the same tree in
+             one process: stop cycle and every block bit-identical, every
+             total 4,718,592.  Logs set-up (lowering, prebuild, rings,
+             spawn, workers ready, capture), the run's seconds and
+             core-cycles/s, rings and shared-memory bytes, ring ops and view
+             bytes an epoch, each worker's run, busy, wait and capture
+             seconds, and (plain) the card's idle share over 2 traced epochs.
+  16. lm-small  each LM kernel against its plain version on the card, at
              the CPU tests' shapes (``kernels.lm_checks``): attention MHA,
              GQA and MQA, causal with and without a window, f32 (the
              CUDA-core route) and bf16 (the tensor-core route; each case
              must take its dtype's route), D up to 256, T not a multiple
              of 128; the RG-LRU with and without h0; the sLSTM at T = 1
              and longer, R in f32 and bf16, up to xlstm-125m's width.
-  15. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
+  17. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
              size, on the card); then llama3.2-1b at full width (16 layers,
              d 2048, GQA 32/8, head dim 64) through ``serve`` with the flash
              launch count set to 0 just before and read just after (16,
              all on the tensor-core route), every logit finite, and the
              first layer's flash call held against the plain version at the
              run's own inputs.
-  16. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
+  18. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
              attention layers, window 2048): ``serve`` with every kernel's
              launch count set to 0 just before and read just after (8
              ``flash_attention``, all on the tensor-core route, 18
@@ -253,7 +280,7 @@ Phases (a failing phase raises, and the script exits non-zero):
              call also without); last, a warm prefill and one decode step
              under ``torch.profiler``: device idle share and time by kernel
              (``rglru_clear``: the RG-LRU's status clear).
-  17. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
+  19. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
              prefill, 6 in each of the 15 decode steps), at the first
              decode step's inputs and the first prefill's: the cluster
              plan, the T = 1 call by CUDA events and the wrapper's host
@@ -270,6 +297,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --phases build,graph-small,graph-full
     python3 chip_smoke.py --phases build,session-small,session-full
     python3 chip_smoke.py --phases build,mesh-small,mesh-full
+    python3 chip_smoke.py --phases build,procs-small,procs-full
     python3 chip_smoke.py --phases build,lm-small,lm-dense,rg-full,xl-full
 """
 from __future__ import annotations
@@ -295,7 +323,8 @@ KERNELS = ("granule_step", "systolic_step", "flash_attention", "rglru_scan",
 RGLRU_SWEEP_VARIANTS = (64, 128, 512)
 PHASES = ("build", "small", "full", "sys-small", "sys-full", "fsys-small",
           "fsys-full", "graph-small", "graph-full", "session-small", "session-full",
-          "mesh-small", "mesh-full", "lm-small", "lm-dense", "rg-full", "xl-full")
+          "mesh-small", "mesh-full", "procs-small", "procs-full", "lm-small", "lm-dense",
+          "rg-full", "xl-full")
 
 
 def log(msg: str) -> None:
@@ -3084,6 +3113,300 @@ def phase_mesh_full(kernels: list) -> None:
         row["mesh_max_abs_err"] = {c: errs[c] for c in cells}
 
 
+# ------------------------------------------------------------ procs fleets
+PROCS_TIMEOUT = 120.0  # seconds a worker may go silent before it is dead
+
+
+def procs_wafer(R, C, k_outer, k_inner, capacity, device, **kw):
+    """The wafer torus on the reference example's procs layout: 2 pods x 2
+    row strips, ``tiered_grid_partition(R, C, [(2, 1), (2, 1)])`` under a
+    ``PartitionTree`` with tiers ``pod`` (K = ``k_outer``) and ``g`` (K =
+    ``k_inner``).  ``kw`` goes to ``ProcsEngine``; ``engine="graph"`` in
+    it builds ``GraphEngine`` on the same tree instead, its 4 granules
+    batched.  Returns (engine, values)."""
+    import numpy as np
+    from repro_torch.core import ChannelGraph, tiered_grid_partition
+    from repro_torch.core.distributed import GraphEngine
+    from repro_torch.core.graph import PartitionTree, Tier
+    from repro_torch.hw.manycore import ManycoreCell, make_core_params
+    from repro_torch.runtime import ProcsEngine
+
+    values = ((np.arange(R * C, dtype=np.int64) % 8) + 1).astype(np.float32)
+    graph = ChannelGraph.torus(
+        ManycoreCell(R, C), R, C, params=make_core_params(values.reshape(R, C)),
+        capacity=capacity,
+    )
+    ptree = PartitionTree(tiered_grid_partition(R, C, [(2, 1), (2, 1)]),
+                          (Tier(axes=("pod",), K=k_outer), Tier(axes=("g",), K=k_inner)),
+                          {"pod": 2, "g": 2})
+    if kw.pop("engine", None) == "graph":
+        return GraphEngine(graph, ptree, batch_axes={"pod": 2, "g": 2},
+                           device=device, **kw), values
+    return ProcsEngine(graph, ptree, timeout=PROCS_TIMEOUT, device=device, **kw), values
+
+
+def same_leaves(a, b) -> bool:
+    """Two trees of numpy leaves hold the same bits, leaf for leaf."""
+    import numpy as np
+    from repro_torch.core.struct import tree_paths
+
+    pa, pb = tree_paths(a), tree_paths(b)
+    return [p for p, _ in pa] == [p for p, _ in pb] and all(
+        x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y)
+        for (_, x), (_, y) in zip(pa, pb))
+
+
+def phase_procs_small() -> None:
+    """The procs engine on the card, workers on cuda, at small sizes."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import Simulation
+    from repro_torch.hw.manycore import allreduce_done
+    from repro_torch.hw.pipestage import make_chain
+    from repro_torch.hw.systolic import make_systolic_network
+    from repro_torch.runtime import WorkerDiedError
+
+    def procs(net, **kw):
+        return net.build(engine="procs", device="cuda", timeout=PROCS_TIMEOUT, **kw)
+
+    # host I/O: K = 1, capacity 2, 2 workers; the 4-worker non-zero home
+    for tag, n, part, nw in (("chain", 3, [0, 0, 1], 2),
+                             ("non-zero home", 4, {"s0": 3, "s1": 2, "s2": 2, "s3": 1}, 4)):
+        ref = make_chain(n, capacity=2).build(device="cuda")
+        want = io_script(ref.reset(0))
+        t0 = time.perf_counter()
+        sim = procs(make_chain(n, capacity=2), n_workers=nw, partition=part, K=1)
+        try:
+            got = io_script(sim.reset(0))
+            devices = {r["device"] for r in sim.stats()["workers"]}
+        finally:
+            sim.engine.close()
+        if len(got) != len(want) or not all(np.array_equal(a, b) for a, b in zip(want, got)):
+            raise AssertionError(f"[procs-small] {tag}: traffic differs from the single netlist")
+        if not all(d.startswith("cuda") for d in devices):
+            raise AssertionError(f"[procs-small] {tag}: workers on {devices}")
+        log(f"[procs-small] {tag}: {nw} workers on {sorted(devices)}, "
+            f"{sum(len(t) for t in got)} packets over {len(got)} boundaries "
+            f"bit-identical to NetworkSim on the card ({time.perf_counter() - t0:.2f} s "
+            f"with the fleet's start)")
+
+    # the systolic scenario: run(cycles), save, probe, run(until), load fresh
+    rng = np.random.RandomState(3)
+    M, K, N = 6, 4, 4
+    A, B = rng.randn(M, K).astype(np.float32), rng.randn(K, N).astype(np.float32)
+    done = lambda s: ((~s.block_states[0].is_south)  # noqa: E731
+                      | (s.block_states[0].y_idx >= M)).all()
+
+    def result_of(sim):
+        return np.stack([np.asarray(sim.probe((K - 1) * N + c).y_buf.cpu())
+                         for c in range(N)], axis=1)
+
+    ref = make_systolic_network(A, B)[0].build(device="cuda").reset(0)
+    ref.run(until=done, max_epochs=100_000)
+    want = result_of(ref)
+    part = (np.arange(K * N) % 4).tolist()
+    ck = tempfile.mkdtemp(prefix="procs_small_")
+    try:
+        sim = procs(make_systolic_network(A, B)[0], n_workers=4, partition=part, K=4)
+        try:
+            sim.reset(0).run(cycles=12)
+            sim.save(ck)
+            a_idx = int(sim.probe(0).a_idx)
+            sim.run(until=done, max_epochs=100_000)
+            got, stop = result_of(sim), sim.cycle
+        finally:
+            sim.engine.close()
+        sim2 = procs(make_systolic_network(A, B)[0], n_workers=4, partition=part, K=4)
+        try:
+            sim2.reset(0).load(ck)
+            resumed_at = sim2.cycle
+            sim2.run(until=done, max_epochs=100_000)
+            got2 = result_of(sim2)
+        finally:
+            sim2.engine.close()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    if not (a_idx > 0 and resumed_at == 12 and np.array_equal(got.view(np.uint32), want.view(np.uint32))
+            and np.array_equal(got2.view(np.uint32), want.view(np.uint32))):
+        raise AssertionError(f"[procs-small] systolic: Y differs (a_idx {a_idx}, "
+                             f"resumed at {resumed_at})")
+    log(f"[procs-small] systolic 6x4 @ 4x4 on 4 workers: run(cycles=12), save, probe "
+        f"(a_idx {a_idx}), run(until) to cycle {stop}, and a fresh fleet's load + "
+        f"resume: Y bit-identical to NetworkSim on the card")
+
+    # the 32x32 wafer on 4 workers against GraphEngine on the same tree
+    geng, values = procs_wafer(32, 32, 2, 4, 4, "cuda", engine="graph")
+    wafer_done = lambda s: allreduce_done(s.block_states[0], s.tables.active[0])  # noqa: E731
+    gsim = Simulation(geng).reset(0)
+    gsim.run(until=wafer_done, max_epochs=1000)
+    want_blocks, want_stop = geng.gather_group(gsim.state, 0), gsim.cycle
+    del gsim, geng
+    for batch, overlap in ((False, False), (True, True)):
+        eng, _ = procs_wafer(32, 32, 2, 4, 4, "cuda", batch_signatures=batch,
+                             overlap=overlap)
+        try:
+            sim = Simulation(eng).reset(0)
+            sim.run(until=wafer_done, max_epochs=1000)
+            blocks, stop = eng.gather_group(sim.state, 0), sim.cycle
+        finally:
+            eng.close()
+        if stop != want_stop or not same_leaves(want_blocks, blocks):
+            raise AssertionError(f"[procs-small] wafer 32x32 batch={batch} overlap={overlap}:"
+                                 f" stop {stop} (GraphEngine {want_stop}) or blocks differ")
+        log(f"[procs-small] wafer 32x32 on {eng.NW} workers (batch_signatures={batch}, "
+            f"overlap={overlap}): stop cycle {stop} and every block bit-identical to "
+            f"GraphEngine on the same PartitionTree on the card")
+
+    # SIGKILL of one worker: WorkerDiedError naming it, with its log tail
+    sim = procs(make_chain(3, capacity=4), n_workers=3, partition=[0, 1, 2], K=1)
+    sim.reset(0).tx("tx").send([1.0, 0.0])
+    sim.run(cycles=4)
+    os.kill(sim.engine._procs[1].pid, signal.SIGKILL)
+    t0 = time.monotonic()
+    try:
+        sim.run(cycles=200)
+    except WorkerDiedError as e:
+        waited = time.monotonic() - t0
+        if e.worker != 1 or "granule 1" not in str(e) or not sim.engine._closed:
+            raise AssertionError(f"[procs-small] kill: wrong diagnosis {e}") from e
+        if waited > PROCS_TIMEOUT:
+            raise AssertionError(f"[procs-small] kill: raised after {waited:.1f} s") from e
+        log(f"[procs-small] SIGKILL of worker 1: WorkerDiedError after {waited:.2f} s "
+            f"naming it, its log tail holding 'granule 1'; the fleet torn down")
+    else:
+        raise AssertionError("[procs-small] a killed worker went unnoticed")
+    finally:
+        sim.engine.close()
+
+
+def log_fleet_trace(tag: str, prof: dict) -> None:
+    """Log a fleet's traced window (``ProcsEngine.profile_epochs``): each
+    worker's device-busy seconds and the card's idle share."""
+    busy = [p["busy_s"] for p in prof.values()]
+    if any(b is None for b in busy):
+        log(f"[procs-full] {tag}: device idle share not measured (a worker's "
+            f"trace holds no device event)")
+        return
+    wall = max(p["wall_s"] for p in prof.values())
+    own = ", ".join(f"{1 - b / p['wall_s']:.4f}" for b, p in zip(busy, prof.values()))
+    log(f"[procs-full] {tag}: traced 2 epochs on every worker: wall {wall:.3f} s; "
+        f"device busy by worker {', '.join(f'{b:.3f}' for b in busy)} s; the card's "
+        f"idle share {1 - sum(busy) / wall:.4f} (the workers time-slice it, so their "
+        f"busy seconds add); each worker's own {own}")
+
+
+def phase_procs_full() -> None:
+    """wafer-1M-procs4: the full wafer on 4 worker processes on the card,
+    plain and with batch_signatures, against GraphEngine on the same tree."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.manycore import CONFIG
+    from repro_torch.core import Simulation
+    from repro_torch.hw.manycore import allreduce_done
+    from repro_torch.core.struct import tree_leaves
+
+    R, C = CONFIG.grid_rows, CONFIG.grid_cols
+    args = (R, C, CONFIG.k_outer, CONFIG.k_inner, CONFIG.queue_capacity, "cuda")
+    done = lambda s: allreduce_done(s.block_states[0], s.tables.active[0])  # noqa: E731
+
+    # the yardstick: GraphEngine on the same PartitionTree, one process
+    t0 = time.perf_counter()
+    geng, _ = procs_wafer(*args, engine="graph")
+    gsim = Simulation(geng).reset(0)
+    gsim.block_until_ready()
+    gsetup = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    gsim.run(until=done, max_epochs=1000)
+    gsim.block_until_ready()
+    gwall = time.perf_counter() - t1
+    want, want_stop = geng.gather_group(gsim.state, 0), gsim.cycle
+    if not np.array_equal(want.total, np.full_like(want.total, TOTAL)):
+        raise AssertionError("[procs-full] GraphEngine's totals are not the global sum")
+    log(f"[procs-full] yardstick GraphEngine on the same PartitionTree (4 granules "
+        f"batched, one process): stop cycle {want_stop}, set-up {gsetup:.2f} s, until-run "
+        f"{gwall:.3f} s (its span capture included)")
+    gsim._state = None
+    del gsim, geng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for batch in (False, True):
+        tag = "batch_signatures" if batch else "plain"
+        t0 = time.perf_counter()
+        eng, _ = procs_wafer(*args, batch_signatures=batch)
+        build_s = time.perf_counter() - t0
+        try:
+            t1 = time.perf_counter()
+            eng.launch()
+            launch_s = time.perf_counter() - t1
+            ls = eng.launch_stats
+            ready = max(ls["ready_seconds"].values())
+            caps = [b["capture_s"] for b in ls["build"].values()]
+            n_chan = sum(len(c) for c in eng.lowering.routes.values())
+            log(f"[procs-full] wafer-1M-procs4 ({tag}): {eng.G} granules of "
+                f"{R * C // eng.G} cores on {eng.NW} worker processes, "
+                f"{eng.build_stats['n_signatures']} signatures {eng._worker_members}, "
+                f"n_local {eng.n_local}; set-up: lowering {eng.lowering_seconds:.2f} s, "
+                f"prebuild {eng.build_stats['prebuild_seconds']:.2f} s (the rest of the "
+                f"constructor {build_s - eng.lowering_seconds - eng.build_stats['prebuild_seconds']:.2f} s), "
+                f"rings {ls['rings_seconds']:.2f} s, spawn {ls['spawn_seconds']:.2f} s, "
+                f"workers ready after {ready:.2f} s (start, CUDA, template, capture "
+                f"{', '.join(f'{c:.2f}' for c in caps)} s); launch {launch_s:.2f} s")
+            log(f"[procs-full] {tag}: {ls['n_rings']} rings for {n_chan} boundary channels "
+                f"(a slab and a credit ring each, plus {len(eng.graph.ext_ports())} host "
+                f"ports), {ls['shm_bytes']} B of shared memory mapped "
+                f"({ls['shm_pages'] * 4096} B in whole 4 KiB pages)")
+            t2 = time.perf_counter()
+            sim = Simulation(eng).reset(0)
+            init_s = time.perf_counter() - t2
+            if not batch:  # a traced window of 2 epochs, then the run anew
+                log_fleet_trace(tag, eng.profile_epochs(sim.state, 2)[1])
+            t3 = time.perf_counter()
+            sim.reset(0)
+            reinit_s = time.perf_counter() - t3
+            view_bytes = sum(x.nbytes for v in eng._views()
+                             for x in tree_leaves(v.replace(tables=None)))
+            t4 = time.perf_counter()
+            sim.run(until=done, max_epochs=1000)
+            run_s = time.perf_counter() - t4
+            stop, epochs = sim.cycle, sim.epoch
+            rows = eng.worker_stats(sim.state)
+            blocks = eng.gather_group(sim.state, 0)
+        finally:
+            eng.close()
+        if stop != want_stop:
+            raise AssertionError(f"[procs-full] {tag}: stop {stop} != GraphEngine's {want_stop}")
+        if not same_leaves(want, blocks):
+            raise AssertionError(f"[procs-full] {tag}: blocks differ from GraphEngine's")
+        if not np.array_equal(blocks.total, np.full_like(blocks.total, TOTAL)):
+            raise AssertionError(f"[procs-full] {tag}: totals are not the global sum")
+        if not all(r["device"].startswith("cuda") for r in rows):
+            raise AssertionError(f"[procs-full] {tag}: a worker ran off the card")
+        # a batched worker reports its process's counters on each of its rows
+        per_worker = {eng._worker_of[r["granule"]]: r for r in rows}
+        ops = sum(r["ring_ops"] for r in per_worker.values())
+        log(f"[procs-full] {tag}: converged at cycle {stop} ({epochs} epochs), every block "
+            f"bit-identical to GraphEngine's and every total {TOTAL:.0f}; init "
+            f"{init_s:.2f} s (again {reinit_s:.2f} s); run(until) {run_s:.3f} s = "
+            f"{R * C * stop / run_s:.4e} core-cycles/s ({run_s / gwall:.1f}x GraphEngine's "
+            f"{gwall:.3f} s in this call); {ops / epochs:.0f} ring ops and "
+            f"{view_bytes} B of view an epoch")
+        for w, r in sorted(per_worker.items()):
+            busy = r["run_s"] - r["wait_s"]
+            log(f"[procs-full] {tag}: worker {w} (granules {eng._worker_members[w]}) on "
+                f"{r['device']}: run "
+                f"{r['run_s']:.3f} s, busy {busy:.3f} s, ring wait {r['wait_s']:.3f} s "
+                f"(share {r['wait_fraction']:.4f}), capture {r['capture_s']:.3f} s, "
+                f"{r['ring_ops']} ring ops")
+        gc.collect()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3137,6 +3460,8 @@ def main(argv=None) -> int:
                        ("session-full", phase_session_full),
                        ("mesh-small", phase_mesh_small),
                        ("mesh-full", lambda: phase_mesh_full(kernels)),
+                       ("procs-small", phase_procs_small),
+                       ("procs-full", phase_procs_full),
                        ("lm-small", phase_lm_small),
                        ("lm-dense", phase_lm_dense),
                        ("rg-full", lambda: phase_rg_full(lm_kernels)),

@@ -20,13 +20,19 @@ This example is that scenario on one card:
 ``--engine graph`` (the default) runs the queue interpreter
 (``GraphEngine``: every channel a ring of ``capacity`` slots, plain
 PyTorch ops), ``--engine fused`` the fused engine, whose epoch is one call
-of the hand-written ``granule_step`` kernel on the card.  Both give the
-same totals; ``run(until=...)`` runs in the device loop on the card.
+of the hand-written ``granule_step`` kernel on the card; ``run(until=...)``
+runs in the device loop on the card.  ``--engine procs`` runs the paper's
+own deployment: 2 pods x 2 row strips, one free-running worker process a
+strip (``ProcsEngine``), the strips joined by shared-memory rings, every
+worker on the card (``--device cpu``: on the CPU); ``--batch-signatures``
+steps the strips of one shape in one worker.  All give the same totals.
 
     python examples/torch_wafer_scale.py                  # 256x256 on the card
     python examples/torch_wafer_scale.py --rows 1024 --cols 1024 --k-inner 16 \\
         --capacity 62 --engine fused
     python examples/torch_wafer_scale.py --rows 32 --cols 32 --device cpu
+    python examples/torch_wafer_scale.py --rows 32 --cols 32 --engine procs \
+        [--batch-signatures] [--device cpu]
 """
 from __future__ import annotations
 
@@ -44,21 +50,33 @@ from repro_torch.configs.manycore import WAFER  # noqa: E402
 from repro_torch.core import ChannelGraph, Simulation, tiered_grid_partition  # noqa: E402
 from repro_torch.core.distributed import GraphEngine  # noqa: E402
 from repro_torch.core.fused import FusedEngine  # noqa: E402
+from repro_torch.core.graph import PartitionTree, Tier  # noqa: E402
 from repro_torch.hw.manycore import (  # noqa: E402
     ManycoreCell, allreduce_done, expected_total, make_core_params,
 )
+from repro_torch.runtime import ProcsEngine  # noqa: E402
 
 
 def build_engine(R: int, C: int, k_inner: int, k_outer: int,
                  capacity: int = WAFER.queue_capacity, engine: str = "graph",
-                 overlap="auto", device="cuda"):
+                 overlap="auto", device="cuda", batch_signatures: bool = False):
     """Torus fabric on 2 pods x 2x2 granules, every granule batched on one
-    device.  Returns (engine, per-core values)."""
+    device — or, with ``engine="procs"``, on 2 pods x 2 worker processes
+    over shared-memory rings (``batch_signatures`` stacks same-shape
+    workers into one).  Returns (engine, per-core values)."""
     values = (np.arange(R * C, dtype=np.int64) % 97 + 1).astype(np.float32)
     graph = ChannelGraph.torus(
         ManycoreCell(R, C), R, C, params=make_core_params(values.reshape(R, C)),
         capacity=capacity,
     )
+    if engine == "procs":
+        ptree = PartitionTree(
+            tiered_grid_partition(R, C, [(2, 1), (2, 1)]),
+            (Tier(axes=("pod",), K=k_outer), Tier(axes=("g",), K=k_inner)),
+            {"pod": 2, "g": 2},
+        )
+        return ProcsEngine(graph, ptree, timeout=120.0, overlap=overlap,
+                           batch_signatures=batch_signatures, device=device), values
     Engine = {"graph": GraphEngine, "fused": FusedEngine}[engine]
     eng = Engine(
         graph, tiered_grid_partition(R, C, [(2, 1), (2, 2)]), None,
@@ -75,15 +93,19 @@ def main(argv=None) -> None:
     ap.add_argument("--k-inner", type=int, default=WAFER.k_inner)
     ap.add_argument("--k-outer", type=int, default=WAFER.k_outer)
     ap.add_argument("--capacity", type=int, default=WAFER.queue_capacity)
-    ap.add_argument("--engine", choices=("graph", "fused"), default="graph",
-                    help="the queue interpreter or the fused-epoch fast path "
-                         "(identical results)")
+    ap.add_argument("--engine", choices=("graph", "fused", "procs"), default="graph",
+                    help="the queue interpreter, the fused-epoch fast path, or "
+                         "one worker process a granule (identical results)")
+    ap.add_argument("--batch-signatures", action="store_true",
+                    help="procs only: step same-signature granules in one worker")
     ap.add_argument("--overlap", action="store_true",
                     help="split every tier exchange into issue/commit halves "
                          "(bit-identical results)")
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs (default cuda)")
     args = ap.parse_args(argv)
+    if args.batch_signatures and args.engine != "procs":
+        ap.error("--batch-signatures requires --engine procs")
     R, C = args.rows, args.cols
 
     where = (torch.cuda.get_device_name(0) if args.device.startswith("cuda")
@@ -93,12 +115,18 @@ def main(argv=None) -> None:
     eng, values = build_engine(R, C, args.k_inner, args.k_outer, args.capacity,
                                engine=args.engine,
                                overlap=True if args.overlap else "auto",
-                               device=args.device)
+                               device=args.device,
+                               batch_signatures=args.batch_signatures)
     periods = eng.periods
     print(f"  partition: {eng.ptree.summary()}")
-    print(f"  exchange classes/tier: "
-          f"{[len(c) for c in eng.tier_classes]}, sync periods {periods} cycles "
-          f"(pod tier {periods[0] // periods[-1]}x rarer than intra-pod)")
+    if args.engine == "procs":
+        print(f"  {eng.NW} worker processes for {eng.G} granules "
+              f"({eng.build_stats['n_signatures']} signatures), sync periods "
+              f"{periods} cycles")
+    else:
+        print(f"  exchange classes/tier: "
+              f"{[len(c) for c in eng.tier_classes]}, sync periods {periods} cycles "
+              f"(pod tier {periods[0] // periods[-1]}x rarer than intra-pod)")
 
     t0 = time.perf_counter()
     sim = Simulation(eng).reset(0)
@@ -113,6 +141,8 @@ def main(argv=None) -> None:
         f"allreduce mismatch: {np.unique(totals)[:5]} != {want}"
     )
     cycles = sim.cycle
+    if args.engine == "procs":
+        eng.close()
     print(f"  all {R * C} cores converged to the global sum {want:.0f}")
     print(f"  {cycles} simulated cycles in {wall:.2f}s wall (set-up and the "
           f"device loop's capture included) = {R * C * cycles / wall:.3e} core-cycles/s")

@@ -20,9 +20,9 @@ The builder lowers to the channel-graph IR (``repro_torch.core.graph``), and
 ``NetworkSim`` below, the cycle-accurate oracle; ``"graph"`` is
 ``distributed.GraphEngine``, the partitioned queue interpreter (any block
 type); ``"fused"`` is ``fused.FusedEngine``; ``"register"`` is
-``fastgrid.RegisterGridEngine`` (systolic grids only).  The multiprocess
-engine of the JAX package (``"procs"``) is not ported yet and raises
-``NotImplementedError``.
+``fastgrid.RegisterGridEngine`` (systolic grids only); ``"procs"`` is
+``runtime.launcher.ProcsEngine``, one free-running worker process a
+granule joined by shared-memory rings.
 """
 from __future__ import annotations
 
@@ -40,13 +40,6 @@ from .graph import ChannelGraph
 from .struct import tensor_dataclass, tree_map
 
 Tree = Any
-
-# Engines of the JAX package that this package does not run yet, and the
-# ROADMAP queue item that ports each.
-_LATER = {
-    "procs": "Queue 1 item 10 (the multiprocess runtime)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class PortRef:
@@ -138,6 +131,15 @@ class Network:
         engine="fused"   -> fused.FusedEngine; the same kwargs as "graph".
         engine="register" -> fastgrid.RegisterGridEngine (systolic-grid
                             networks only); kwargs: K, tiles, mesh.
+        engine="procs"   -> runtime.launcher.ProcsEngine: one free-running
+                            worker process a granule over shared-memory
+                            rings, each on ``device`` (``"cuda"``: worker
+                            i on ``cuda:(i % device_count)``); kwargs:
+                            partition (flat map or PartitionTree),
+                            n_workers, K, ring_depth, timeout, prebuild,
+                            log_dir, batch_signatures, overlap (the
+                            self-healing and multi-host kwargs of the
+                            reference raise ``NotImplementedError``).
         """
         graph = self.graph()
         eng = self._build_engine(graph, engine, kw, device)
@@ -174,13 +176,12 @@ class Network:
             from .fastgrid import RegisterGridEngine
 
             return RegisterGridEngine.from_graph(graph, device=device, **kw)
-        if engine in _LATER:
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported yet: {_LATER[engine]}"
-            )
+        if engine == "procs":
+            from ..runtime.launcher import ProcsEngine
+
+            return ProcsEngine(graph, kw.pop("partition", None), device=device, **kw)
         raise ValueError(
-            f"unknown engine {engine!r} (single | graph | fused | register; "
-            "procs is not ported yet)"
+            f"unknown engine {engine!r} (single | graph | fused | register | procs)"
         )
 
 

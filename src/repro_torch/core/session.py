@@ -19,7 +19,12 @@ host-side buffer and are flushed at later boundaries during ``run``.
 
 The register engine (``engine="register"``) has no external ports; its
 ``reset`` takes no seed (the operands live in the IR), and its ``until``
-predicate sees the tile-local cell dict.
+predicate sees the tile-local cell dict.  The procs engine
+(``engine="procs"``) keeps its state in worker processes: the session
+holds a handle, its until-predicates run on the host over every granule's
+view (``eval_done``), ``save``/``load`` go through the engine's
+``gather_state``/``scatter_state``, and ``stats()`` carries one row a
+worker's granule under ``"workers"``.
 
 **State ownership.**  The session owns the engine state and lets the
 engine update it in place (``donate=True``).  The legacy
@@ -59,7 +64,7 @@ from .struct import tree_leaves
 
 Tree = Any
 
-_ENGINE_KINDS = ("single", "graph", "fused", "register")
+_ENGINE_KINDS = ("single", "graph", "fused", "register", "procs")
 _DEFAULT_MAX_EPOCHS = 100_000
 
 
@@ -289,9 +294,10 @@ class Simulation:
         return self.cycle // max(self.period, 1)
 
     def block_until_ready(self) -> "Simulation":
-        """Wait for every queued device operation on the state."""
+        """Wait for every queued device operation on the state (a procs
+        run returns once every worker has finished its epochs)."""
         self._require_state()
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.kind != "procs":
             torch.cuda.synchronize(self.device)
         return self
 
@@ -402,6 +408,8 @@ class Simulation:
                 "push_count": st.push_count.cpu().numpy(),
                 "pop_count": st.pop_count.cpu().numpy(),
             }
+        if self.kind == "procs":
+            d["workers"] = self.engine.worker_stats(st)
         d["metrics"] = REGISTRY.snapshot()
         return d
 
@@ -424,15 +432,10 @@ class Simulation:
         try:
             yield self
         finally:
-            try:
-                # an engine that buffers its own events (the reference's
-                # procs workers) hands them to the recorder first
-                flush = getattr(self.engine, "flush_telemetry", None)
-                if flush is not None:
-                    flush()
-            finally:
-                rec.export(path)
-                rec.enabled = prev
+            # the reference's procs workers also record their own phases;
+            # the port's do not yet (ROADMAP Queue 1 item 10.4)
+            rec.export(path)
+            rec.enabled = prev
 
     def add_monitor(self, fn: Callable[["Simulation"], None],
                     every: int = 1) -> Monitor:
@@ -485,6 +488,10 @@ class Simulation:
         st = self._require_state()
         if self.kind == "single":
             return bool(done_fn(st))
+        if self.kind == "procs":
+            # worker states never enter this process: the engine gathers
+            # each granule's view and evaluates host-side
+            return bool(self.engine.eval_done(st, done_fn))
         return self.engine.host_done(st, done_fn)
 
     def _session_run(
@@ -660,10 +667,13 @@ class Simulation:
         """Checkpoint the session (engine state + host-port buffers) under
         ``path`` via ``checkpoint.checkpointing`` (atomic tmp+rename).  A
         sharded engine's state is written in the global layout
-        (``core.mesh.unshard``).  Returns the written directory."""
+        (``core.mesh.unshard``); a procs engine's is gathered from its
+        workers (``gather_state``).  Returns the written directory."""
         from ..checkpoint import checkpointing
 
         st = unshard(self._require_state())
+        if self.kind == "procs":
+            st = self.engine.gather_state(st)
         if step is None:
             step = self.cycle
         meta = {
@@ -685,13 +695,17 @@ class Simulation:
 
     def load(self, path: str, step: int | None = None) -> "Simulation":
         """Restore a checkpoint into this session; the current state is the
-        template, so call ``reset`` first.  On a CUDA state the leaves are
+        template, so call ``reset`` first.  A procs engine scatters it into
+        its workers (``scatter_state``).  On a CUDA state the leaves are
         copied into the live state's own tensors: their addresses stay,
         and an until-loop the engine captured for this state replays
         after the load instead of capturing again."""
         from ..checkpoint import checkpointing
 
         template = self._require_state()
+        gathered = self.kind == "procs"
+        if gathered:  # the workers' state, gathered as the template
+            template = self.engine.gather_state(template)
         tree, meta = checkpointing.restore(path, unshard(template), step)
         if meta.get("engine_kind") not in (None, self.kind):
             raise ValueError(
@@ -701,7 +715,9 @@ class Simulation:
         place = getattr(self.engine, "place", None)
         if place is not None:
             tree = place(tree)  # the global layout onto the shards
-        if self.device.type == "cuda":
+        if gathered:
+            self._state = self.engine.scatter_state(self._require_state(), tree)
+        elif self.device.type == "cuda":
             for dst, src in zip(tree_leaves(template), tree_leaves(tree)):
                 if isinstance(dst, torch.Tensor):
                     dst.copy_(src)

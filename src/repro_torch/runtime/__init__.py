@@ -1,0 +1,31 @@
+"""repro_torch.runtime — the free-running multiprocess runtime, as in
+``repro.runtime``, on a single host.
+
+The paper's deployment model, realized literally: one *prebuilt* granule
+simulator per OS process, connected at runtime by lock-free shared-memory
+SPSC queues, free-running with no global barrier.
+
+  shmem            SPSC rings over POSIX shared memory, byte layout and
+                   semantics bit-compatible with the reference's and with
+                   core/queue.py (§III-B)
+  worker           per-granule worker process: the granule state on its
+                   device (its cycle graphs captured once on the card) +
+                   credit-gated free run
+  launcher         ProcsEngine — Network.build(engine="procs"): spawn,
+                   wire, and drive the fleet behind the Simulation facade
+  fault_tolerance  watchdogs, crash/restart loops, WorkerDiedError with
+                   captured worker log tails, fleet stall diagnosis
+                   (credit wait-for graph -> FleetStallError)
+
+Not ported yet: self-healing (``recovery``, ``faultinject``; ROADMAP
+Queue 1 item 10.2), the TCP bridge and multi-host fleets (item 10.3),
+worker telemetry (item 10.4).
+"""
+from .fault_tolerance import FleetStallError, LinkDownError, WorkerDiedError
+from .launcher import ProcsEngine, ProcsState
+from .shmem import RingCorruptionError, RingTimeout, ShmRing
+
+__all__ = [
+    "FleetStallError", "LinkDownError", "ProcsEngine", "ProcsState",
+    "RingCorruptionError", "RingTimeout", "ShmRing", "WorkerDiedError",
+]

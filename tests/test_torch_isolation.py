@@ -56,8 +56,9 @@ def test_scan_sees_the_package():
             "torch_wafer_scale.py", "torch_systolic_matmul.py",
             "torch_heterogeneous_soc.py", "session.py", "trace.py", "schema.py",
             "report.py", "checkpointing.py", "perfmodel.py",
-            "torch_quickstart.py"} <= names
-    assert {"obs", "checkpoint", "core"} <= {p.parent.name for p in PORT_FILES}
+            "torch_quickstart.py", "shmem.py", "worker.py", "launcher.py",
+            "fault_tolerance.py"} <= names
+    assert {"obs", "checkpoint", "core", "runtime"} <= {p.parent.name for p in PORT_FILES}
     assert {"flash_attention.cu", "rglru_scan.cu", "slstm_scan.cu"} <= {
         p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
@@ -91,6 +92,27 @@ def test_engines_default_to_cuda():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 make()
         assert make(device="cpu").device.type == "cpu"
+
+
+def test_procs_engine_defaults_to_cuda(monkeypatch):
+    """``build(engine="procs")`` places its workers on CUDA unless told
+    ``device="cpu"``; without a card the launcher raises before it lowers
+    the graph or spawns anything."""
+    from repro_torch.runtime import launcher
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default would spawn a fleet")
+    spawned = []
+    monkeypatch.setattr(launcher, "lower_partition",
+                        lambda *a: spawned.append("lowered"))
+    monkeypatch.setattr(launcher, "_worker_mp_context",
+                        lambda: spawned.append("context"))
+    net = Network(payload_words=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        net.build(engine="procs")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launcher.ProcsEngine(_graph(), None)
+    assert spawned == []
 
 
 def test_lm_entry_points_default_to_cuda():

@@ -152,8 +152,17 @@ def test_build_engine_names():
     sim.reset(0).tx("tx").send([5.0, 0.0])
     sim.run(cycles=8)
     assert sim.cycle == 8 and sim.rx("rx").recv()[0] == 7.0
-    with pytest.raises(NotImplementedError, match="item 10"):
-        net.build(engine="procs", device="cpu")
+    from repro_torch.runtime import ProcsEngine
+
+    psim = net.build(engine="procs", device="cpu", partition=[0, 1], K=2)
+    try:
+        assert isinstance(psim.engine, ProcsEngine) and psim.kind == "procs"
+        psim.reset(0).tx("tx").send([5.0, 0.0])
+        psim.run(cycles=8)
+        assert psim.cycle == 8 and psim.rx("rx").recv()[0] == 7.0
+    finally:
+        psim.engine.close()
+    assert psim.engine._closed and not psim.engine._rings
     with pytest.raises(ValueError, match="unknown engine"):
         net.build(engine="bogus", device="cpu")
     assert net.build(engine="single", device="cpu").kind == "single"
