@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-Eight paths, each through the entry points a user calls:
+Nine paths, each through the entry points a user calls:
 
   * the paper's wafer-scale torus: 1024x1024 ``ManycoreCell`` cores running
     a two-phase ring allreduce, partitioned over 2 pods x 2x2 granules with
@@ -19,7 +19,12 @@ Eight paths, each through the entry points a user calls:
     1024x1024 ``SystolicCell``s -> ``Simulation``, whose epoch of K = 62
     cycles is one call of ``granule_step``, stepping the cells with the
     kernel's SystolicCell device step (the kernel also runs programs of
-    several groups and of both block types in one launch a cycle);
+    several groups and of several block types in one launch a cycle);
+  * the fused host-I/O path: ``make_chain`` / ``make_ring`` of
+    ``PipeStage``s through ``Simulation`` -> ``FusedEngine``, the chain fed
+    and drained by the host, each epoch one call of ``granule_step`` with
+    the kernel's PipeStage device step (the reference's
+    ``benchmarks/sim_throughput.py`` chain session on the fused engine);
   * the queue interpreter: the same wafer and matmul on ``GraphEngine``
     and its ``GridEngine`` preset (``build(engine="graph")``), plain
     PyTorch on the card as the reference's ``GraphEngine`` is plain XLA
@@ -40,7 +45,9 @@ Eight paths, each through the entry points a user calls:
     free-running worker process a granule on the card, joined by
     shared-memory rings, each worker replaying its captured cycle graphs
     (plain PyTorch, as the reference's worker is plain XLA: it reaches no
-    Pallas kernel), on the wafer at full width against ``GraphEngine``;
+    Pallas kernel), on the wafer at full width against ``GraphEngine``,
+    and self-healing (``on_fault="recover"``): drilled faults healed by
+    respawn, restore and replay, bit-identical to a fault-free fleet;
   * LM serving: ``launch.serve.serve`` -> ``models.model.init_params`` ->
     ``prefill`` -> greedy ``decode_step``s for recurrentgemma-2b,
     xlstm-125m and the dense llama3.2-1b at their published widths (batch
@@ -136,7 +143,22 @@ Phases (a failing phase raises, and the script exits non-zero):
              bit-identical to ``RegisterGridEngine``'s Y on the same
              operands and within gamma_R * (|A| @ |B|), core-cycles/s and
              peak memory; ``compare_loops`` as in ``full``.
-  8. graph-small  ``GraphEngine`` on a 32x32 torus, 8 granules, tiers
+  8. fused-io  ``PipeStage``'s device step: ``make_chain(4)`` through the
+             session on ``FusedEngine`` (K = 1 at capacity 2, every boundary
+             bit-identical to ``NetworkSim`` on the card; K = 2 on one and on
+             two granules, the packet sequence identical); 40 host-fed epochs
+             of a 16-stage chain on 1, 2 and 4 granules and 12 epochs of a
+             seeded 12-stage ring on 2, each bit-exact against
+             ``epoch_program_ref`` on a copy on the card; the main path, the
+             reference's ``_chain_session`` (``make_chain(4, capacity=8)``,
+             K = 2, 200 packets) with the launch count set to 0 just before
+             and read just after, every packet back in order and equal to
+             ``NetworkSim``'s; then a chain of ``PIPE_N`` (1,048,576) stages
+             fed from the host: set-up, one epoch bit-exact against the
+             plain version, the kernel's and the plain version's ms a cycle
+             (CUDA events) beside the byte bound (``pipe_cycle_bytes``),
+             added to row 1 of the ``kernels`` line under ``pipestage``.
+  9. graph-small  ``GraphEngine`` on a 32x32 torus, 8 granules, tiers
              (2, 4), capacity 4: the card (the queue array written in
              place) against the same engine on a CPU copy (the functional
              forms), every state leaf bit-exact after each of 10 epochs,
@@ -148,7 +170,7 @@ Phases (a failing phase raises, and the script exits non-zero):
              (``examples/torch_heterogeneous_soc.py``) at K = 1 bit-identical
              to ``NetworkSim`` on the card; a ``PipeStage`` chain driven
              through ``sim.tx``/``sim.rx``.
-  9. graph-full  wafer-1M on ``GraphEngine`` (every channel a ring of 62,
+  10. graph-full  wafer-1M on ``GraphEngine`` (every channel a ring of 62,
              2 pods x 2x2 granules on the card): set-up seconds; one epoch
              bit-exact against a CPU copy; ``Simulation.run(until=
              allreduce_done)`` in the device loop with every total
@@ -160,7 +182,7 @@ Phases (a failing phase raises, and the script exits non-zero):
              share, device events a cycle); then ``GridEngine`` on the
              1024^2 systolic matmul at K = 62, whose Y must equal the
              register engine's bit for bit.
-  10. session-small  the rest of the session surface on the card: the
+  11. session-small  the rest of the session surface on the card: the
              four-engine scenario of ``tests/test_session.py`` (a 6x4 @ 4x4
              systolic network on single, graph, fused and register: reset,
              ``run(cycles=12)``, ``save``, ``run(until)``, then a fresh
@@ -177,7 +199,7 @@ Phases (a failing phase raises, and the script exits non-zero):
              one, its file valid (``obs.schema``) and summarized
              (``obs.report``); ``examples/torch_quickstart.py``; with
              ``granule_step`` and ``systolic_step`` launched.
-  11. session-full  wafer-1M as a session on ``FusedEngine``:
+  12. session-full  wafer-1M as a session on ``FusedEngine``:
              ``run(until=allreduce_done)`` without and with a monitor every
              16 epochs (reading ``sim.cycle`` and ``sim.probe(0).total``),
              both stopping at cycle 4,352 with the same state, samples at
@@ -188,7 +210,7 @@ Phases (a failing phase raises, and the script exits non-zero):
              fresh one, both resuming to a final state bit-identical to the
              uninterrupted run; one warm ``run(epochs=8)`` traced, its
              ``epoch_window`` span beside the untraced window's wall.
-  12. mesh-small  real mesh axes, every shard on the card: the 32x32 wafer
+  13. mesh-small  real mesh axes, every shard on the card: the 32x32 wafer
              (tiers (2, 4), capacity 4) on ``GraphEngine`` and
              ``FusedEngine`` with the pods real and the granules batched
              and on the all-real (pod, gr, gc) mesh, overlap off and on,
@@ -206,7 +228,7 @@ Phases (a failing phase raises, and the script exits non-zero):
              bit-identical to the CPU and the one-shard session, a save,
              an in-place load (addresses kept) whose resume equals a CPU
              session's resume from the same checkpoint.
-  13. mesh-full  at full width, nothing cut, every shard on the card:
+  14. mesh-full  at full width, nothing cut, every shard on the card:
              the all-batch wafer-1M run (the ``full`` cell) as the
              yardstick; wafer-1M-pods (``FusedEngine``, pods real, 2
              shards of 4 granules: the inner tier resident in each shard's
@@ -225,7 +247,7 @@ Phases (a failing phase raises, and the script exits non-zero):
              (``RegisterGridEngine``, 2x2 mesh, 4 shards of 512x512): Y
              bit-identical to one tile's, the stop the 2x2-stacked tiles',
              ``compare_loops``, launches, bytes.
-  14. procs-small  the procs engine, every worker on the card: the chain's
+  15. procs-small  the procs engine, every worker on the card: the chain's
              host I/O script (K = 1, capacity 2, 2 workers) and the 4-worker
              non-zero-home script, traffic bit-identical to ``NetworkSim`` on
              the card; the 6x4 @ 4x4 systolic scenario on 4 workers
@@ -233,35 +255,55 @@ Phases (a failing phase raises, and the script exits non-zero):
              fleet's ``load`` and resume), ``Y`` bit-identical; the 32x32
              wafer on 4 workers (``batch_signatures`` and ``overlap`` off,
              then both on), stop and blocks bit-identical to ``GraphEngine``
-             on the same ``PartitionTree``; SIGKILL of worker 1 raising
+             on the same ``PartitionTree``; the recovery drills of
+             ``tests/test_recovery.py`` (a 3-stage chain on 2 workers, K = 1,
+             ``snapshot_every=2``): ``kill:1@5``, ``exit0:1@3``,
+             ``corrupt:0@3`` and ``hang:1@3`` (timeout 8 s) under
+             ``on_fault="recover"``, host trace and final ``gather_state``
+             bit-identical to a fault-free fleet's with one restart, no
+             worker or ``/dev/shm`` segment of the earlier incarnation left,
+             and ``corrupt:0@3`` under ``raise`` raising
+             ``RingCorruptionError``; SIGKILL of worker 1 raising
              ``WorkerDiedError`` naming it, "granule 1" in its log tail.
-  15. procs-full  wafer-1M-procs4: ``configs/manycore.py::CONFIG`` at full
+  16. procs-full  wafer-1M-procs4: ``configs/manycore.py::CONFIG`` at full
              width on the reference example's procs layout (2 pods x 2 row
              strips, 4 worker processes of 262,144 cores, all on the card),
-             ``run(until=allreduce_done)``; then the same with
-             ``batch_signatures`` (2 workers of 2 strips: the torus has two
-             strip shapes); the yardstick ``GraphEngine`` on the same tree in
-             one process: stop cycle and every block bit-identical, every
-             total 4,718,592.  Logs set-up (lowering, prebuild, rings,
+             ``run(until=allreduce_done)``; then ``batch_signatures`` (2
+             workers of 2 strips: the torus has two strip shapes) for
+             ``PROCS_BATCH_EPOCHS`` (16) epochs; the yardstick
+             ``GraphEngine`` on the same tree in one process: stop cycle and
+             every block bit-identical, every total 4,718,592 (the
+             batch_signatures run: every block after as many epochs).  Logs set-up (lowering, prebuild, rings,
              spawn, workers ready, capture), the run's seconds and
              core-cycles/s, rings and shared-memory bytes, ring ops and view
              bytes an epoch, each worker's run, busy, wait and capture
              seconds, and (plain) the card's idle share over 2 traced epochs.
-  16. lm-small  each LM kernel against its plain version on the card, at
+             Then the plain fleet again under ``on_fault="recover"`` with no
+             fault, by ``run(until=...)`` (a snapshot at every epoch, as the
+             reference takes them) and by ``run(epochs=67)`` (a snapshot
+             every 16): the until-run's seconds beside the raise run's, the
+             snapshots' count, seconds and bytes; and for each of the two
+             runs a fresh fleet with ``kill:1@40``: stop and blocks
+             bit-identical to ``GraphEngine``'s, MTTR (its seconds less the
+             fault-free recover run's) split into detect, teardown,
+             backoff, respawn, restore, replay (none after the until-run's
+             snapshot at epoch 40; 8 epochs from the epochs-run's at 32)
+             and the snapshots' excess.
+  17. lm-small  each LM kernel against its plain version on the card, at
              the CPU tests' shapes (``kernels.lm_checks``): attention MHA,
              GQA and MQA, causal with and without a window, f32 (the
              CUDA-core route) and bf16 (the tensor-core route; each case
              must take its dtype's route), D up to 256, T not a multiple
              of 128; the RG-LRU with and without h0; the sLSTM at T = 1
              and longer, R in f32 and bf16, up to xlstm-125m's width.
-  17. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
+  18. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
              size, on the card); then llama3.2-1b at full width (16 layers,
              d 2048, GQA 32/8, head dim 64) through ``serve`` with the flash
              launch count set to 0 just before and read just after (16,
              all on the tensor-core route), every logit finite, and the
              first layer's flash call held against the plain version at the
              run's own inputs.
-  18. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
+  19. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
              attention layers, window 2048): ``serve`` with every kernel's
              launch count set to 0 just before and read just after (8
              ``flash_attention``, all on the tensor-core route, 18
@@ -280,7 +322,7 @@ Phases (a failing phase raises, and the script exits non-zero):
              call also without); last, a warm prefill and one decode step
              under ``torch.profiler``: device idle share and time by kernel
              (``rglru_clear``: the RG-LRU's status clear).
-  19. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
+  20. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
              prefill, 6 in each of the 15 decode steps), at the first
              decode step's inputs and the first prefill's: the cluster
              plan, the T = 1 call by CUDA events and the wrapper's host
@@ -294,6 +336,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases build,small,sys-small
     python3 chip_smoke.py --phases build,fsys-small,fsys-full
+    python3 chip_smoke.py --phases build,fused-io,procs-small,procs-full
     python3 chip_smoke.py --phases build,graph-small,graph-full
     python3 chip_smoke.py --phases build,session-small,session-full
     python3 chip_smoke.py --phases build,mesh-small,mesh-full
@@ -322,7 +365,7 @@ KERNELS = ("granule_step", "systolic_step", "flash_attention", "rglru_scan",
 #: and these, built as variants (``-DRGLRU_CHUNK``).
 RGLRU_SWEEP_VARIANTS = (64, 128, 512)
 PHASES = ("build", "small", "full", "sys-small", "sys-full", "fsys-small",
-          "fsys-full", "graph-small", "graph-full", "session-small", "session-full",
+          "fsys-full", "fused-io", "graph-small", "graph-full", "session-small", "session-full",
           "mesh-small", "mesh-full", "procs-small", "procs-full", "lm-small", "lm-dense",
           "rg-full", "xl-full")
 
@@ -903,7 +946,7 @@ def phase_full(result: dict) -> None:
         name="granule_step", route="cuda",
         source="src/repro_torch/kernels/csrc/granule_step.cu",
         replaces="src/repro/kernels/granule_step.py:306",
-        block_type="ManycoreCell", block_types=["ManycoreCell", "SystolicCell"],
+        block_type="ManycoreCell", block_types=["ManycoreCell", "SystolicCell", "PipeStage"],
         launches=launches, max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by="bytes", library_ms=None,
     )
@@ -1429,10 +1472,220 @@ def phase_fsys_full(result: dict) -> None:
         name="granule_step[SystolicCell]", route="cuda",
         source="src/repro_torch/kernels/csrc/granule_step.cu",
         replaces="src/repro/kernels/granule_step.py:306",
-        block_type="SystolicCell", block_types=["ManycoreCell", "SystolicCell"],
+        block_type="SystolicCell", block_types=["ManycoreCell", "SystolicCell", "PipeStage"],
         launches=launches, max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by="bytes", library_ms=None,
     )
+
+
+# ------------------------------------------------ the fused host-I/O path
+PIPE_N = 1_048_576  # the timed chain's stages: the wafer cells' slot count
+PIPE_K = 16  # its cycles an epoch (one launch a cycle)
+PIPE_CAP = 8  # its queue capacity (the reference's make_chain default)
+
+
+def pipe_cycle_bytes(local, consts, pushes: float) -> dict:
+    """The least bytes one simulated cycle of a PipeStage network must
+    move, each input read once and each output written once, counted from
+    this run's tensors and data.  Every cycle: each register's valid flag
+    read and written (the cycle's new flags), each boundary or external
+    queue row's head, tail and front word 0 read and head and tail
+    written, and the port tables ``rx_idx`` and ``tx_idx`` read.  Each
+    handshake (``pushes`` a cycle, counted in the timed window): the
+    stage's ``count`` read and written and the packet's payload read and
+    written.  A stage that does not fire touches neither its ``count``
+    nor a payload."""
+    def nb(x):
+        return x.numel() * x.element_size()
+
+    count = local.block_states[0].count
+    n_reg, W = local.reg_val.shape
+    word = local.reg_val.element_size()
+    regs = n_reg * 2 * local.reg_v.element_size()
+    q = local.queues
+    rows = q.head.numel() if q.buf.shape[0] > 1 else 0
+    queues = rows * (2 * (q.head.element_size() + q.tail.element_size()) + word)
+    tables = sum(nb(x) for x in consts.rx_idx) + sum(nb(x) for x in consts.tx_idx)
+    block = pushes * 2 * count.element_size()
+    packets = pushes * 2 * W * word
+    return {"block": block, "regs": regs, "queues": queues, "packets": packets,
+            "tables": tables, "per_cycle": block + regs + queues + packets + tables}
+
+
+def chain_session(sim, n_pkts: int) -> list:
+    """The reference's ``_chain_session`` traffic (``benchmarks/
+    sim_throughput.py``): up to 4 packets sent at a time until ``n_pkts``
+    are queued, 8 cycles run, the receiver drained, until every packet is
+    back.  Returns the packets received, in order."""
+    import numpy as np
+
+    tx, rx = sim.tx("tx"), sim.rx("rx")
+    out, queued = [], 0
+    for _ in range(100_000):
+        if sum(len(x) for x in out) >= n_pkts:
+            break
+        if queued < n_pkts:
+            batch = [[float(queued + j), 0.0] for j in range(min(4, n_pkts - queued))]
+            tx.send_many(batch)  # overflow parks in the host tier
+            queued += len(batch)
+        sim.run(cycles=8)
+        out.append(np.asarray(rx.drain()))
+    return out
+
+
+def phase_fused_io(result: dict) -> None:
+    """PipeStage's device step: the fused host-I/O path on the card."""
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.core.struct import tree_map
+    from repro_torch.hw.pipestage import make_chain, make_ring
+    from repro_torch.kernels import fused_checks as fc
+    from repro_torch.kernels import granule_step
+
+    # (a) the io_script through the session: K = 1 at capacity 2 per
+    # boundary, K = 2 as a packet sequence, against NetworkSim on the card
+    for K, cap, kw in ((1, 2, {}), (2, 8, {}),
+                       (2, 8, dict(partition=[0, 0, 1, 1], tiers=[(("g",), 2)],
+                                   batch_axes={"g": 2}))):
+        want = io_script(make_chain(4, capacity=cap).build(device="cuda").reset(0))
+        sim = make_chain(4, capacity=cap).build(engine="fused", device="cuda", K=K, **kw)
+        before = granule_step.launches
+        got = io_script(sim.reset(0))
+        n = granule_step.launches - before
+        if K == 1:
+            same = len(got) == len(want) and all(np.array_equal(a, b)
+                                                 for a, b in zip(want, got))
+        else:
+            same = np.array_equal(np.concatenate(want), np.concatenate(got))
+        if not same or n <= 0:
+            raise AssertionError(f"[fused-io] chain K={K} {kw}: traffic differs from "
+                                 f"NetworkSim or no launch ({n})")
+        log(f"[fused-io] make_chain(4, capacity={cap}) K={K} on FusedEngine, "
+            f"{sim.engine.B} granule(s): {sum(len(t) for t in got)} packets "
+            f"{'at every boundary' if K == 1 else 'in sequence'} bit-identical to "
+            f"NetworkSim on the card; {n} granule_step launches")
+
+    # (b) program epochs with PipeStage groups against epoch_program_ref on
+    # a copy: a host-fed chain (1, 2 and 4 granules) and a seeded ring
+    for K, g in ((1, 1), (2, 2), (4, 4)):
+        kw = ({} if g == 1 else dict(partition=(np.arange(16) * g // 16).tolist(),
+                                     tiers=[(("g",), K)], batch_axes={"g": g}))
+        eng = make_chain(16, capacity=4, delta=0.5).build(
+            engine="fused", session=False, device="cuda", K=K, **kw)
+        popped = fc.check_io(eng, 40, seed=K)
+        log(f"[fused-io] make_chain(16) K={K} on {g} granule(s): 40 host-fed epochs "
+            f"bit-exact against epoch_program_ref on a copy on the card, {popped} "
+            f"packets popped alike")
+    eng = make_ring(12, capacity=4).build(
+        engine="fused", session=False, device="cuda", K=2,
+        partition=[0] * 6 + [1] * 6, tiers=[(("g",), 2)], batch_axes={"g": 2})
+    kern = fc.seed_registers(eng.init(0), every=2)
+    plain = fc.clone(kern)
+    for _ in range(12):
+        kern = eng.run_epochs(kern, 1)
+        plain = fc.plain_epochs(eng, plain)
+        torch.cuda.synchronize()
+        fc.compare(kern, plain)
+    log(f"[fused-io] make_ring(12) K=2 on 2 granules, registers seeded: 12 epochs "
+        f"bit-exact against epoch_program_ref ({int(kern.block_states[0].count.sum())} "
+        f"handshakes)")
+
+    # (c) the main path: the reference's _chain_session (make_chain(4,
+    # capacity=8), K = 2, 200 packets) through Simulation on FusedEngine,
+    # the launch count set to 0 just before and read just after
+    want = chain_session(make_chain(4, capacity=8).build(device="cuda").reset(0), 200)
+    sim = make_chain(4, capacity=8).build(engine="fused", device="cuda", K=2).reset(0)
+    sim.block_until_ready()
+    granule_step.launches = 0
+    t0 = time.perf_counter()
+    got = chain_session(sim, 200)
+    sim.block_until_ready()
+    run_s = time.perf_counter() - t0
+    launches = granule_step.launches
+    got, want = np.concatenate(got), np.concatenate(want)
+    expect = np.stack([np.arange(200, dtype=np.float32) + 4.0,
+                       np.zeros(200, np.float32)], axis=1)
+    if launches <= 0:
+        raise AssertionError("[fused-io] the main path launched granule_step 0 times")
+    if not (np.array_equal(got, want) and np.array_equal(got, expect)):
+        raise AssertionError("[fused-io] _chain_session: packets differ")
+    counts = [int(sim.probe(i).count) for i in range(4)]
+    log(f"[fused-io] _chain_session on FusedEngine: 200 packets back in order, each "
+        f"+4.0 (bit-identical to NetworkSim on the card), counts {counts}, "
+        f"{sim.cycle} cycles in {run_s:.3f} s, granule_step launches {launches}")
+
+    # (d) the timed chain: PIPE_N stages fed from the host, the kernel's and
+    # the plain version's ms a simulated cycle beside the byte bound
+    t0 = time.perf_counter()
+    net = make_chain(PIPE_N, capacity=PIPE_CAP)
+    net_s = time.perf_counter() - t0
+    sim = net.build(engine="fused", device="cuda", K=PIPE_K).reset(0)
+    sim.block_until_ready()
+    setup_s = time.perf_counter() - t0
+    eng = sim.engine
+    for _ in range(64):  # host-fed warm-up: packets spread down the chain
+        sim.tx("tx").send_many([[float(i), 0.0] for i in range(PIPE_CAP - 1)])
+        sim.run(epochs=1)
+        sim.rx("rx").drain()
+    sim.tx("tx").send_many([[float(i), 1.0] for i in range(PIPE_CAP - 1)])
+    sim.block_until_ready()
+    start = fc.clone(sim.state)
+    plain = fc.plain_epochs(eng, fc.clone(start))
+    kern = eng.run_epochs(fc.clone(start), 1)
+    torch.cuda.synchronize()
+    err = fc.compare(kern, plain)
+    del kern, plain
+    local = eng._local_view(fc.clone(start))
+    carry = (local.reg_val, local.reg_v, local.queues, local.block_states,
+             local.cycle, local.credits)
+    program = eng._resident_program(0)
+    consts = eng._consts(local.tables)
+    n_cyc = sum(a for op, a in program if op == "C")
+    n_before = granule_step.launches
+    kernel = lambda: granule_step.epoch_program_cuda(carry, program, consts)  # noqa: E731
+    kernel()  # warm-up
+    torch.cuda.synchronize()
+    reps = 10
+    c0 = int(local.block_states[0].count.sum(dtype=torch.int64))
+    k_times = [t / n_cyc for t in time_reps(kernel, reps)]
+    pushes = (int(local.block_states[0].count.sum(dtype=torch.int64)) - c0) / (reps * n_cyc)
+    granule_step.launches = n_before  # timing launches are not the main path
+    ref_carry = tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, carry)
+
+    def run_ref():
+        nonlocal ref_carry
+        ref_carry = granule_step.epoch_program_ref(
+            eng._resident_cycle, ref_carry, program,
+            exchange_fn=eng._resident_exchange,
+            issue_fn=eng._resident_exchange_issue,
+            commit_fn=eng._resident_exchange_commit, consts=consts)
+
+    run_ref()  # warm-up
+    p_times = [t / n_cyc for t in time_reps(run_ref, 5)]
+    kern_ms, plain_ms = statistics.median(k_times), statistics.median(p_times)
+    nbytes = pipe_cycle_bytes(local, consts, pushes)
+    bound_ms = nbytes["per_cycle"] / HBM_BYTES_PER_S * 1e3
+    log(f"[fused-io] make_chain({PIPE_N}, capacity={PIPE_CAP}) at K={PIPE_K} on "
+        f"FusedEngine: network {net_s:.2f} s, set-up {setup_s:.2f} s; one epoch from "
+        f"a host-fed state bit-exact against the plain version on a copy (max |diff| "
+        f"{err}); per simulated cycle (median over {reps} kernel and {len(p_times)} "
+        f"plain epochs): kernel {kern_ms:.5f} ms ({min(k_times):.5f}-{max(k_times):.5f}), "
+        f"plain PyTorch on the card {plain_ms:.4f} ms ({min(p_times):.4f}-"
+        f"{max(p_times):.4f}), {plain_ms / kern_ms:.1f}x the kernel; memory bound "
+        f"{bound_ms:.5f} ms, kernel at {kern_ms / bound_ms:.2f}x it; bound per slot "
+        + ", ".join(f"{k} {nbytes[k] / PIPE_N:.2f} B" for k in
+                    ("per_cycle", "block", "regs", "queues", "packets", "tables"))
+        + f" ({pushes:.1f} handshakes a cycle)")
+    del carry, ref_carry, local, start, sim, eng, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["pipestage"] = dict(
+        block_type="PipeStage", cell=f"make_chain({PIPE_N}) K={PIPE_K}",
+        launches=launches, max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", library_ms=None)
 
 
 # ------------------------------------------- the queue interpreter (GraphEngine)
@@ -3115,6 +3368,10 @@ def phase_mesh_full(kernels: list) -> None:
 
 # ------------------------------------------------------------ procs fleets
 PROCS_TIMEOUT = 120.0  # seconds a worker may go silent before it is dead
+#: epochs of procs-full's batch_signatures run (a fixed window against
+#: GraphEngine's state after as many, not the run to its end: the recover
+#: runs took its time)
+PROCS_BATCH_EPOCHS = 16
 
 
 def procs_wafer(R, C, k_outer, k_inner, capacity, device, **kw):
@@ -3261,6 +3518,9 @@ def phase_procs_small() -> None:
             f"overlap={overlap}): stop cycle {stop} and every block bit-identical to "
             f"GraphEngine on the same PartitionTree on the card")
 
+    # self-healing drills, the reference's _drill scenario
+    fault_drills()
+
     # SIGKILL of one worker: WorkerDiedError naming it, with its log tail
     sim = procs(make_chain(3, capacity=4), n_workers=3, partition=[0, 1, 2], K=1)
     sim.reset(0).tx("tx").send([1.0, 0.0])
@@ -3279,6 +3539,143 @@ def phase_procs_small() -> None:
             f"naming it, its log tail holding 'granule 1'; the fleet torn down")
     else:
         raise AssertionError("[procs-small] a killed worker went unnoticed")
+    finally:
+        sim.engine.close()
+
+
+def watch_incarnations(eng) -> dict:
+    """Spy on ``eng``'s teardowns and recovery respawns.  At each ``close``
+    of a live fleet: its wall-clock start, its seconds and every worker's
+    log tail (read before the teardown).  At each ``_reopen``: the worker
+    processes and ring prefix of the incarnation it replaces, and its
+    seconds (rings, spawn, every worker ready with its captures).  At each
+    run command and each recovery snapshot: its epoch, its seconds and the
+    incarnation that ran it."""
+    from repro_torch.runtime.fault_tolerance import read_log_tail
+
+    seen: dict = {"close": [], "reopen": [], "commands": [], "snapshots": []}
+    close, reopen, raw = eng.close, eng._reopen, eng._run_epochs_raw
+    take = eng._recovery._take_snapshot
+
+    def timed(key, fn, state, *args):
+        epoch, t0 = int(state.epoch), time.perf_counter()
+        out = fn(state, *args)
+        seen[key].append({"epoch": epoch, "n": args[0] if args else 0,
+                          "seconds": time.perf_counter() - t0,
+                          "incarnation": eng._incarnation})
+        return out
+
+    def close_spy():
+        if eng._closed:
+            return close()
+        paths = eng._monitor.log_paths if eng._monitor is not None else {}
+        logs = {w: read_log_tail(p, max_bytes=8192) for w, p in paths.items()}
+        at, t0 = time.time(), time.perf_counter()
+        close()
+        seen["close"].append({"at": at, "seconds": time.perf_counter() - t0,
+                              "logs": logs})
+
+    def reopen_spy():
+        seen["reopen"].append({"procs": list(eng._procs.values()),
+                               "prefix": eng._ring_prefix})
+        t0 = time.perf_counter()
+        reopen()
+        seen["reopen"][-1]["seconds"] = time.perf_counter() - t0
+
+    eng.close, eng._reopen = close_spy, reopen_spy
+    eng._run_epochs_raw = lambda state, n: timed("commands", raw, state, n)
+    eng._recovery._take_snapshot = lambda state: timed("snapshots", take, state)
+    return seen
+
+
+def check_no_leftovers(tag: str, seen: dict) -> str:
+    """No worker process of an earlier incarnation alive and none of its
+    shared-memory segments left in ``/dev/shm``."""
+    import os
+
+    gone = seen["reopen"]
+    alive = [p.pid for r in gone for p in r["procs"] if p.is_alive()]
+    segs = [f for r in gone for f in os.listdir("/dev/shm") if f.startswith(r["prefix"])]
+    if alive or segs:
+        raise AssertionError(f"[procs-small] {tag}: earlier incarnation left "
+                             f"workers {alive} and segments {segs[:5]}")
+    teardown = ", ".join(f"{c['seconds']:.2f}" for c in seen["close"][:len(gone)])
+    return (f"{sum(len(r['procs']) for r in gone)} workers of {len(gone)} earlier "
+            f"incarnation(s) gone (teardown {teardown} s), none of their segments "
+            f"in /dev/shm")
+
+
+def recovery_split(seen: dict, last: dict) -> dict:
+    """The seconds of one recovery from the spies of ``watch_incarnations``
+    and the controller's ``last_recovery``: ``teardown`` (the faulted
+    fleet's ``close``), ``respawn`` (``_reopen``) and ``restore``
+    (``scatter_state``: the controller's restore seconds less its backoff
+    and the respawn)."""
+    teardown, respawn = seen["close"][0]["seconds"], seen["reopen"][0]["seconds"]
+    return {"teardown": teardown, "respawn": respawn,
+            "restore": last["restore_seconds"] - last["backoff_s"] - respawn}
+
+
+def fault_drills() -> None:
+    """The reference's recovery drill (``tests/test_recovery.py``'s
+    ``_drill``: a 3-stage chain on 2 workers, K = 1, ``snapshot_every=2``,
+    ``backoff_s=0``), every worker on the card: kill, clean exit and
+    corruption healed bit-identical to a fault-free fleet, corruption
+    raising under ``raise``, a hung worker healed; no process or segment of
+    an earlier incarnation left."""
+    import numpy as np
+    from repro_torch.hw.pipestage import make_chain
+    from repro_torch.obs.registry import REGISTRY
+    from repro_torch.runtime import RingCorruptionError
+
+    def fleet(**kw):
+        kw.setdefault("timeout", PROCS_TIMEOUT)
+        return make_chain(3, capacity=4).build(
+            engine="procs", device="cuda", n_workers=2, partition=[0, 0, 1], K=1, **kw)
+
+    def run(sim):
+        try:
+            trace = io_script(sim.reset(0))
+            return trace, sim.engine.gather_state(sim.state), sim.engine.fault_stats()
+        finally:
+            sim.engine.close()
+
+    want, want_tree, _ = run(fleet())
+    recover = dict(on_fault="recover", snapshot_every=2, backoff_s=0.0)
+    for plan, fault, kw in (("kill:1@5", "WorkerDiedError", {}),
+                            ("exit0:1@3", "WorkerDiedError", {}),
+                            ("corrupt:0@3", "RingCorruptionError", {}),
+                            ("hang:1@3", "WorkerDiedError", dict(timeout=8.0))):
+        sim = fleet(fault_plan=plan, **recover, **kw)
+        seen = watch_incarnations(sim.engine)
+        killed = REGISTRY.counters().get("procs.close.killed", 0.0)
+        t0 = time.perf_counter()
+        got, tree, faults = run(sim)
+        wall = time.perf_counter() - t0
+        killed = REGISTRY.counters().get("procs.close.killed", 0.0) - killed
+        last = faults["last_recovery"] or {}
+        if not (len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(want, got))
+                and same_leaves(want_tree, tree)):
+            raise AssertionError(f"[procs-small] drill {plan}: traffic or state differs")
+        if faults["restarts"] != 1 or last.get("fault") != fault:
+            raise AssertionError(f"[procs-small] drill {plan}: {faults}")
+        left = check_no_leftovers(plan, seen)
+        split = recovery_split(seen, last)
+        log(f"[procs-small] drill {plan} under recover: {fault} healed, host trace and "
+            f"gather_state bit-identical to the fault-free fleet; restarts 1, "
+            f"incarnation {faults['incarnation']}, restored epoch "
+            f"{last['restored_epoch']}, respawn {split['respawn']:.2f} s, "
+            f"restore {split['restore']:.3f} s, {faults['snapshots']} snapshots; "
+            f"{wall:.2f} s in all; {left}; workers killed after SIGTERM failed: "
+            f"{killed:.0f}")
+    sim = fleet(fault_plan="corrupt:0@3")
+    try:
+        sim.reset(0)
+        sim.run(cycles=8 * sim.period)
+    except RingCorruptionError as e:
+        log(f"[procs-small] drill corrupt:0@3 under raise: RingCorruptionError ({e})")
+    else:
+        raise AssertionError("[procs-small] corrupt under raise did not raise")
     finally:
         sim.engine.close()
 
@@ -3331,6 +3728,8 @@ def phase_procs_full() -> None:
     log(f"[procs-full] yardstick GraphEngine on the same PartitionTree (4 granules "
         f"batched, one process): stop cycle {want_stop}, set-up {gsetup:.2f} s, until-run "
         f"{gwall:.3f} s (its span capture included)")
+    gsim.reset(0).run(epochs=PROCS_BATCH_EPOCHS)  # the batch_signatures run's yardstick
+    want_cut = geng.gather_group(gsim.state, 0)
     gsim._state = None
     del gsim, geng
     gc.collect()
@@ -3348,6 +3747,8 @@ def phase_procs_full() -> None:
             ls = eng.launch_stats
             ready = max(ls["ready_seconds"].values())
             caps = [b["capture_s"] for b in ls["build"].values()]
+            pre = [b["seconds"] for b in ls["build"].values()]
+            own = [b["setup_s"] for b in ls["build"].values()]
             n_chan = sum(len(c) for c in eng.lowering.routes.values())
             log(f"[procs-full] wafer-1M-procs4 ({tag}): {eng.G} granules of "
                 f"{R * C // eng.G} cores on {eng.NW} worker processes, "
@@ -3357,7 +3758,10 @@ def phase_procs_full() -> None:
                 f"constructor {build_s - eng.lowering_seconds - eng.build_stats['prebuild_seconds']:.2f} s), "
                 f"rings {ls['rings_seconds']:.2f} s, spawn {ls['spawn_seconds']:.2f} s, "
                 f"workers ready after {ready:.2f} s (start, CUDA, template, capture "
-                f"{', '.join(f'{c:.2f}' for c in caps)} s); launch {launch_s:.2f} s")
+                f"{', '.join(f'{c:.2f}' for c in caps)} s; of it each worker's own "
+                f"set-up (spec, device context, state, rings) "
+                f"{', '.join(f'{c:.2f}' for c in own)} s and template and captures "
+                f"{', '.join(f'{c:.2f}' for c in pre)} s); launch {launch_s:.2f} s")
             log(f"[procs-full] {tag}: {ls['n_rings']} rings for {n_chan} boundary channels "
                 f"(a slab and a credit ring each, plus {len(eng.graph.ext_ports())} host "
                 f"ports), {ls['shm_bytes']} B of shared memory mapped "
@@ -3373,30 +3777,46 @@ def phase_procs_full() -> None:
             view_bytes = sum(x.nbytes for v in eng._views()
                              for x in tree_leaves(v.replace(tables=None)))
             t4 = time.perf_counter()
-            sim.run(until=done, max_epochs=1000)
+            if batch:  # a fixed window, to keep the script inside its time
+                sim.run(epochs=PROCS_BATCH_EPOCHS)
+            else:
+                sim.run(until=done, max_epochs=1000)
             run_s = time.perf_counter() - t4
             stop, epochs = sim.cycle, sim.epoch
             rows = eng.worker_stats(sim.state)
             blocks = eng.gather_group(sim.state, 0)
+            if not batch:  # the same fleet under recover, fault-free
+                recover = recover_run(eng, sim, done, want, want_stop, run_s)
         finally:
             eng.close()
-        if stop != want_stop:
+        if batch:
+            if epochs != PROCS_BATCH_EPOCHS or not same_leaves(want_cut, blocks):
+                raise AssertionError(f"[procs-full] {tag}: blocks after {epochs} epochs "
+                                     "differ from GraphEngine's")
+        elif stop != want_stop:
             raise AssertionError(f"[procs-full] {tag}: stop {stop} != GraphEngine's {want_stop}")
-        if not same_leaves(want, blocks):
+        elif not same_leaves(want, blocks):
             raise AssertionError(f"[procs-full] {tag}: blocks differ from GraphEngine's")
-        if not np.array_equal(blocks.total, np.full_like(blocks.total, TOTAL)):
+        elif not np.array_equal(blocks.total, np.full_like(blocks.total, TOTAL)):
             raise AssertionError(f"[procs-full] {tag}: totals are not the global sum")
         if not all(r["device"].startswith("cuda") for r in rows):
             raise AssertionError(f"[procs-full] {tag}: a worker ran off the card")
         # a batched worker reports its process's counters on each of its rows
         per_worker = {eng._worker_of[r["granule"]]: r for r in rows}
         ops = sum(r["ring_ops"] for r in per_worker.values())
-        log(f"[procs-full] {tag}: converged at cycle {stop} ({epochs} epochs), every block "
-            f"bit-identical to GraphEngine's and every total {TOTAL:.0f}; init "
-            f"{init_s:.2f} s (again {reinit_s:.2f} s); run(until) {run_s:.3f} s = "
-            f"{R * C * stop / run_s:.4e} core-cycles/s ({run_s / gwall:.1f}x GraphEngine's "
-            f"{gwall:.3f} s in this call); {ops / epochs:.0f} ring ops and "
-            f"{view_bytes} B of view an epoch")
+        if batch:
+            log(f"[procs-full] {tag}: {epochs} epochs ({stop} cycles), every block "
+                f"bit-identical to GraphEngine's after as many; init {init_s:.2f} s (again "
+                f"{reinit_s:.2f} s); run(epochs={epochs}) {run_s:.3f} s = "
+                f"{R * C * stop / run_s:.4e} core-cycles/s; {ops / epochs:.0f} ring ops "
+                f"an epoch")
+        else:
+            log(f"[procs-full] {tag}: converged at cycle {stop} ({epochs} epochs), every "
+                f"block bit-identical to GraphEngine's and every total {TOTAL:.0f}; init "
+                f"{init_s:.2f} s (again {reinit_s:.2f} s); run(until) {run_s:.3f} s = "
+                f"{R * C * stop / run_s:.4e} core-cycles/s ({run_s / gwall:.1f}x "
+                f"GraphEngine's {gwall:.3f} s in this call); {ops / epochs:.0f} ring ops "
+                f"and {view_bytes} B of view an epoch")
         for w, r in sorted(per_worker.items()):
             busy = r["run_s"] - r["wait_s"]
             log(f"[procs-full] {tag}: worker {w} (granules {eng._worker_members[w]}) on "
@@ -3405,6 +3825,179 @@ def phase_procs_full() -> None:
                 f"(share {r['wait_fraction']:.4f}), capture {r['capture_s']:.3f} s, "
                 f"{r['ring_ops']} ring ops")
         gc.collect()
+        if not batch:  # kill drills on fresh fleets, until- and epochs-run
+            for mode in ("until", "epochs"):
+                kill_drill(args, done, want, want_stop, recover, mode)
+                gc.collect()
+
+
+def snapshot_seconds():
+    """The count and the seconds of the recovery snapshots taken so far in
+    this process (the ``recovery.snapshot.s`` histogram)."""
+    from repro_torch.obs.registry import REGISTRY
+
+    snap = REGISTRY.histogram("recovery.snapshot.s").summary()
+    return snap["count"], snap["sum"]
+
+
+def recover_run(eng, sim, done, want, want_stop, raise_s: float) -> dict:
+    """The plain fleet again under ``on_fault="recover"``, no fault: first
+    the until-run (snapshots every 16 epochs and at every run entry whose
+    epoch moved: under ``run(until=...)``, every epoch), then
+    ``run(epochs=67)`` (a snapshot at entry and at every 16th epoch).  Each
+    ends at ``GraphEngine``'s stop with its blocks; logs the until-run's
+    seconds beside the raise run's and the snapshots' count, seconds and
+    bytes.  Returns each run's seconds and snapshot seconds by mode."""
+    from repro_torch.core.struct import tree_leaves
+    from repro_torch.obs.registry import REGISTRY
+
+    eng.on_fault = "recover"
+    out = {}
+    for mode in ("until", "epochs"):
+        sim.reset(0)
+        n0, s0 = snapshot_seconds()
+        t0 = time.perf_counter()
+        if mode == "until":
+            sim.run(until=done, max_epochs=1000)
+        else:
+            sim.run(epochs=want_stop // sim.period)
+        run_s = time.perf_counter() - t0
+        n1, s1 = snapshot_seconds()
+        stats = eng.fault_stats()
+        if sim.cycle != want_stop or not same_leaves(want, eng.gather_group(sim.state, 0)):
+            raise AssertionError(f"[procs-full] recover {mode}: stop {sim.cycle} or "
+                                 "blocks differ")
+        out[mode] = {"run_s": run_s, "snapshots": n1 - n0, "snapshot_s": s1 - s0,
+                     "epochs": sim.epoch}
+        if mode == "until":
+            snap = REGISTRY.histogram("recovery.snapshot.s").summary()
+            nbytes = sum(x.nbytes for x in tree_leaves(eng._recovery._snapshot))
+            log(f"[procs-full] plain under on_fault=recover, no fault: stop cycle "
+                f"{sim.cycle} ({sim.epoch} epochs), blocks bit-identical to GraphEngine's; "
+                f"run(until) {run_s:.3f} s against the raise run's {raise_s:.3f} s in this "
+                f"call ({run_s / raise_s:.2f}x); {stats['snapshots']} snapshots (last at "
+                f"epoch {stats['last_snapshot_epoch']}), {n1 - n0} timed: {s1 - s0:.3f} s, "
+                f"{(s1 - s0) / max(n1 - n0, 1):.4f} s each (min {snap['min']:.4f}, max "
+                f"{snap['max']:.4f} over the process), {nbytes} B a snapshot")
+        else:
+            log(f"[procs-full] plain under on_fault=recover, no fault: run(epochs="
+                f"{sim.epoch}) {run_s:.3f} s, stop cycle {sim.cycle}, blocks bit-identical "
+                f"to GraphEngine's; {n1 - n0} snapshots (snapshot_every "
+                f"{stats['snapshot_every']}, last at epoch {stats['last_snapshot_epoch']}): "
+                f"{s1 - s0:.3f} s")
+    return out
+
+
+def kill_drill(args, done, want, want_stop, clean: dict, mode: str) -> None:
+    """wafer-1M-procs4 under ``on_fault="recover"`` with ``kill:1@40`` on a
+    fresh fleet, run to ``GraphEngine``'s stop by ``run(until=...)``
+    (``mode="until"``: a snapshot every epoch, so nothing to replay) or
+    ``run(epochs=67)`` (``"epochs"``: snapshots every 16 epochs, so the
+    epochs since epoch 32 are replayed): the stop and every block as
+    ``GraphEngine``'s, and MTTR (the faulted run's seconds less the
+    fault-free recover run's in the same mode, the drill's fleet warmed
+    first by 16 epochs as that run's fleet is warm) split into detect (the
+    kill, stamped in the worker's log, to the faulted fleet's teardown),
+    teardown, backoff, respawn (``_reopen``: rings, spawn, workers ready
+    with their captures), restore (``scatter_state``), replay (the epochs
+    replayed at the fault-free run's seconds an epoch less its snapshots)
+    and the snapshots' excess over the fault-free run's."""
+    import re
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.core import Simulation
+    from repro_torch.obs.registry import REGISTRY
+
+    killed = REGISTRY.counters().get("procs.close.killed", 0.0)
+    t0 = time.perf_counter()
+    eng, _ = procs_wafer(*args, on_fault="recover", fault_plan="kill:1@40")
+    seen = watch_incarnations(eng)
+    try:
+        sim = Simulation(eng).reset(0)
+        setup_s = time.perf_counter() - t0
+        # warm the fresh fleet (its first snapshot and first epochs), as the
+        # fault-free runs' fleet is warm, then start again at epoch 0
+        t0 = time.perf_counter()
+        sim.run(epochs=16)
+        sim.reset(0)
+        warm_s = time.perf_counter() - t0
+        seen["commands"].clear()
+        seen["snapshots"].clear()
+        n0, s0 = snapshot_seconds()
+        t1 = time.perf_counter()
+        if mode == "until":
+            sim.run(until=done, max_epochs=1000)
+        else:
+            sim.run(epochs=want_stop // sim.period)
+        run_s = time.perf_counter() - t1
+        n1, s1 = snapshot_seconds()
+        stop, epochs = sim.cycle, sim.epoch
+        blocks = eng.gather_group(sim.state, 0)
+        stats = eng.fault_stats()
+        ready = max(eng.launch_stats["ready_seconds"].values())
+        caps = [b["capture_s"] for b in eng.launch_stats["build"].values()]
+        own = [b["setup_s"] for b in eng.launch_stats["build"].values()]
+    finally:
+        eng.close()
+    killed = REGISTRY.counters().get("procs.close.killed", 0.0) - killed
+    tag = f"kill:1@40 under recover, run({mode})"
+    if stop != want_stop or not same_leaves(want, blocks):
+        raise AssertionError(f"[procs-full] {tag}: stop {stop} (GraphEngine "
+                             f"{want_stop}) or blocks differ")
+    if not np.array_equal(blocks.total, np.full_like(blocks.total, TOTAL)):
+        raise AssertionError(f"[procs-full] {tag}: totals are not the global sum")
+    last = stats["last_recovery"]
+    m = re.search(r"\[faultinject\] epoch (\d+) at t=([0-9.]+)",
+                  seen["close"][0]["logs"].get(1, ""))
+    if stats["restarts"] != 1 or last["fault"] != "WorkerDiedError" or m is None:
+        raise AssertionError(f"[procs-full] {tag}: {stats}")
+    left = check_no_leftovers(f"procs-full {tag}", seen)
+    split = recovery_split(seen, last)
+    detect = seen["close"][0]["at"] - float(m.group(2))
+    ref = clean[mode]
+    mttr = run_s - ref["run_s"]
+    # the kill fires before its epoch runs: the epochs from the restored
+    # snapshot up to it run again (the controller counts as "confirmed"
+    # only those before the command that faulted)
+    n_replay = int(m.group(1)) - last["restored_epoch"]
+    per_epoch = (ref["run_s"] - ref["snapshot_s"]) / ref["epochs"]
+    replay = n_replay * per_epoch
+    snap_extra = (s1 - s0) - ref["snapshot_s"]
+    # the first command after the respawn against the run's median seconds
+    # an epoch before it, and the snapshots' seconds before and after it
+    before = [c for c in seen["commands"] if c["incarnation"] == 0 and c["n"]]
+    rate = statistics.median(c["seconds"] / c["n"] for c in before)
+    first = next(c for c in seen["commands"] if c["incarnation"] == 1)
+    first_extra = first["seconds"] - first["n"] * rate
+    snaps = [[c["seconds"] for c in seen["snapshots"] if c["incarnation"] == i and c["epoch"]]
+             for i in (0, 1)]
+    rest = (mttr - detect - split["teardown"] - last["backoff_s"] - split["respawn"]
+            - split["restore"] - replay - snap_extra - first_extra)
+    log(f"[procs-full] {tag}: WorkerDiedError healed, stop cycle {stop} ({epochs} "
+        f"epochs) and every block bit-identical to GraphEngine's, every total "
+        f"{TOTAL:.0f}; restored epoch {last['restored_epoch']}, {n_replay} epochs "
+        f"replayed ({last['confirmed_epochs_replayed']} confirmed), {n1 - n0} "
+        f"snapshots in the run; {left}; workers killed after "
+        f"SIGTERM failed: {killed:.0f}; set-up {setup_s:.2f} s, warm-up (16 epochs) "
+        f"{warm_s:.2f} s")
+    log(f"[procs-full] {tag}: MTTR {mttr:.3f} s (the run {run_s:.3f} s less the "
+        f"fault-free recover run's {ref['run_s']:.3f} s): detect {detect:.3f} s (the "
+        f"kill at epoch {m.group(1)} to the teardown), teardown "
+        f"{split['teardown']:.3f} s, backoff {last['backoff_s']:.3f} s, respawn "
+        f"{split['respawn']:.3f} s (workers ready after {ready:.2f} s, their own set-up "
+        f"{', '.join(f'{c:.2f}' for c in own)} s, captures "
+        f"{', '.join(f'{c:.2f}' for c in caps)} s), restore {split['restore']:.3f} s, "
+        f"replay {replay:.3f} s ({n_replay} epochs at the fault-free run's "
+        f"{per_epoch:.4f} s an epoch less its snapshots), snapshots {snap_extra:.3f} s "
+        f"more than the fault-free run's ({n1 - n0} taken in {s1 - s0:.3f} s against "
+        f"{ref['snapshots']} in {ref['snapshot_s']:.3f} s; this run's before the respawn "
+        f"{statistics.mean(snaps[0]) if snaps[0] else float('nan'):.4f} s each, after it "
+        f"{', '.join(f'{x:.4f}' for x in snaps[1][:4])}{' ...' if len(snaps[1]) > 4 else ''} "
+        f"s), the first command after the respawn ({first['n']} epochs from epoch "
+        f"{first['epoch']}) {first_extra:.3f} s over the run's median {rate:.4f} s an "
+        f"epoch before it ({first['seconds']:.3f} s), the rest {rest:.3f} s")
 
 
 def main(argv=None) -> int:
@@ -3454,6 +4047,7 @@ def main(argv=None) -> int:
                        ("sys-full", lambda: phase_sys_full(kernels[1])),
                        ("fsys-small", phase_fsys_small),
                        ("fsys-full", lambda: phase_fsys_full(kernels[2])),
+                       ("fused-io", lambda: phase_fused_io(kernels[0])),
                        ("graph-small", phase_graph_small),
                        ("graph-full", phase_graph_full),
                        ("session-small", phase_session_small),

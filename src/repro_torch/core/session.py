@@ -408,6 +408,11 @@ class Simulation:
                 "push_count": st.push_count.cpu().numpy(),
                 "pop_count": st.pop_count.cpu().numpy(),
             }
+        fs = getattr(self.engine, "fault_stats", None)
+        if fs is not None:
+            # the procs runtime's self-healing surface: policy, restart
+            # count, snapshot cadence/epoch, replayed epochs
+            d["faults"] = fs()
         if self.kind == "procs":
             d["workers"] = self.engine.worker_stats(st)
         d["metrics"] = REGISTRY.snapshot()

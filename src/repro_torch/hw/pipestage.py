@@ -20,6 +20,13 @@ class PipeStageState:
     count: torch.Tensor  # (n,) int32 — handshakes forwarded
 
 
+#: The state leaves ``granule_step.cu``'s PipeStage step reads and writes,
+#: with their dtypes; none needs a second buffer (only its owner touches
+#: ``count``).
+DEVICE_LEAVES = {"count": torch.int32}
+PAIRED_LEAVES = ()
+
+
 class PipeStage(Block):
     """Forward ``in`` -> ``out``, adding ``delta`` to word 0 on the way."""
 

@@ -53,8 +53,17 @@
 //     its pre-cycle state and not is_west (is_north): the valid of its
 //     other input, the readiness of both its outputs (an empty register, as
 //     a push sees it) and its flags; on a west cell a_valid is a_idx < M.
+//   2 PipeStage     (repro_torch/hw/pipestage.py): the host-I/O unit cell,
+//     one in port and one out port: fire = valid_in && ready_out, the
+//     front forwarded with the group's `delta` added to word 0 by
+//     __fadd_rn (PyTorch's f32 add of the block's delta cast to f32), and
+//     count += fire.  Its readiness on its in port is the readiness of its
+//     output channel.  Its port tables hold one column and its flat
+//     consumer ids one a slot (in_base + slot), where the other types have
+//     two.
 // granule_cycle is instantiated for each set of types a program holds, so
-// the wafer's kernel carries ManycoreCell's code alone.
+// the wafer's kernel carries ManycoreCell's code alone; a set that holds
+// PipeStage adds instantiations and leaves the others' code as it was.
 //
 // The pre-cycle snapshot, by parity: every leaf that another thread reads
 // within a cycle is read from buffer s = cycle parity and written to
@@ -108,7 +117,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-enum BlockType { kManycore = 0, kSystolic = 1, kNumTypes = 2 };
+enum BlockType { kManycore = 0, kSystolic = 1, kPipe = 2, kNumTypes = 3 };
 static const int kMaxGroups = 4;
 static const int kThreads = 256;
 // 8 CTAs of 256 threads an SM: the full 2048 threads, 32 registers each.
@@ -120,8 +129,9 @@ static const int kThreads = 256;
 static const int kMinBlocks = 8;
 
 // Field order of the structs below must match the ctypes mirrors in
-// repro_torch.kernels.granule_step (_CoreLeaves, _CellLeaves, _Group,
-// _ProgramArgs); granule_args_size() lets the wrapper check the layout.
+// repro_torch.kernels.granule_step (_CoreLeaves, _CellLeaves, _PipeLeaves,
+// _Group, _ProgramArgs); granule_args_size() lets the wrapper check the
+// layout.
 struct CoreLeaves {  // ManycoreCell's CoreState, (n_slot,) each; `value` unused
   float* own;
   float* acc;
@@ -150,6 +160,11 @@ struct CellLeaves {  // SystolicCell's CellState
   int32_t M;
 };
 
+struct PipeLeaves {  // PipeStage's PipeStageState
+  int32_t* count;  // (n_slot,) handshakes forwarded
+  float delta;     // added to word 0 (the group's block constant)
+};
+
 struct Group {
   int32_t type;     // BlockType
   int32_t base;     // first thread, a multiple of 32
@@ -157,14 +172,15 @@ struct Group {
   int32_t in_base;  // flat consumer id of slot 0, port 0
   int32_t divider;  // clock divider
   // port tables in combined ids: [0, n_reg) registers, then queue rows
-  const int32_t* rx_idx;  // (n_slot, 2)
-  const int32_t* tx_idx;  // (n_slot, 2)
+  const int32_t* rx_idx;  // (n_slot, 2); PipeStage (n_slot, 1)
+  const int32_t* tx_idx;  // (n_slot, 2); PipeStage (n_slot, 1)
   // consumer of each output port: a flat consumer id, -1 for none (a queue
   // row), -2 where the port drives no channel (a sentinel)
-  const int32_t* cons;    // (n_slot, 2)
+  const int32_t* cons;    // (n_slot, 2); PipeStage (n_slot, 1)
   union {
     CoreLeaves core;
     CellLeaves cell;
+    PipeLeaves pipe;
   } u;
 };
 
@@ -293,6 +309,14 @@ __device__ __forceinline__ bool cell_ready(const ProgramArgs& a, const Group& g,
   return L.is_south[j] != 0 || chan_ready(a, s, tx.y);
 }
 
+// PipeStage's readiness on its in port of slot j (clock enable aside): the
+// readiness of its output channel (the caller's register is full, so its
+// input is valid and it fires exactly when it may send).
+__device__ __forceinline__ bool pipe_ready(const ProgramArgs& a, const Group& g,
+                                           int s, int j) {
+  return chan_ready(a, s, g.tx_idx[j]);
+}
+
 // Readiness of the consumer with flat id `cons` (>= 0), its clock included:
 // the group whose in-port range holds it, by that group's type.
 template <int kMask>
@@ -302,13 +326,15 @@ __device__ __forceinline__ bool consumer_ready(const ProgramArgs& a, int s,
   for (int gi = 0; gi < kMaxGroups; ++gi) {
     if (gi >= a.n_groups) return false;
     const Group& g = a.g[gi];
+    const bool pipe = (kMask & (1 << kPipe)) && g.type == kPipe;
     const int k = cons - g.in_base;
-    if (k < 0 || k >= 2 * g.n_slot) continue;
+    if (k < 0 || k >= (pipe ? 1 : 2) * g.n_slot) continue;
     if (!enabled(a, g, off)) return false;
     if ((kMask & (1 << kManycore)) && g.type == kManycore)
       return core_ready(a, g, s, k >> 1, k & 1);
     if ((kMask & (1 << kSystolic)) && g.type == kSystolic)
       return cell_ready(a, g, s, k >> 1, k & 1);
+    if (pipe) return pipe_ready(a, g, s, k);
     return false;
   }
   return false;
@@ -494,6 +520,28 @@ __device__ __forceinline__ void cell_step(const ProgramArgs& a, const Group& g,
   }
 }
 
+// PipeStage.step (repro_torch/hw/pipestage.py) on slot i of group g.
+template <int kMask>
+__device__ __forceinline__ void pipe_step(const ProgramArgs& a, const Group& g,
+                                          int i, int s, int off, bool halt) {
+  const PipeLeaves& L = g.u.pipe;
+  const bool en = enabled(a, g, off);
+  const int rx = g.rx_idx[i], tx = g.tx_idx[i], cn = g.cons[i];
+  const bool valid = chan_valid(a, s, rx);
+  const bool ready = chan_ready(a, s, tx);
+  if (halt) return;  // after the slot's first loads, which overlap the flag's
+
+  const bool fire = valid && ready;
+  float2 pay = make_float2(0.0f, 0.0f);
+  if (fire) pay = chan_front(a, s, rx);
+  // in port: pop a queue row that fed the fire; out port: the front with
+  // delta added to word 0 (the outputs of a cycle without a fire carry no
+  // valid)
+  commit_in(a, s, rx, en && fire);
+  commit_out<kMask>(a, s, off, tx, cn, en && fire, __fadd_rn(pay.x, L.delta), pay.y);
+  if (en && fire) L.count[i] += 1;
+}
+
 // One cycle of every slot of every group: the group's block step and the
 // commit of every channel end the slot owns.  kMask: the block types the
 // program holds (bit t for type t).
@@ -511,6 +559,8 @@ granule_cycle(const ProgramArgs a, const int s, const int off) {
       core_step<kMask>(a, g, i - g.base, s, off, halt);
     else if ((kMask & (1 << kSystolic)) && g.type == kSystolic)
       cell_step<kMask>(a, g, i - g.base, s, off, halt);
+    else if ((kMask & (1 << kPipe)) && g.type == kPipe)
+      pipe_step<kMask>(a, g, i - g.base, s, off, halt);
     return;
   }
 }
@@ -602,6 +652,21 @@ static cudaError_t launch_cycle(int mask, const ProgramArgs& a, int s, int off,
       granule_cycle<(1 << kManycore) | (1 << kSystolic)>
           <<<grid, kThreads, 0, stream>>>(a, s, off);
       break;
+    case 1 << kPipe:
+      granule_cycle<1 << kPipe><<<grid, kThreads, 0, stream>>>(a, s, off);
+      break;
+    case (1 << kManycore) | (1 << kPipe):
+      granule_cycle<(1 << kManycore) | (1 << kPipe)>
+          <<<grid, kThreads, 0, stream>>>(a, s, off);
+      break;
+    case (1 << kSystolic) | (1 << kPipe):
+      granule_cycle<(1 << kSystolic) | (1 << kPipe)>
+          <<<grid, kThreads, 0, stream>>>(a, s, off);
+      break;
+    case (1 << kManycore) | (1 << kSystolic) | (1 << kPipe):
+      granule_cycle<(1 << kManycore) | (1 << kSystolic) | (1 << kPipe)>
+          <<<grid, kThreads, 0, stream>>>(a, s, off);
+      break;
     default:
       return cudaErrorInvalidValue;
   }
@@ -627,7 +692,7 @@ extern "C" int granule_program(const ProgramArgs* args, const TierArgs* tiers,
       return (int)cudaErrorInvalidValue;
     mask |= 1 << g.type;
     end = g.base + g.n_slot;
-    in_end += 2 * g.n_slot;
+    in_end += (g.type == kPipe ? 1 : 2) * g.n_slot;
   }
   if (a.n_threads != end) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
@@ -671,10 +736,10 @@ extern "C" int granule_program(const ProgramArgs* args, const TierArgs* tiers,
         copies[n_copies++] = {L.sent[0], L.sent[1], slots * 4};
         copies[n_copies++] = {L.rcvd[0], L.rcvd[1], slots * 4};
         copies[n_copies++] = {L.fwd_v[0], L.fwd_v[1], slots};
-      } else {
+      } else if (g.type == kSystolic) {
         const CellLeaves& L = g.u.cell;
         copies[n_copies++] = {L.a_idx[0], L.a_idx[1], slots * 4};
-      }
+      }  // PipeStage: no paired leaf (only its owner touches count)
     }
     for (int k = 0; k < n_copies; ++k) {
       const int64_t n = (int64_t)copies[k].n;

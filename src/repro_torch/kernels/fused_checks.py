@@ -18,8 +18,9 @@ for channel, in the JAX package by passing that package's classes:
     systolic grid for ``A @ B`` — three groups of two types, with channels
     from one type to the other both ways.
 
-:func:`check_engine` needs a CUDA device and raises ``AssertionError`` on
-a mismatch.
+:func:`check_engine` and :func:`check_io` need a CUDA device and raise
+``AssertionError`` on a mismatch; :func:`seed_registers` fills a closed
+network's registers (a ``PipeStage`` ring has no host port to feed it).
 """
 from __future__ import annotations
 
@@ -188,6 +189,57 @@ def check_engine(eng, done, max_epochs: int, state=None) -> tuple:
         raise AssertionError(f"{granule_step.launches - before} kernel launches "
                              f"for {ep} epochs")
     return ep, kern
+
+
+def check_io(eng, n_epochs: int, seed: int = 0) -> int:
+    """A fused engine with host ports ``"tx"`` and ``"rx"`` on the card:
+    the same pseudo-random host pushes before every epoch and pops after
+    it, epochs through the kernel and through the plain version on a copy
+    (both on the card), every state leaf bit-exact after every epoch and
+    every popped packet equal.  Returns the packets popped; raises if the
+    kernel was not launched once an epoch."""
+    rng = np.random.RandomState(seed)
+    kern = eng.init(0)
+    plain = clone(kern)
+    before, popped = granule_step.launches, 0
+    for ep in range(n_epochs):
+        k = int(rng.randint(0, 4))
+        if k:
+            batch = np.array([[100.0 * ep + j, float(ep)] for j in range(k)], np.float32)
+            kern, n1 = eng.host_push_many(kern, "tx", batch)
+            plain, n2 = eng.host_push_many(plain, "tx", batch)
+            if int(n1) != int(n2):
+                raise AssertionError(f"epoch {ep}: pushed {int(n1)} against {int(n2)}")
+        kern = eng.run_epochs(kern, 1)
+        plain = plain_epochs(eng, plain)
+        torch.cuda.synchronize()
+        try:
+            compare(kern, plain)
+        except AssertionError as e:
+            raise AssertionError(f"epoch {ep + 1}: {e}") from None
+        kern, a, na = eng.host_pop_many(kern, "rx", 4)
+        plain, b, nb = eng.host_pop_many(plain, "rx", 4)
+        if int(na) != int(nb) or not torch.equal(a[: int(na)].view(torch.int32),
+                                                 b[: int(nb)].view(torch.int32)):
+            raise AssertionError(f"epoch {ep + 1}: popped packets differ")
+        popped += int(na)
+    if granule_step.launches - before != n_epochs:
+        raise AssertionError(f"{granule_step.launches - before} kernel launches "
+                             f"for {n_epochs} epochs")
+    return popped
+
+
+def seed_registers(state, every: int = 3):
+    """``state`` with every ``every``-th register of each granule from id 2
+    on (0 and 1 are the sentinels) full, word 0 its id and word 1 the
+    granule row: packets in flight for a network without host ports."""
+    reg_v, reg_val = state.reg_v.clone(), state.reg_val.clone()
+    ids = torch.arange(2, reg_v.shape[-1], every, device=reg_v.device)
+    reg_v[..., ids] = True
+    reg_val[..., ids, 0] = ids.to(reg_val.dtype)
+    rows = torch.arange(reg_val[..., 0, 0].numel(), device=reg_val.device)
+    reg_val[..., ids, 1] = rows.reshape(reg_val.shape[:-2] + (1,)).to(reg_val.dtype)
+    return state.replace(reg_v=reg_v, reg_val=reg_val)
 
 
 def south_done(cells, M: int):

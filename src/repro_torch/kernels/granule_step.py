@@ -17,11 +17,12 @@ are the issue and commit halves of that exchange (see
     which each slot steps and commits the channel ends it owns (the
     registers it produces, with the consumer's readiness recomputed
     through :func:`consumer_table`; the boundary rows it pushes or pops),
-    and the credit-bounded slab exchange between cycles.  ``ManycoreCell``
-    and ``SystolicCell`` have a device step (:func:`device_step_type`);
-    a program of up to :data:`MAX_GROUPS` groups of them, of either type
-    and any mix, runs in one launch a cycle, each group on its own warps.
-    Any other block type raises ``NotImplementedError`` on a CUDA state.
+    and the credit-bounded slab exchange between cycles.  ``ManycoreCell``,
+    ``SystolicCell`` and ``PipeStage`` have a device step
+    (:func:`device_step_type`); a program of up to :data:`MAX_GROUPS`
+    groups of them, of any type and mix, runs in one launch a cycle, each
+    group on its own warps.  Any other block type raises
+    ``NotImplementedError`` on a CUDA state.
     The kernel updates the carry's tensors in place and returns the same
     carry.
 
@@ -324,8 +325,14 @@ class _CellLeaves(ctypes.Structure):
                 ("fires", _PTR), ("M", _I32)]
 
 
+class _PipeLeaves(ctypes.Structure):
+    """``PipeLeaves`` of ``csrc/granule_step.cu`` (``PipeStage``)."""
+
+    _fields_ = [("count", _PTR), ("delta", ctypes.c_float)]
+
+
 class _Leaves(ctypes.Union):
-    _fields_ = [("core", _CoreLeaves), ("cell", _CellLeaves)]
+    _fields_ = [("core", _CoreLeaves), ("cell", _CellLeaves), ("pipe", _PipeLeaves)]
 
 
 class _Group(ctypes.Structure):
@@ -359,13 +366,15 @@ class _TierArgs(ctypes.Structure):
 
 def device_step_type(block) -> int | None:
     """The kernel's type code of ``block`` (0 ``ManycoreCell``, 1
-    ``SystolicCell``), or None where the kernel has no step for it.  A
-    subclass counts only where it keeps its base's ``step`` (a clock
-    divider, say): any other step has no device function."""
+    ``SystolicCell``, 2 ``PipeStage``), or None where the kernel has no
+    step for it.  A subclass counts only where it keeps its base's
+    ``step`` (a clock divider, say): any other step has no device
+    function."""
     from ..hw.manycore import ManycoreCell
+    from ..hw.pipestage import PipeStage
     from ..hw.systolic import SystolicCell
 
-    for code, cls in enumerate((ManycoreCell, SystolicCell)):
+    for code, cls in enumerate((ManycoreCell, SystolicCell, PipeStage)):
         if isinstance(block, cls) and type(block).step is cls.step:
             return code
     return None
@@ -388,13 +397,18 @@ def _library():
     return fn
 
 
+#: Port columns of each type's tables (``rx_idx``, ``tx_idx``, ``cons``)
+#: and in-port ids a slot, by type code: PipeStage has one of each.
+_PORTS = (2, 2, 1)
+
+
 def _group_leaves(code: int, block, st, n_slot: int, dev, keep: list):
     """The state leaves of one group for the kernel, checked; each paired
     leaf gets its second buffer (kept alive in ``keep``)."""
-    from ..hw import manycore, systolic
+    from ..hw import manycore, pipestage, systolic
 
-    mod, cls = ((manycore, manycore.CoreState) if code == 0
-                else (systolic, systolic.CellState))
+    mod, cls = ((manycore, manycore.CoreState), (systolic, systolic.CellState),
+                (pipestage, pipestage.PipeStageState))[code]
     if not isinstance(st, cls):
         raise TypeError(f"{type(block).__name__}: expected {cls.__name__}, "
                         f"got {type(st).__name__}")
@@ -413,7 +427,9 @@ def _group_leaves(code: int, block, st, n_slot: int, dev, keep: list):
             ptr[name] = p0
     if code == 0:
         return _Leaves(core=_CoreLeaves(**ptr, R=block.R, C=block.C))
-    return _Leaves(cell=_CellLeaves(**ptr, M=block.m_stream))
+    if code == 1:
+        return _Leaves(cell=_CellLeaves(**ptr, M=block.m_stream))
+    return _Leaves(pipe=_PipeLeaves(**ptr, delta=block.delta))
 
 
 def epoch_program_cuda(carry: Tree, program: Program,
@@ -437,8 +453,8 @@ def epoch_program_cuda(carry: Tree, program: Program,
         names = ", ".join(type(b).__name__ for b in consts.blocks)
         raise NotImplementedError(
             f"no device step for block types [{names}]: the CUDA epoch "
-            f"program steps up to {MAX_GROUPS} groups of ManycoreCell and "
-            "SystolicCell"
+            f"program steps up to {MAX_GROUPS} groups of ManycoreCell, "
+            "SystolicCell and PipeStage"
         )
     n_reg, W = reg_val.shape
     if W != 2:
@@ -462,12 +478,12 @@ def epoch_program_cuda(carry: Tree, program: Program,
     groups = (_Group * MAX_GROUPS)()
     base = in_base = 0
     for gi, (code, block, st) in enumerate(zip(codes, consts.blocks, block_states)):
-        n_slot = consts.rx_idx[gi].shape[0]
+        n_slot, ports = consts.rx_idx[gi].shape[0], _PORTS[code]
         tables = {}
         for name, t in (("rx_idx", consts.rx_idx[gi]), ("tx_idx", consts.tx_idx[gi]),
                         ("cons", consts.cons[gi])):
-            tables[name] = tensor_ptr(t, f"{name}.{gi}", torch.int32, (n_slot, 2), dev)
-            if tables[name] % 8:
+            tables[name] = tensor_ptr(t, f"{name}.{gi}", torch.int32, (n_slot, ports), dev)
+            if tables[name] % (4 * ports):
                 raise ValueError(f"{name}.{gi}: the kernel loads int2 pairs, "
                                  "the table must be 8-byte aligned")
         groups[gi] = _Group(
@@ -475,7 +491,7 @@ def epoch_program_cuda(carry: Tree, program: Program,
             divider=int(block.clock_divider),
             u=_group_leaves(code, block, st, n_slot, dev, keep), **tables)
         base += -(-n_slot // 32) * 32  # the next group starts on a warp boundary
-        in_base += 2 * n_slot
+        in_base += ports * n_slot
     args = _ProgramArgs(
         reg_val=tensor_ptr(reg_val, "reg_val", torch.float32, (n_reg, W), dev),
         reg_v=paired(reg_v, "reg_v", torch.bool, (n_reg,)),

@@ -131,6 +131,18 @@ def recorder() -> TraceRecorder:
     return _RECORDER
 
 
+def enabled() -> bool:
+    return _RECORDER.enabled
+
+
+def span(name: str, t0: float, dur: float, **kw) -> None:
+    _RECORDER.span(name, t0, dur, **kw)
+
+
+def instant(name: str, **kw) -> None:
+    _RECORDER.instant(name, **kw)
+
+
 def _atexit_export() -> None:  # pragma: no cover - interpreter exit
     path = os.environ.get(ENV_TRACE)
     if path and _RECORDER.enabled and (_RECORDER.events or _RECORDER._tracks):
@@ -150,5 +162,5 @@ def maybe_enable_from_env() -> bool:
     return _RECORDER.enabled
 
 
-__all__ = ["ENV_TRACE", "TID_SESSION", "TraceRecorder", "maybe_enable_from_env",
-           "recorder"]
+__all__ = ["ENV_TRACE", "TID_SESSION", "TraceRecorder", "enabled", "instant",
+           "maybe_enable_from_env", "recorder", "span"]

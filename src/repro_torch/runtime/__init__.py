@@ -16,16 +16,24 @@ SPSC queues, free-running with no global barrier.
   fault_tolerance  watchdogs, crash/restart loops, WorkerDiedError with
                    captured worker log tails, fleet stall diagnosis
                    (credit wait-for graph -> FleetStallError)
+  faultinject      deterministic, plan-driven worker faults for drills
+                   (REPRO_FAULT_PLAN: kill/exit0/hang/slow/mute/corrupt)
+  recovery         coordinated snapshots + respawn/restore/replay — the
+                   self-healing policy behind ProcsEngine(on_fault=
+                   "recover") / REPRO_ON_FAULT
 
-Not ported yet: self-healing (``recovery``, ``faultinject``; ROADMAP
-Queue 1 item 10.2), the TCP bridge and multi-host fleets (item 10.3),
-worker telemetry (item 10.4).
+Not ported yet: the TCP bridge and multi-host fleets (ROADMAP Queue 1
+item 10.3), worker telemetry (item 10.4).
 """
 from .fault_tolerance import FleetStallError, LinkDownError, WorkerDiedError
+from .faultinject import FaultAction, parse_fault_plan
 from .launcher import ProcsEngine, ProcsState
+from .recovery import RECOVERABLE, RecoveryController, resolve_on_fault
 from .shmem import RingCorruptionError, RingTimeout, ShmRing
 
 __all__ = [
-    "FleetStallError", "LinkDownError", "ProcsEngine", "ProcsState",
-    "RingCorruptionError", "RingTimeout", "ShmRing", "WorkerDiedError",
+    "FaultAction", "FleetStallError", "LinkDownError", "ProcsEngine",
+    "ProcsState", "RECOVERABLE", "RecoveryController", "RingCorruptionError",
+    "RingTimeout", "ShmRing", "WorkerDiedError", "parse_fault_plan",
+    "resolve_on_fault",
 ]

@@ -45,12 +45,19 @@ shm are decoded into the credit wait-for graph: a cycle raises
 worker.  Checked rings surface slab corruption as
 ``RingCorruptionError``.
 
+**Self-healing** (``runtime.recovery``): with ``on_fault="recover"`` (env
+``REPRO_ON_FAULT``) the engine takes coordinated snapshots every
+``snapshot_every`` epochs at command boundaries, and heals a dead, hung,
+corrupted or deadlocked fleet by respawn (a fresh incarnation: new ring
+namespace, new processes, each capturing its graphs anew) + restore +
+replay, bit-identical to the fault-free timeline, host I/O included.
+``fault_plan`` (env ``REPRO_FAULT_PLAN``, ``runtime.faultinject``) drills
+it deterministically.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: self-healing (``on_fault="recover"``, ``REPRO_ON_FAULT``,
-``fault_plan``, ``REPRO_FAULT_PLAN``; Queue 1 item 10.2), multi-host
-fleets (``hosts``/``host``/``base_port``, ``REPRO_HOSTS``,
-``REPRO_BRIDGE_PORT``; item 10.3), worker telemetry (``set_tracing``,
-``flush_telemetry``; item 10.4).
+ROADMAP item: multi-host fleets (``hosts``/``host``/``base_port``,
+``REPRO_HOSTS``, ``REPRO_BRIDGE_PORT``; Queue 1 item 10.3), worker
+telemetry (``set_tracing``, ``flush_telemetry``; item 10.4).
 """
 from __future__ import annotations
 
@@ -82,6 +89,8 @@ from .fault_tolerance import (
     FleetStallError, ProcessMonitor, WorkerDiedError, find_stall_cycle,
     read_log_tail, stall_wait_edges,
 )
+from .faultinject import actions_for, resolve_fault_plan, split_plan
+from .recovery import RecoveryController, resolve_on_fault
 from .shmem import (
     RingCorruptionError, RingTimeout, ShmRing, create_shared_memory,
     slab_slot_bytes,
@@ -96,7 +105,6 @@ from .worker import (
 Tree = Any
 
 #: The ROADMAP items that bring what this engine refuses.
-_RECOVERY_ITEM = "ROADMAP Queue 1 item 10.2 (self-healing fleets)"
 _HOSTS_ITEM = "ROADMAP Queue 1 item 10.3 (multi-host fleets)"
 _TELEMETRY_ITEM = "ROADMAP Queue 1 item 10.4 (worker telemetry)"
 
@@ -164,30 +172,9 @@ def _env_set(name: str) -> bool:
     return bool(os.environ.get(name, "").strip())
 
 
-def _refuse_unported(on_fault, fault_plan, hosts, host, base_port,
-                     snapshot_every, max_restarts, backoff_s) -> None:
+def _refuse_unported(hosts, host, base_port) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of any
-    self-healing or multi-host setting, passed or from the environment."""
-    env_fault = os.environ.get("REPRO_ON_FAULT", "auto").strip().lower()
-    policy = str(on_fault).strip().lower()
-    if policy == "auto":
-        policy = env_fault if env_fault not in ("", "auto") else "raise"
-    if policy not in ("raise", "recover"):
-        raise ValueError(f"on_fault={on_fault!r}: expected 'raise', 'recover' "
-                         "or 'auto'")
-    recovery = {
-        "on_fault='recover' (or REPRO_ON_FAULT=recover)": policy == "recover",
-        "fault_plan": fault_plan is not None,
-        "REPRO_FAULT_PLAN": _env_set("REPRO_FAULT_PLAN"),
-        "snapshot_every": snapshot_every != 16,
-        "max_restarts": max_restarts != 3,
-        "backoff_s": backoff_s != 0.25,
-    }
-    bad = [k for k, v in recovery.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"{', '.join(bad)}: self-healing is not ported yet "
-            f"({_RECOVERY_ITEM}); the port's fleet raises on a fault")
+    multi-host setting, passed or from the environment."""
     fleet = {"hosts": hosts is not None, "host": host is not None,
              "base_port": base_port is not None,
              "REPRO_HOSTS": _env_set("REPRO_HOSTS"),
@@ -237,11 +224,26 @@ class ProcsEngine:
     device:     where the workers run: ``"cuda"`` (the default; worker i on
                 ``cuda:(i % device_count)``; raises without a card) or
                 ``"cpu"`` (one intra-op thread a worker).
-    on_fault, snapshot_every, max_restarts, backoff_s, fault_plan:
-                the reference's self-healing knobs: "raise" (the default,
-                and "auto" without ``REPRO_ON_FAULT``) propagates the
-                first fleet fault; anything else raises
-                ``NotImplementedError`` (Queue 1 item 10.2).
+    on_fault:   "raise" (default) propagates the first fleet fault;
+                "recover" auto-heals: snapshot periodically, and on a
+                dead/hung/corrupted/deadlocked fleet respawn + restore +
+                replay (``runtime.recovery``).  "auto"/str with
+                ``REPRO_ON_FAULT`` env override; auto = raise.
+    snapshot_every:
+                coordinated-snapshot cadence in epochs (recover mode; the
+                snapshot is a ``gather_state`` at the first command
+                boundary on each multiple, where the fleet is quiesced,
+                plus one at each run entry whose epoch moved).
+    max_restarts:
+                recovery attempts before giving up (the original fault is
+                re-raised, chained).
+    backoff_s:  base of the exponential respawn backoff (doubles per
+                consecutive restart).
+    fault_plan: deterministic fault injection for drills — a plan string
+                (see ``runtime.faultinject``) or a sequence of
+                ``FaultAction``; default: env ``REPRO_FAULT_PLAN``.  Link
+                kinds (``linkkill``/``linkslow``/``linkcorrupt``) raise
+                ``ValueError``: a single-host fleet has no bridged links.
     hosts, host, base_port:
                 the reference's multi-host fleet; anything but None (or
                 ``REPRO_HOSTS`` / ``REPRO_BRIDGE_PORT`` set) raises
@@ -275,8 +277,10 @@ class ProcsEngine:
         base_port: int | None = None,
         device="cuda",
     ):
-        _refuse_unported(on_fault, fault_plan, hosts, host, base_port,
-                         snapshot_every, max_restarts, backoff_s)
+        _refuse_unported(hosts, host, base_port)
+        self.on_fault = resolve_on_fault(on_fault)
+        self.fault_plan = resolve_fault_plan(fault_plan)
+        self._incarnation = 0  # bumped on every recovery respawn
         if cache_dir is not None:
             raise ValueError(
                 "cache_dir: the port's workers keep no persistent compile "
@@ -374,6 +378,19 @@ class ProcsEngine:
         }
         self.lowering_seconds = time.perf_counter() - t0
 
+        worker_faults, link_faults = split_plan(self.fault_plan)
+        bad = [a for a in worker_faults if a.worker >= self.NW]
+        if bad:
+            raise ValueError(
+                f"fault plan targets worker(s) {[a.worker for a in bad]} "
+                f"but the fleet has {self.NW} worker(s)"
+            )
+        if link_faults:
+            raise ValueError(
+                "fault plan has link fault(s) "
+                f"{[a.kind for a in link_faults]} but the engine has no "
+                f"bridged links (multi-host fleets: {_HOSTS_ITEM})")
+
         # ---- prebuild: one CPU simulator per DISTINCT (signature, batch)
         self.build_stats: dict[str, Any] = {
             "n_workers": self.NW,
@@ -409,6 +426,14 @@ class ProcsEngine:
         self._monitor: ProcessMonitor | None = None
         self._np_tables_cache: dict[int, GraphTables] = {}
         self.launch_stats: dict[str, Any] = {}
+        # packets per rx port the host already received before a recovery
+        # rewind: the replay regenerates them, the host-facing pop drops
+        # them (exactly-once delivery; owned by the RecoveryController)
+        self._ext_discard: dict[str, int] = {}
+        self._recovery = RecoveryController(
+            self, snapshot_every=snapshot_every, max_restarts=max_restarts,
+            backoff_s=backoff_s,
+        )
         _live_engines.add(self)
 
     # ------------------------------------------------------------- lowering
@@ -513,10 +538,12 @@ class ProcsEngine:
             seg.buf[:] = blob
             parent, child = self._ctx.Pipe()
             log_path = os.path.join(self._log_dir, f"worker{w}.log")
+            faults = actions_for(self.fault_plan, w, self._incarnation)
             p = self._ctx.Process(
                 target=worker_entry,
                 args=(child, sname, w, log_path, device, hb_name,
-                      bulk_name(self._ring_prefix, w)),
+                      bulk_name(self._ring_prefix, w),
+                      pickle.dumps(faults) if faults else None),
                 daemon=True,
                 name=f"repro-torch-granule-{w}",
             )
@@ -560,6 +587,7 @@ class ProcsEngine:
             self._bulk[w] = self._segments[bname] = create_shared_memory(
                 bname, max(int(payload["bulk_bytes"]), 64))
         REGISTRY.set("procs.workers", float(self.NW))
+        REGISTRY.set("procs.incarnation", float(self._incarnation))
         if self.build_stats.get("prebuild_seconds"):
             REGISTRY.set("procs.prebuild.s",
                          float(self.build_stats["prebuild_seconds"]))
@@ -588,7 +616,11 @@ class ProcsEngine:
                 ring.push_u32(self.capacity - 1, timeout=1.0)
 
     def close(self) -> None:
-        """Tear down the workers and unlink every shared-memory segment."""
+        """Tear down the workers and unlink every shared-memory segment.
+
+        Every worker gets "exit", then the fleet 2 s in all to leave (a
+        worker blocked on a dead peer's ring never reads it), then SIGTERM
+        and 2 s more, then SIGKILL: no worker outlives the call."""
         if self._closed:
             return
         self._closed = True
@@ -597,11 +629,20 @@ class ProcsEngine:
                 conn.send(("exit",))
             except (BrokenPipeError, OSError):
                 pass
-        for p in list(self._procs.values()):
-            p.join(timeout=2.0)
+        procs = list(self._procs.values())
+        _join_all(procs, 2.0)
+        for p in procs:
             if p.is_alive():
                 p.terminate()
-                p.join(timeout=2.0)
+        _join_all(procs, 2.0)
+        for p in procs:
+            if p.is_alive():
+                # SIGTERM can stay pending (a stopped process) or be
+                # caught: a survivor would keep its CUDA context and card
+                # memory beside the next incarnation
+                p.kill()
+                p.join()
+                REGISTRY.inc("procs.close.killed")
         for conn in list(self._conns.values()):
             conn.close()
         for ring in self._rings.values():
@@ -621,10 +662,15 @@ class ProcsEngine:
         _live_engines.discard(self)
 
     def _reopen(self) -> None:
-        """Respawn the fleet on the same lowering: a fresh ring namespace
-        and fresh worker processes (the state starts again at ``init``)."""
+        """Respawn the fleet after a fault (the recovery path): a fresh
+        ring namespace and fresh worker processes on the SAME lowering,
+        each paying its CUDA context and graph captures again (the port
+        keeps no compile cache).  The restart count gates incarnation-
+        scoped fault-plan actions (``:r<N>``), so a fired drill fault does
+        not re-fire during its own replay."""
         if not self._closed:
             self.close()
+        self._incarnation += 1
         self._closed = False
         self._launched = False
         self._procs, self._conns, self._rings = {}, {}, {}
@@ -634,6 +680,7 @@ class ProcsEngine:
         # specs embed the ring prefix — rebuild them for the new namespace
         self._specs = [self._granule_spec(g) for g in range(self.G)]
         self._wspecs = self._worker_specs()
+        self._np_tables_cache = {}
         _live_engines.add(self)
         self.launch()
 
@@ -843,6 +890,7 @@ class ProcsEngine:
         ``gi``'s stacked per-member params (global instantiation order)."""
         self.launch()
         self._generation += 1
+        self._recovery.note_reset()
         for ring in self._rings.values():
             ring.reset()
         self._seed_credit_rings()
@@ -889,10 +937,21 @@ class ProcsEngine:
         is this *observation* at the command boundary; during the run each
         worker is gated solely by its own channels' credits.  ``donate``
         is accepted for the engine protocol: the state lives in the
-        workers either way."""
+        workers either way.
+
+        With ``on_fault="recover"`` the run goes through the recovery
+        controller: coordinated snapshots on the ``snapshot_every`` epoch
+        grid, and any recoverable fleet fault (dead / hung / corrupted /
+        deadlocked) is healed by respawn + restore + replay instead of
+        raised."""
         state = self._require(state)
         if n_epochs <= 0:
             return state
+        if self.on_fault == "recover":
+            return self._recovery.run_epochs(state, int(n_epochs))
+        return self._run_epochs_raw(state, int(n_epochs))
+
+    def _run_epochs_raw(self, state: ProcsState, n_epochs: int) -> ProcsState:
         return self._run_all(state, ("run", int(n_epochs)))[0]
 
     def _run_all(self, state: ProcsState, cmd) -> tuple[ProcsState, dict]:
@@ -1060,15 +1119,43 @@ class ProcsEngine:
             payload = payload.detach().cpu().numpy()
         return np.asarray(payload, self.dtype).reshape(-1, self.W)
 
+    def _ext_pop_host(self, state: ProcsState, name: str, max_n: int) -> np.ndarray:
+        """Host-facing pop: raw ring pops are journaled for recovery, and
+        packets a replay regenerated that the host already received
+        before the rewind are silently dropped (exactly-once delivery)."""
+        skip = int(self._ext_discard.get(name, 0))
+        got = self._ext_ring(self.graph.ext_out, name).pop_packets(
+            int(max_n) + skip, self.dtype, self.W)
+        if len(got):
+            self._recovery.note_ext_pop(state, name, len(got))
+        if skip:
+            dropped = min(skip, len(got))
+            self._ext_discard[name] = skip - dropped
+            got = got[dropped:]
+        return got
+
+    # recovery hooks: exactly-once host delivery across a rewind
+    def _replay_ext_push(self, name: str, batch) -> None:
+        arr = np.asarray(batch, self.dtype).reshape(-1, self.W)
+        self._ext_ring(self.graph.ext_in, name).push_packets(arr)
+
+    def _set_ext_discard(self, discards: dict) -> None:
+        self._ext_discard = {k: int(v) for k, v in discards.items() if v}
+
+    def _ext_discard_state(self) -> dict:
+        return {k: v for k, v in self._ext_discard.items() if v}
+
     def host_push(self, state: ProcsState, name: str, payload):
         state = self._require(state)
-        n = self._ext_ring(self.graph.ext_in, name).push_packets(
-            self._payloads(payload)[:1])
+        arr = self._payloads(payload)[:1]
+        n = self._ext_ring(self.graph.ext_in, name).push_packets(arr)
+        if n:
+            self._recovery.note_ext_push(state, name, arr[:n])
         return state, torch.tensor(n == 1)
 
     def host_pop(self, state: ProcsState, name: str):
         state = self._require(state)
-        got = self._ext_ring(self.graph.ext_out, name).pop_packets(1, self.dtype, self.W)
+        got = self._ext_pop_host(state, name, 1)
         if len(got):
             return state, torch.from_numpy(got[0]), torch.tensor(True)
         return state, torch.zeros((self.W,), dtype=self.torch_dtype), torch.tensor(False)
@@ -1077,12 +1164,13 @@ class ProcsEngine:
         state = self._require(state)
         arr = self._payloads(payloads)[: self.capacity - 1]
         n = self._ext_ring(self.graph.ext_in, name).push_packets(arr)
+        if n:
+            self._recovery.note_ext_push(state, name, arr[:n])
         return state, torch.tensor(n, dtype=torch.int32)
 
     def host_pop_many(self, state: ProcsState, name: str, max_n: int):
         state = self._require(state)
-        got = self._ext_ring(self.graph.ext_out, name).pop_packets(
-            max_n, self.dtype, self.W)
+        got = self._ext_pop_host(state, name, max_n)
         out = np.zeros((max_n, self.W), self.dtype)
         out[: len(got)] = got
         return state, torch.from_numpy(out), torch.tensor(len(got), dtype=torch.int32)
@@ -1114,15 +1202,15 @@ class ProcsEngine:
             "credits": dict(sorted(credits.items())),
             "cycle": np.asarray(state.cycle),
             "epoch": np.asarray(state.epoch),
-            "ext": dict(sorted(self._gather_ext().items())),
+            "ext": self._gather_ext(),
             "workers": dict(sorted(workers.items())),
         }
 
     def _gather_ext(self) -> dict:
-        """The external rings' resident packets + seq counters.  Checked
-        rings snapshot WITH their headers, and the (producer, consumer)
-        sequence counters ride along so a restore into a FRESH segment
-        resumes the exact seq timeline."""
+        """The external rings' resident packets + seq counters, by port
+        name in key order.  Checked rings snapshot WITH their headers, and
+        the (producer, consumer) sequence counters ride along so a restore
+        into a FRESH segment resumes the exact seq timeline."""
         ext = {}
         for name, (cid, is_in) in self.graph.ext_ports().items():
             ring = self._rings[ext_ring_name(self._ring_prefix, cid)]
@@ -1131,13 +1219,14 @@ class ProcsEngine:
             buf[: len(snap)] = snap
             ext[name] = {"buf": buf, "count": np.int32(len(snap)),
                          "seq": np.asarray(ring.seq_state(), np.int64)}
-        return ext
+        return dict(sorted(ext.items()))
 
     def scatter_state(self, state: ProcsState, tree: Tree) -> ProcsState:
         """Restore a ``gather_state`` tree into the running fleet: credits
         and external rings restored, data rings emptied, every worker's
         granules scattered."""
         state = self._require(state)
+        self._recovery.note_scatter()
         tree = tree_map(lambda x: x.detach().cpu().numpy()
                         if isinstance(x, torch.Tensor) else np.asarray(x), tree)
         for (t, s, d), chans in sorted(self.lowering.routes.items()):
@@ -1162,6 +1251,27 @@ class ProcsEngine:
             cycle=np.int32(np.asarray(tree["cycle"]).ravel()[0]),
             epoch=np.int32(epoch),
         )
+
+    # -------------------------------------------------------- fault surface
+    def fault_stats(self) -> dict:
+        """Recovery/fault counters — ``Simulation.stats()["faults"]``."""
+        return self._recovery.stats()
+
+    def _handle_at(self, epoch: int) -> ProcsState:
+        """A fresh state handle pinned at ``epoch`` — the recovery restore
+        path's replacement for the handle that rode into the fault."""
+        return ProcsState(
+            cycle=np.int32(int(epoch) * self.cycles_per_epoch),
+            epoch=np.int32(int(epoch)),
+            generation=self._generation,
+        )
+
+
+def _join_all(procs: list, timeout: float) -> None:
+    """Join every process, ``timeout`` seconds in all."""
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(timeout=max(0.0, deadline - time.monotonic()))
 
 
 def _rebuild_fault(worker: int, payload: dict) -> Exception:

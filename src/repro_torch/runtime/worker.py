@@ -629,7 +629,7 @@ class Worker:
     traffic stays bit-identical to per-granule workers)."""
 
     def __init__(self, spec, conn, hb: np.ndarray | None, device="cpu",
-                 bulk: str | None = None):
+                 bulk: str | None = None, faults=()):
         self.sim = GranuleSim(spec, device)
         self.bulk_name = bulk  # the launcher creates it once the worker is ready
         self._bulk = None
@@ -647,6 +647,7 @@ class Worker:
         self.wait_s = 0.0  # time blocked on peer rings (credits/slabs)
         self.run_s = 0.0  # wallclock inside "run" commands
         self.ring_ops = 0  # credit/slab records pushed or popped
+        self._init_faults(faults)
         itemsize = self.sim.np_dtype.itemsize
         self.rings: dict[tuple[str, int], ShmRing] = {}
         for s in self.specs:
@@ -668,8 +669,25 @@ class Worker:
                     s.payload_words * itemsize, checked=True, label=f"ext:{name}",
                 )
 
+    def _init_faults(self, faults) -> None:
+        from .faultinject import WorkerFaultInjector
+
+        self.injector = WorkerFaultInjector(faults) if faults else None
+        self.slow_per_epoch = 0.0  # faultinject "slow" straggler knob
+        self.hb_muted = False      # faultinject "mute" (drop heartbeats)
+
+    def corruptible_ring(self, chan: int | None) -> ShmRing:
+        """The data ring a ``corrupt`` fault targets: the given channel, or
+        this worker's first egress channel when unspecified."""
+        if chan is None:
+            chan = next((ts.egress_chans[0] for s in self.specs for ts in s.tiers
+                         if ts.egress_chans), None)
+        if chan is None or ("d", chan) not in self.rings:
+            raise ValueError(f"no corruptible data ring for channel {chan}")
+        return self.rings[("d", chan)]
+
     def beat(self) -> None:
-        if self.hb is not None:
+        if self.hb is not None and not self.hb_muted:
             self.hb[0] = float(self.epochs_done)
             self.hb[1] = time.time()
 
@@ -829,6 +847,13 @@ class Worker:
                             status=encode_blocked(OP_CREDIT_PUSH, c))
 
     def one_epoch(self) -> None:
+        if self.injector is not None:
+            # plan-driven faults fire at deterministic LOCAL epoch numbers,
+            # before any of this epoch's effects (its first cycle-graph
+            # replay and ring operation) — reproducible drills
+            self.injector.before_epoch(self)
+        if self.slow_per_epoch:
+            time.sleep(self.slow_per_epoch)
         self._ingest_ext()
         for op, arg in self.sim.program:
             if op == "C":
@@ -998,14 +1023,18 @@ def worker_device(device: str, worker_index: int) -> torch.device:
 
 def worker_entry(conn, spec_segment: str, worker_index: int,
                  log_path: str | None, device: str,
-                 hb_ring_name: str | None, bulk: str) -> None:
+                 hb_ring_name: str | None, bulk: str,
+                 faults_pickle: bytes | None = None) -> None:
     """Process entry point (forkserver or spawn context).  Reads its
     pickled spec from the ``spec_segment`` the launcher wrote, builds the
     granule simulator on its device (capturing its cycle graphs on the
     card), then serves the command loop until "exit"; its bulk records go
-    through the segment ``bulk``."""
+    through the segment ``bulk``.  ``faults_pickle`` carries this worker's
+    armed ``FaultAction``s for the current fleet incarnation (drills; None
+    in production): the environment is never re-parsed here."""
     import pickle
 
+    t_entry = time.perf_counter()
     if log_path:
         f = open(log_path, "w", buffering=1)
         os.dup2(f.fileno(), 1)
@@ -1021,6 +1050,7 @@ def worker_entry(conn, spec_segment: str, worker_index: int,
             spec = pickle.loads(seg.buf)
         finally:
             seg.close()
+        faults = pickle.loads(faults_pickle) if faults_pickle else ()
         dev = worker_device(device, worker_index)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -1033,11 +1063,15 @@ def worker_entry(conn, spec_segment: str, worker_index: int,
         else:
             print(f"[worker {worker_index}] granule {spec.granule} "
                   f"signature {spec.signature} starting on {dev}", flush=True)
+        if faults:
+            print(f"[worker {worker_index}] armed faults: {faults}", flush=True)
         hb = hb_shm = None
         if hb_ring_name:
             hb_shm, hb = attach_heartbeat(hb_ring_name, worker_index)
-        w = Worker(spec, conn, hb, dev, bulk)
+        w = Worker(spec, conn, hb, dev, bulk, faults)
+        setup_s = time.perf_counter() - t_entry  # spec, device context, state, rings
         build = w.sim.prebuild()
+        build["setup_s"] = setup_s
         print(f"[worker {worker_index}] prebuilt {build['n_functions']} fns "
               f"in {build['seconds']:.2f}s (capture {build['capture_s']:.2f}s)",
               flush=True)

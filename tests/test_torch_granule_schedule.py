@@ -25,6 +25,7 @@ from repro_torch.core import ChannelGraph, tiered_grid_partition
 from repro_torch.core.fused import FusedEngine
 from repro_torch.core.struct import tree_paths
 from repro_torch.hw.manycore import ManycoreCell, make_core_params
+from repro_torch.hw.pipestage import PipeStage, make_chain
 from repro_torch.hw.systolic import SystolicCell, make_cell_params
 from repro_torch.kernels import fused_checks as fc
 from repro_torch.kernels import granule_step
@@ -167,7 +168,7 @@ def one_pass_cycle(eng, carry, tb, cons):
         return ok
 
     ens = [(cycle % blk.clock_divider) == 0 for blk in blocks]
-    bases = np.cumsum([0] + [2 * t.shape[0] for t in rxs])
+    bases = np.cumsum([0] + [t.shape[0] * t.shape[1] for t in rxs])
 
     def ready(ids):
         """Readiness of the flat consumers ``ids`` (>= 0), clocks included."""
@@ -175,9 +176,12 @@ def one_pass_cycle(eng, carry, tb, cons):
         for gi, blk in enumerate(blocks):
             m = (ids >= int(bases[gi])) & (ids < int(bases[gi + 1]))
             k = ids[m] - int(bases[gi])
-            j, pj = k // 2, k % 2
+            n_in = rxs[gi].shape[1]
+            j, pj = k // n_in, k % n_in
             if isinstance(blk, ManycoreCell):
                 r = consumer_ready(states[gi], j, pj, chan_ready, blk, txs[gi])
+            elif isinstance(blk, PipeStage):
+                r = chan_ready(txs[gi][j, 0])  # the kernel's pipe_ready
             else:
                 r = cell_ready(states[gi], j, pj, chan_valid, chan_ready, blk,
                                rxs[gi], txs[gi])
@@ -337,3 +341,55 @@ def test_consumer_table(which):
         granule_step.consumer_table(
             eng._tx_flat, inv_tx, eng._inv_tx_mask_flat,
             eng._inv_rx_flat, eng._inv_rx_mask_flat, n_reg)
+
+
+@pytest.mark.parametrize("granules", [1, 2])
+def test_one_pass_cycle_matches_plain_cycle_pipestage_chain(granules):
+    """PipeStage's device step as the kernel runs it (one port column, one
+    flat consumer id a slot): an 8-stage chain fed and drained by the host
+    between epochs, on one granule and on two batched ones (a boundary
+    egress and ingress row), every leaf bit-exact on every cycle."""
+    net = make_chain(8, capacity=4, delta=0.5)
+    kw = (dict(K=4) if granules == 1 else
+          dict(K=4, partition=[0] * 4 + [1] * 4, tiers=[(("g",), 4)],
+               batch_axes={"g": 2}))
+    eng = net.build(engine="fused", session=False, device="cpu", **kw)
+    cons = _cons(eng)
+    assert cons[0].shape == (8, 1)
+    state = eng.init(0)
+    program = eng._resident_program(0)
+    got_out, sent, cycles = [], 0, 0
+    for epoch in range(40):
+        if sent < 40:
+            batch = torch.tensor([[float(sent + j), float(epoch)] for j in range(3)])
+            state, n = eng.host_push_many(state, "tx", batch)
+            sent += int(n)
+        local = eng._local_view(state)
+        tb = eng._consts(local.tables)
+        carry = (local.reg_val, local.reg_v, local.queues, local.block_states,
+                 local.cycle, local.credits)
+        for op, arg in program:
+            if op == "X":
+                carry = eng._resident_exchange(carry, arg, tb)
+                continue
+            for _ in range(arg):
+                want = eng._cycle_body(carry[:5], tb)
+                got = one_pass_cycle(eng, carry[:5], tb, cons)
+                a, b = _leaves(got), _leaves(want)
+                assert sorted(a) == sorted(b)
+                for k in a:
+                    assert torch.equal(a[k], b[k]), (granules, cycles, k)
+                carry = want + (carry[5],)
+                cycles += 1
+        state = eng._global_view(local.replace(
+            reg_val=carry[0], reg_v=carry[1], queues=carry[2],
+            block_states=carry[3], cycle=carry[4], credits=carry[5],
+            epoch=local.epoch + 1))
+        state, out, n = eng.host_pop_many(state, "rx", 8)
+        got_out.append(out[: int(n)])
+    out = torch.cat(got_out)
+    assert sent == out.shape[0] and sent > 30
+    # each of the 8 stages adds 0.5 to word 0, in order
+    torch.testing.assert_close(out[:, 0], torch.arange(sent, dtype=torch.float32) + 4.0,
+                               rtol=0, atol=0)
+    assert bool((carry[3][0].count == sent).all())

@@ -348,16 +348,13 @@ def test_refused_knobs_name_their_items(monkeypatch):
     ``NotImplementedError`` naming its ROADMAP item, before any lowering;
     none is accepted and ignored."""
     net = make_chain(2)
-    for kw, item in ((dict(on_fault="recover"), "10.2"), (dict(fault_plan="kill:0@1"), "10.2"),
-                     (dict(snapshot_every=4), "10.2"), (dict(max_restarts=1), "10.2"),
-                     (dict(backoff_s=1.0), "10.2"), (dict(hosts=2), "10.3"),
-                     (dict(host="a"), "10.3"), (dict(base_port=9000), "10.3")):
+    for kw, item in ((dict(hosts=2), "10.3"), (dict(host="a"), "10.3"),
+                     (dict(base_port=9000), "10.3")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             net.build(engine="procs", device="cpu", **kw)
-    for env, item in (("REPRO_ON_FAULT", "10.2"), ("REPRO_FAULT_PLAN", "10.2"),
-                      ("REPRO_HOSTS", "10.3"), ("REPRO_BRIDGE_PORT", "10.3")):
+    for env, item in (("REPRO_HOSTS", "10.3"), ("REPRO_BRIDGE_PORT", "10.3")):
         with monkeypatch.context() as m:
-            m.setenv(env, "recover" if env == "REPRO_ON_FAULT" else "2")
+            m.setenv(env, "2")
             with pytest.raises(NotImplementedError, match=f"item {item}"):
                 net.build(engine="procs", device="cpu")
     with pytest.raises(ValueError, match="cache"):
