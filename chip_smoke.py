@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-Nine paths, each through the entry points a user calls:
+Ten paths, each through the entry points a user calls:
 
   * the paper's wafer-scale torus: 1024x1024 ``ManycoreCell`` cores running
     a two-phase ring allreduce, partitioned over 2 pods x 2x2 granules with
@@ -48,6 +48,12 @@ Nine paths, each through the entry points a user calls:
     Pallas kernel), on the wafer at full width against ``GraphEngine``,
     and self-healing (``on_fault="recover"``): drilled faults healed by
     respawn, restore and replay, bit-identical to a fault-free fleet;
+    with worker telemetry (``sim.trace``: a record a phase from every
+    worker);
+  * multi-host fleets (``runtime/bridge.py``, ``runtime/fleet.py``):
+    ``hosts=2``, the granules on two launcher processes whose workers
+    exchange across hosts only through a TCP ring bridge, every worker on
+    the card, bit-identical to the single-host fleet, link faults healed;
   * LM serving: ``launch.serve.serve`` -> ``models.model.init_params`` ->
     ``prefill`` -> greedy ``decode_step``s for recurrentgemma-2b,
     xlstm-125m and the dense llama3.2-1b at their published widths (batch
@@ -278,32 +284,69 @@ Phases (a failing phase raises, and the script exits non-zero):
              core-cycles/s, rings and shared-memory bytes, ring ops and view
              bytes an epoch, each worker's run, busy, wait and capture
              seconds, and (plain) the card's idle share over 2 traced epochs.
-             Then the plain fleet again under ``on_fault="recover"`` with no
-             fault, by ``run(until=...)`` (a snapshot at every epoch, as the
-             reference takes them) and by ``run(epochs=67)`` (a snapshot
-             every 16): the until-run's seconds beside the raise run's, the
-             snapshots' count, seconds and bytes; and for each of the two
-             runs a fresh fleet with ``kill:1@40``: stop and blocks
-             bit-identical to ``GraphEngine``'s, MTTR (its seconds less the
-             fault-free recover run's) split into detect, teardown,
-             backoff, respawn, restore, replay (none after the until-run's
-             snapshot at epoch 40; 8 epochs from the epochs-run's at 32)
-             and the snapshots' excess.
-  17. lm-small  each LM kernel against its plain version on the card, at
+             Then the plain fleet's until-run again inside ``sim.trace``
+             (worker telemetry): its seconds against the untraced run's,
+             each worker's epoch split into ingest, step, exchange issue,
+             exchange commit and flush from the exported trace, records
+             dropped and the ``perfmodel.model_drift`` gauge; then the
+             fleet under ``on_fault="recover"`` with no fault by
+             ``run(epochs=67)`` (a snapshot every 16): its seconds, the
+             snapshots' count, seconds and bytes; and a fresh fleet with
+             ``kill:1@40``: stop and blocks bit-identical to
+             ``GraphEngine``'s, MTTR (its seconds less the fault-free
+             recover run's) split into detect, teardown, backoff, respawn,
+             restore, replay (8 epochs from the snapshot at 32) and the
+             snapshots' excess.  (The until-mode recover run and kill
+             drill, which PR 23 measured, are left out for time.)
+  17. fleet-small  multi-host fleets on the card, ``tests/test_bridge.py``'s
+             scenarios on ``hosts=2``: a 4-stage ``PipeStage`` chain at
+             capacity 2 (4 workers, K = 1) under host I/O, traffic
+             bit-identical to ``hosts=1`` and to ``NetworkSim``
+             (cycle-accurate) and ``gather_state`` to ``hosts=1``, the
+             follower launcher without CUDA; the same fleet traced
+             (bit-identical, a track a worker, ``stats()["bridges"]`` valid
+             under ``obs/schema.py``, a ``perfmodel.model_drift`` gauge), then
+             ``linkkill`` armed on it under ``raise`` giving
+             ``LinkDownError``; the systolic scenario saved on two hosts and
+             loaded back into the running 2-host fleet, ``Y`` bit-identical
+             both times, then ``linkcorrupt`` armed on it under ``raise``
+             giving ``RingCorruptionError``; ``linkkill:0@3``,
+             ``linkcorrupt:0@5:r1`` and ``linkslow:0@7:r2`` on one fleet under
+             ``on_fault="recover"`` (two restarts, the slow pump absorbed),
+             trace and ``gather_state`` bit-identical to the fault-free fleet;
+             after every teardown no process (worker, bridge, follower and
+             the follower's own), ``/dev/shm`` segment or listening port of
+             the earlier incarnation left.
+  18. fleet-full  wafer-1M-procs4-hosts2: wafer-1M-procs4 on ``hosts=2``
+             (granules 0 and 1 on h0, 2 and 3 on h1; one link carrying the
+             2,048 pod-tier channels, the strip tier in shared memory):
+             ``run(until=allreduce_done)`` on a warm fleet, stop 4,352,
+             every total 4,718,592, ``gather_state`` bit-identical to the
+             single-host fleet's (procs-full's, or its own when procs-full
+             did not run) and every block to ``GraphEngine``'s; logs the
+             set-up split (blob, rings, workers ready, the follower's boot,
+             rendezvous), the run's seconds beside procs4's and
+             ``GraphEngine``'s in the same call, ``bridge_stats`` and its
+             bytes a pod exchange, each worker's wait share; the fault-free
+             recover ``run(epochs=67)``; then ``linkkill:0@40`` armed on
+             that warm fleet under ``run(epochs=67)``: healed
+             bit-identically, MTTR split with the re-rendezvous its own
+             term, nothing of the first incarnation left.
+  19. lm-small  each LM kernel against its plain version on the card, at
              the CPU tests' shapes (``kernels.lm_checks``): attention MHA,
              GQA and MQA, causal with and without a window, f32 (the
              CUDA-core route) and bf16 (the tensor-core route; each case
              must take its dtype's route), D up to 256, T not a multiple
              of 128; the RG-LRU with and without h0; the sLSTM at T = 1
              and longer, R in f32 and bf16, up to xlstm-125m's width.
-  18. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
+  20. lm-dense  ``serve()`` with no arguments (llama3.2-1b at the smoke
              size, on the card); then llama3.2-1b at full width (16 layers,
              d 2048, GQA 32/8, head dim 64) through ``serve`` with the flash
              launch count set to 0 just before and read just after (16,
              all on the tensor-core route), every logit finite, and the
              first layer's flash call held against the plain version at the
              run's own inputs.
-  19. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
+  21. rg-full  recurrentgemma-2b at full width (26 layers, d 2560, 8 local
              attention layers, window 2048): ``serve`` with every kernel's
              launch count set to 0 just before and read just after (8
              ``flash_attention``, all on the tensor-core route, 18
@@ -322,14 +365,17 @@ Phases (a failing phase raises, and the script exits non-zero):
              call also without); last, a warm prefill and one decode step
              under ``torch.profiler``: device idle share and time by kernel
              (``rglru_clear``: the RG-LRU's status clear).
-  20. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
+  22. xl-full  xlstm-125m the same way (96 ``slstm_scan`` launches: 6 in the
              prefill, 6 in each of the 15 decode steps), at the first
              decode step's inputs and the first prefill's: the cluster
              plan, the T = 1 call by CUDA events and the wrapper's host
              time a call, us a step and the marginal step (T against T/2).
 
-The output ends with a JSON line describing each kernel, the card's name and
-power limit from nvidia-smi, and the one-line result JSON.
+After the last phase the script stops the forkserver and resource tracker
+the fleets started and checks that no process of the run is left (every one
+carries the run's token in its environment). The output ends with a JSON line
+describing each kernel, the card's name and power limit from nvidia-smi, and
+the one-line result JSON.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -341,6 +387,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --phases build,session-small,session-full
     python3 chip_smoke.py --phases build,mesh-small,mesh-full
     python3 chip_smoke.py --phases build,procs-small,procs-full
+    python3 chip_smoke.py --phases build,fleet-small,fleet-full
     python3 chip_smoke.py --phases build,lm-small,lm-dense,rg-full,xl-full
 """
 from __future__ import annotations
@@ -366,8 +413,8 @@ KERNELS = ("granule_step", "systolic_step", "flash_attention", "rglru_scan",
 RGLRU_SWEEP_VARIANTS = (64, 128, 512)
 PHASES = ("build", "small", "full", "sys-small", "sys-full", "fsys-small",
           "fsys-full", "fused-io", "graph-small", "graph-full", "session-small", "session-full",
-          "mesh-small", "mesh-full", "procs-small", "procs-full", "lm-small", "lm-dense",
-          "rg-full", "xl-full")
+          "mesh-small", "mesh-full", "procs-small", "procs-full", "fleet-small",
+          "fleet-full", "lm-small", "lm-dense", "rg-full", "xl-full")
 
 
 def log(msg: str) -> None:
@@ -3372,6 +3419,12 @@ PROCS_TIMEOUT = 120.0  # seconds a worker may go silent before it is dead
 #: GraphEngine's state after as many, not the run to its end: the recover
 #: runs took its time)
 PROCS_BATCH_EPOCHS = 16
+#: the epoch at whose boundary fleet-full's drill kills link 0's proxy
+FLEET_KILL_EPOCH = 40
+#: shared between procs-full and fleet-full when both run in one call: the
+#: GraphEngine yardstick and the single-host fleet's run (fleet-full builds
+#: its own when procs-full did not run)
+SHARED: dict = {}
 
 
 def procs_wafer(R, C, k_outer, k_inner, capacity, device, **kw):
@@ -3570,10 +3623,20 @@ def watch_incarnations(eng) -> dict:
             return close()
         paths = eng._monitor.log_paths if eng._monitor is not None else {}
         logs = {w: read_log_tail(p, max_bytes=8192) for w, p in paths.items()}
+        # the fleet's other members: bridges, follower launchers and what
+        # each follower reported (its processes and ring prefix), and the
+        # ports its listeners held
+        members = {"procs": [*eng._procs.values(), *eng._bridge_procs.values(),
+                             *eng._follower_procs.values()],
+                   "hello": {h: dict(v) for h, v in eng._follower_hello.items()},
+                   "ports": [*eng._accept_ports.values(),
+                             *([eng._ctl_listener.getsockname()[1]]
+                               if eng._ctl_listener is not None else [])],
+                   "prefix": eng._ring_prefix}
         at, t0 = time.time(), time.perf_counter()
         close()
         seen["close"].append({"at": at, "seconds": time.perf_counter() - t0,
-                              "logs": logs})
+                              "logs": logs, **members})
 
     def reopen_spy():
         seen["reopen"].append({"procs": list(eng._procs.values()),
@@ -3588,21 +3651,39 @@ def watch_incarnations(eng) -> dict:
     return seen
 
 
-def check_no_leftovers(tag: str, seen: dict) -> str:
-    """No worker process of an earlier incarnation alive and none of its
-    shared-memory segments left in ``/dev/shm``."""
+def leftovers_line(tag: str, closes: list, reopens: list) -> str:
+    """No process of the fleets torn down in ``closes`` (workers in
+    ``reopens``; bridges, follower launchers and the processes each
+    follower reported) alive, none of their shared-memory segments in
+    ``/dev/shm`` (the leader's ring prefix and each follower's) and none
+    of their listening ports still listening."""
     import os
 
+    procs = {p.pid: p for p in [*(p for r in reopens for p in r["procs"]),
+                                *(p for c in closes for p in c["procs"])]}
+    pids = [pid for c in closes for h in c["hello"].values() for pid in h.get("pids", ())]
+    alive = [p.pid for p in procs.values() if p.is_alive()] + [p for p in pids
+                                                               if pid_alive(p)]
+    prefixes = ([r["prefix"] for r in reopens] + [c["prefix"] for c in closes]
+                + [h["prefix"] for c in closes for h in c["hello"].values()])
+    segs = [f for f in os.listdir("/dev/shm") if f.startswith(tuple(prefixes))]
+    ports = sorted({p for c in closes for p in c["ports"]} & listening_ports())
+    if alive or segs or ports:
+        raise AssertionError(f"[{tag}] earlier incarnation left processes {alive}, "
+                             f"segments {segs[:5]} and listening ports {ports}")
+    teardown = ", ".join(f"{c['seconds']:.2f}" for c in closes)
+    n_ports = len({p for c in closes for p in c["ports"]})
+    return (f"{len(procs) + len(pids)} processes of {max(len(closes), len(reopens))} "
+            f"earlier incarnation(s) gone (teardown {teardown} s), none of their "
+            f"segments in /dev/shm, none of their {n_ports} ports listening")
+
+
+def check_no_leftovers(tag: str, seen: dict) -> str:
+    """No worker, bridge or follower process of an earlier incarnation
+    alive, none of its shared-memory segments left in ``/dev/shm``, none
+    of its listening sockets open — on either host of a bridged fleet."""
     gone = seen["reopen"]
-    alive = [p.pid for r in gone for p in r["procs"] if p.is_alive()]
-    segs = [f for r in gone for f in os.listdir("/dev/shm") if f.startswith(r["prefix"])]
-    if alive or segs:
-        raise AssertionError(f"[procs-small] {tag}: earlier incarnation left "
-                             f"workers {alive} and segments {segs[:5]}")
-    teardown = ", ".join(f"{c['seconds']:.2f}" for c in seen["close"][:len(gone)])
-    return (f"{sum(len(r['procs']) for r in gone)} workers of {len(gone)} earlier "
-            f"incarnation(s) gone (teardown {teardown} s), none of their segments "
-            f"in /dev/shm")
+    return leftovers_line(tag, seen["close"][:len(gone)], gone)
 
 
 def recovery_split(seen: dict, last: dict) -> dict:
@@ -3696,23 +3777,17 @@ def log_fleet_trace(tag: str, prof: dict) -> None:
         f"busy seconds add); each worker's own {own}")
 
 
-def phase_procs_full() -> None:
-    """wafer-1M-procs4: the full wafer on 4 worker processes on the card,
-    plain and with batch_signatures, against GraphEngine on the same tree."""
+def graph_yardstick(args, done, tag: str) -> None:
+    """GraphEngine on the procs layout's PartitionTree, one process: its
+    stop and blocks after ``run(until=allreduce_done)`` and after
+    ``PROCS_BATCH_EPOCHS`` epochs, and its until-run's seconds, into
+    ``SHARED["graph"]``."""
     import gc
 
     import numpy as np
     import torch
-    from repro_torch.configs.manycore import CONFIG
     from repro_torch.core import Simulation
-    from repro_torch.hw.manycore import allreduce_done
-    from repro_torch.core.struct import tree_leaves
 
-    R, C = CONFIG.grid_rows, CONFIG.grid_cols
-    args = (R, C, CONFIG.k_outer, CONFIG.k_inner, CONFIG.queue_capacity, "cuda")
-    done = lambda s: allreduce_done(s.block_states[0], s.tables.active[0])  # noqa: E731
-
-    # the yardstick: GraphEngine on the same PartitionTree, one process
     t0 = time.perf_counter()
     geng, _ = procs_wafer(*args, engine="graph")
     gsim = Simulation(geng).reset(0)
@@ -3724,16 +3799,48 @@ def phase_procs_full() -> None:
     gwall = time.perf_counter() - t1
     want, want_stop = geng.gather_group(gsim.state, 0), gsim.cycle
     if not np.array_equal(want.total, np.full_like(want.total, TOTAL)):
-        raise AssertionError("[procs-full] GraphEngine's totals are not the global sum")
-    log(f"[procs-full] yardstick GraphEngine on the same PartitionTree (4 granules "
+        raise AssertionError(f"[{tag}] GraphEngine's totals are not the global sum")
+    log(f"[{tag}] yardstick GraphEngine on the same PartitionTree (4 granules "
         f"batched, one process): stop cycle {want_stop}, set-up {gsetup:.2f} s, until-run "
         f"{gwall:.3f} s (its span capture included)")
     gsim.reset(0).run(epochs=PROCS_BATCH_EPOCHS)  # the batch_signatures run's yardstick
-    want_cut = geng.gather_group(gsim.state, 0)
+    SHARED["graph"] = {"want": want, "want_stop": want_stop, "gwall": gwall,
+                       "want_cut": geng.gather_group(gsim.state, 0)}
     gsim._state = None
     del gsim, geng
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def single_host_done(eng, sim, done, want, want_stop, run_s: float, tag: str) -> None:
+    """The single-host wafer-1M-procs4 fleet at its stop after a warm
+    untraced until-run of ``run_s`` seconds: its ``gather_state`` (the
+    2-host fleet's yardstick), then the same run traced
+    (``telemetry_run``), into ``SHARED["procs4"]``."""
+    tree = eng.gather_state(sim.state)
+    tel = telemetry_run(tag, eng, sim, done, want, want_stop, run_s)
+    SHARED["procs4"] = {"run_s": run_s, "tree": tree, **tel}
+
+
+def phase_procs_full() -> None:
+    """wafer-1M-procs4: the full wafer on 4 worker processes on the card,
+    plain and with batch_signatures, against GraphEngine on the same tree."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs.manycore import CONFIG
+    from repro_torch.core import Simulation
+    from repro_torch.hw.manycore import allreduce_done
+    from repro_torch.core.struct import tree_leaves
+
+    R, C = CONFIG.grid_rows, CONFIG.grid_cols
+    args = (R, C, CONFIG.k_outer, CONFIG.k_inner, CONFIG.queue_capacity, "cuda")
+    done = lambda s: allreduce_done(s.block_states[0], s.tables.active[0])  # noqa: E731
+
+    # the yardstick: GraphEngine on the same PartitionTree, one process
+    graph_yardstick(args, done, "procs-full")
+    want, want_stop, gwall, want_cut = (
+        SHARED["graph"][k] for k in ("want", "want_stop", "gwall", "want_cut"))
 
     for batch in (False, True):
         tag = "batch_signatures" if batch else "plain"
@@ -3758,7 +3865,9 @@ def phase_procs_full() -> None:
                 f"constructor {build_s - eng.lowering_seconds - eng.build_stats['prebuild_seconds']:.2f} s), "
                 f"rings {ls['rings_seconds']:.2f} s, spawn {ls['spawn_seconds']:.2f} s, "
                 f"workers ready after {ready:.2f} s (start, CUDA, template, capture "
-                f"{', '.join(f'{c:.2f}' for c in caps)} s; of it each worker's own "
+                f"{', '.join(f'{c:.2f}' for c in caps)} s; of it the spawn to each "
+                f"worker's entry {', '.join(f'{c:.2f}' for c in ls['entry_seconds'].values())}"
+                f" s, each worker's own "
                 f"set-up (spec, device context, state, rings) "
                 f"{', '.join(f'{c:.2f}' for c in own)} s and template and captures "
                 f"{', '.join(f'{c:.2f}' for c in pre)} s); launch {launch_s:.2f} s")
@@ -3785,8 +3894,10 @@ def phase_procs_full() -> None:
             stop, epochs = sim.cycle, sim.epoch
             rows = eng.worker_stats(sim.state)
             blocks = eng.gather_group(sim.state, 0)
-            if not batch:  # the same fleet under recover, fault-free
-                recover = recover_run(eng, sim, done, want, want_stop, run_s)
+            if not batch:  # traced again, then under recover, fault-free
+                single_host_done(eng, sim, done, want, want_stop, run_s, "procs-full")
+                eng.on_fault = "recover"
+                recover = recover_epochs(eng, sim, want, want_stop, "procs-full")
         finally:
             eng.close()
         if batch:
@@ -3825,10 +3936,9 @@ def phase_procs_full() -> None:
                 f"(share {r['wait_fraction']:.4f}), capture {r['capture_s']:.3f} s, "
                 f"{r['ring_ops']} ring ops")
         gc.collect()
-        if not batch:  # kill drills on fresh fleets, until- and epochs-run
-            for mode in ("until", "epochs"):
-                kill_drill(args, done, want, want_stop, recover, mode)
-                gc.collect()
+        if not batch:  # a kill drill on a fresh fleet, epochs-run
+            kill_drill(args, want, want_stop, recover)
+            gc.collect()
 
 
 def snapshot_seconds():
@@ -3840,63 +3950,41 @@ def snapshot_seconds():
     return snap["count"], snap["sum"]
 
 
-def recover_run(eng, sim, done, want, want_stop, raise_s: float) -> dict:
-    """The plain fleet again under ``on_fault="recover"``, no fault: first
-    the until-run (snapshots every 16 epochs and at every run entry whose
-    epoch moved: under ``run(until=...)``, every epoch), then
-    ``run(epochs=67)`` (a snapshot at entry and at every 16th epoch).  Each
-    ends at ``GraphEngine``'s stop with its blocks; logs the until-run's
-    seconds beside the raise run's and the snapshots' count, seconds and
-    bytes.  Returns each run's seconds and snapshot seconds by mode."""
+def recover_epochs(eng, sim, want, want_stop, tag: str) -> dict:
+    """The fleet again under ``on_fault="recover"``, no fault, by
+    ``run(epochs=67)`` (a snapshot at entry and at every 16th epoch),
+    ending at ``GraphEngine``'s stop with its blocks; logs the run's
+    seconds and the snapshots' count, seconds and bytes.  Returns the
+    run's seconds, snapshots, snapshot seconds and epochs (the kill
+    drill's yardstick)."""
     from repro_torch.core.struct import tree_leaves
-    from repro_torch.obs.registry import REGISTRY
 
-    eng.on_fault = "recover"
-    out = {}
-    for mode in ("until", "epochs"):
-        sim.reset(0)
-        n0, s0 = snapshot_seconds()
-        t0 = time.perf_counter()
-        if mode == "until":
-            sim.run(until=done, max_epochs=1000)
-        else:
-            sim.run(epochs=want_stop // sim.period)
-        run_s = time.perf_counter() - t0
-        n1, s1 = snapshot_seconds()
-        stats = eng.fault_stats()
-        if sim.cycle != want_stop or not same_leaves(want, eng.gather_group(sim.state, 0)):
-            raise AssertionError(f"[procs-full] recover {mode}: stop {sim.cycle} or "
-                                 "blocks differ")
-        out[mode] = {"run_s": run_s, "snapshots": n1 - n0, "snapshot_s": s1 - s0,
-                     "epochs": sim.epoch}
-        if mode == "until":
-            snap = REGISTRY.histogram("recovery.snapshot.s").summary()
-            nbytes = sum(x.nbytes for x in tree_leaves(eng._recovery._snapshot))
-            log(f"[procs-full] plain under on_fault=recover, no fault: stop cycle "
-                f"{sim.cycle} ({sim.epoch} epochs), blocks bit-identical to GraphEngine's; "
-                f"run(until) {run_s:.3f} s against the raise run's {raise_s:.3f} s in this "
-                f"call ({run_s / raise_s:.2f}x); {stats['snapshots']} snapshots (last at "
-                f"epoch {stats['last_snapshot_epoch']}), {n1 - n0} timed: {s1 - s0:.3f} s, "
-                f"{(s1 - s0) / max(n1 - n0, 1):.4f} s each (min {snap['min']:.4f}, max "
-                f"{snap['max']:.4f} over the process), {nbytes} B a snapshot")
-        else:
-            log(f"[procs-full] plain under on_fault=recover, no fault: run(epochs="
-                f"{sim.epoch}) {run_s:.3f} s, stop cycle {sim.cycle}, blocks bit-identical "
-                f"to GraphEngine's; {n1 - n0} snapshots (snapshot_every "
-                f"{stats['snapshot_every']}, last at epoch {stats['last_snapshot_epoch']}): "
-                f"{s1 - s0:.3f} s")
-    return out
+    sim.reset(0)
+    n0, s0 = snapshot_seconds()
+    t0 = time.perf_counter()
+    sim.run(epochs=want_stop // sim.period)
+    run_s = time.perf_counter() - t0
+    n1, s1 = snapshot_seconds()
+    stats = eng.fault_stats()
+    if sim.cycle != want_stop or not same_leaves(want, eng.gather_group(sim.state, 0)):
+        raise AssertionError(f"[{tag}] recover epochs: stop {sim.cycle} or blocks differ")
+    nbytes = sum(x.nbytes for x in tree_leaves(eng._recovery._snapshot))
+    log(f"[{tag}] under on_fault=recover, no fault: run(epochs={sim.epoch}) "
+        f"{run_s:.3f} s, stop cycle {sim.cycle}, blocks bit-identical to GraphEngine's; "
+        f"{n1 - n0} snapshots (snapshot_every {stats['snapshot_every']}, last at epoch "
+        f"{stats['last_snapshot_epoch']}): {s1 - s0:.3f} s, {nbytes} B a snapshot")
+    return {"run_s": run_s, "snapshots": n1 - n0, "snapshot_s": s1 - s0,
+            "epochs": sim.epoch}
 
 
-def kill_drill(args, done, want, want_stop, clean: dict, mode: str) -> None:
+def kill_drill(args, want, want_stop, clean: dict) -> None:
     """wafer-1M-procs4 under ``on_fault="recover"`` with ``kill:1@40`` on a
-    fresh fleet, run to ``GraphEngine``'s stop by ``run(until=...)``
-    (``mode="until"``: a snapshot every epoch, so nothing to replay) or
-    ``run(epochs=67)`` (``"epochs"``: snapshots every 16 epochs, so the
-    epochs since epoch 32 are replayed): the stop and every block as
-    ``GraphEngine``'s, and MTTR (the faulted run's seconds less the
-    fault-free recover run's in the same mode, the drill's fleet warmed
-    first by 16 epochs as that run's fleet is warm) split into detect (the
+    fresh fleet, run to ``GraphEngine``'s stop by ``run(epochs=67)``
+    (snapshots every 16 epochs, so the epochs since epoch 32 are
+    replayed): the stop and every block as ``GraphEngine``'s, and MTTR (the
+    faulted run's seconds less the fault-free recover run's, the drill's
+    fleet warmed first by 16 epochs as that run's fleet is warm) split
+    into detect (the
     kill, stamped in the worker's log, to the faulted fleet's teardown),
     teardown, backoff, respawn (``_reopen``: rings, spawn, workers ready
     with their captures), restore (``scatter_state``), replay (the epochs
@@ -3927,10 +4015,7 @@ def kill_drill(args, done, want, want_stop, clean: dict, mode: str) -> None:
         seen["snapshots"].clear()
         n0, s0 = snapshot_seconds()
         t1 = time.perf_counter()
-        if mode == "until":
-            sim.run(until=done, max_epochs=1000)
-        else:
-            sim.run(epochs=want_stop // sim.period)
+        sim.run(epochs=want_stop // sim.period)
         run_s = time.perf_counter() - t1
         n1, s1 = snapshot_seconds()
         stop, epochs = sim.cycle, sim.epoch
@@ -3942,7 +4027,7 @@ def kill_drill(args, done, want, want_stop, clean: dict, mode: str) -> None:
     finally:
         eng.close()
     killed = REGISTRY.counters().get("procs.close.killed", 0.0) - killed
-    tag = f"kill:1@40 under recover, run({mode})"
+    tag = "kill:1@40 under recover, run(epochs)"
     if stop != want_stop or not same_leaves(want, blocks):
         raise AssertionError(f"[procs-full] {tag}: stop {stop} (GraphEngine "
                              f"{want_stop}) or blocks differ")
@@ -3956,7 +4041,7 @@ def kill_drill(args, done, want, want_stop, clean: dict, mode: str) -> None:
     left = check_no_leftovers(f"procs-full {tag}", seen)
     split = recovery_split(seen, last)
     detect = seen["close"][0]["at"] - float(m.group(2))
-    ref = clean[mode]
+    ref = clean
     mttr = run_s - ref["run_s"]
     # the kill fires before its epoch runs: the epochs from the restored
     # snapshot up to it run again (the controller counts as "confirmed"
@@ -4000,6 +4085,564 @@ def kill_drill(args, done, want, want_stop, clean: dict, mode: str) -> None:
         f"epoch before it ({first['seconds']:.3f} s), the rest {rest:.3f} s")
 
 
+# ------------------------------------------------------------ multi-host fleets
+def listening_ports() -> set:
+    """The TCP ports in LISTEN state on this machine (``/proc/net/tcp``)."""
+    out = set()
+    for path in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(path) as f:
+                next(f)
+                for line in f:
+                    parts = line.split()
+                    if parts[3] == "0A":
+                        out.add(int(parts[1].rsplit(":", 1)[1], 16))
+        except OSError:
+            pass
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    """``pid`` is a live process (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def chain_run(traced_path=None, keep: bool = False, **kw):
+    """``io_script`` on a 4-stage PipeStage chain at capacity 2, one worker
+    a stage on the card, K = 1 (``tests/test_bridge.py``'s chain, one stage
+    longer so each host holds two workers), and the final
+    ``gather_state``.  With ``traced_path`` the fleet runs the script once
+    untraced, then again inside ``sim.trace(traced_path)``.  With ``keep``
+    the fleet stays open (``facts["sim"]``).  Returns (trace, tree, engine
+    facts, traced trace or None); the facts hold each recovery's
+    ``last_recovery`` record in order (``"recoveries"``)."""
+    from repro_torch.hw.pipestage import make_chain
+    from repro_torch.obs import schema
+
+    sim = make_chain(4, capacity=2).build(
+        engine="procs", device="cuda", n_workers=4, partition=[0, 1, 2, 3], K=1,
+        timeout=PROCS_TIMEOUT, **kw)
+    eng = sim.engine
+    seen = watch_incarnations(eng)
+    recoveries = []
+    recover = eng._recovery._recover
+
+    def recover_spy(fault, state):
+        out = recover(fault, state)
+        recoveries.append(eng.fault_stats()["last_recovery"])
+        return out
+
+    eng._recovery._recover = recover_spy
+    try:
+        trace = io_script(sim.reset(0))
+        tree = eng.gather_state(sim.state)
+        facts = {"hosts": {h: r.get("cuda_initialized")
+                           for h, r in eng.launch_stats.get("hosts", {}).items()},
+                 "devices": sorted({r["device"] for r in eng.worker_stats()}),
+                 "faults": eng.fault_stats(), "seen": seen, "recoveries": recoveries}
+        traced = None
+        if traced_path is not None:
+            with sim.trace(traced_path):
+                traced = io_script(sim.reset(0))
+            facts["stats"] = schema.validate_stats(sim.stats())
+    except BaseException:
+        eng.close()
+        raise
+    if keep:
+        facts["sim"] = sim
+    else:
+        eng.close()
+    return trace, tree, facts, traced
+
+
+def same_traffic(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def arm_link_fault(eng, plan: str) -> None:
+    """Arm ``plan``'s link faults on a running fleet: a link fault is the
+    launcher's to fire at a command boundary, so no process needs it at
+    spawn (the fleet's incarnation must be the plan's)."""
+    from repro_torch.runtime.faultinject import parse_fault_plan, split_plan
+
+    eng.fault_plan = parse_fault_plan(plan)
+    eng._link_faults = split_plan(eng.fault_plan)[1]
+    eng._fired_links = set()
+
+
+def raise_drill(sim, plan: str, exc, tag: str) -> None:
+    """``plan`` armed on the live fleet of ``sim`` under ``on_fault="raise"``:
+    the run must raise ``exc``, and nothing of the fleet may be left."""
+    eng = sim.engine
+    arm_link_fault(eng, plan)
+    seen = watch_incarnations(eng)
+    try:
+        sim.reset(0)
+        sim.run(cycles=(eng._link_faults[0].epoch + 8) * sim.period)
+    except exc as e:
+        msg = f"{type(e).__name__} ({str(e).splitlines()[0]})"
+    else:
+        raise AssertionError(f"[{tag}] {plan} under raise did not raise")
+    finally:
+        eng.close()
+    log(f"[{tag}] drill {plan} under raise on that fleet: {msg}; "
+        f"{leftovers_line(f'raise {plan}', seen['close'], [])}")
+
+
+def phase_fleet_small() -> None:
+    """Multi-host fleets on the card at small sizes, the scenarios of
+    ``tests/test_bridge.py`` on ``hosts=2``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.hw.pipestage import make_chain
+    from repro_torch.hw.systolic import make_systolic_network
+    from repro_torch.obs import drift, schema
+    from repro_torch.obs.registry import REGISTRY
+    from repro_torch.runtime import LinkDownError, RingCorruptionError
+
+    tmp = tempfile.mkdtemp(prefix="fleet_small_")
+    try:
+        # the 4-stage chain under host I/O at capacity 2: NetworkSim, hosts=1
+        # and hosts=2 (cycle-accurate), then the same 2-host fleet traced,
+        # then a link kill armed on it under raise
+        ref = make_chain(4, capacity=2).build(device="cuda")
+        want_ns = io_script(ref.reset(0))
+        t0 = time.perf_counter()
+        want, want_tree, _f, _t = chain_run()
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "fleet.json")
+        got, tree, facts, traced = chain_run(traced_path=path, keep=True, hosts=2)
+        sim = facts["sim"]
+        two_s = time.perf_counter() - t0
+        try:
+            if not (same_traffic(want_ns, want) and same_traffic(want, got)
+                    and same_leaves(want_tree, tree)):
+                raise AssertionError("[fleet-small] chain: hosts=2, hosts=1 and NetworkSim "
+                                     "differ")
+            if facts["hosts"] != {"h1": False} or not all(
+                    d.startswith("cuda") for d in facts["devices"]):
+                raise AssertionError(f"[fleet-small] chain: follower CUDA state "
+                                     f"{facts['hosts']}, workers on {facts['devices']}")
+            if not same_traffic(want, traced):
+                raise AssertionError("[fleet-small] traced chain: traffic differs")
+            st = facts["stats"]
+            doc = schema.validate_trace_file(path)
+            tracks = {(e["pid"], e["tid"]) for e in doc["traceEvents"]
+                      if e.get("ph") == "X" and e.get("cat") == "worker"}
+            names = {e["name"] for e in doc["traceEvents"] if e.get("cat") == "worker"}
+            fit = drift.compute_drift(REGISTRY.snapshot(), registry=REGISTRY)
+            if not ({(0, 0), (0, 1), (1, 2), (1, 3)} <= tracks and {
+                    "ingest", "step", "exchange_issue", "exchange_commit", "flush",
+                    "epoch"} <= names and len(st["bridges"]) == 2
+                    and "perfmodel.model_drift" in REGISTRY.snapshot()):
+                raise AssertionError(f"[fleet-small] traced chain: tracks {sorted(tracks)}, "
+                                     f"names {sorted(names)}, bridges {st.get('bridges')}")
+            rows = {r["host"]: r for r in st["bridges"]}
+            log(f"[fleet-small] 4-stage chain at capacity 2, 4 workers on the card, K = 1: "
+                f"{sum(len(t) for t in got)} packets over {len(got)} boundaries on hosts=2 "
+                f"bit-identical to hosts=1 and to NetworkSim (cycle-accurate), "
+                f"gather_state bit-identical to hosts=1 ({two_s:.2f} s with the fleet's "
+                f"start and a traced rerun; hosts=1 {one_s:.2f} s); the follower launcher "
+                f"never initialised CUDA; traced rerun bit-identical, worker tracks "
+                f"{sorted(tracks)}, bridges {rows['h0']['slabs_tx']} slabs h0->h1, credit "
+                f"RTT {rows['h0']['credit_rtt_s'] * 1e3:.3f} ms, connect "
+                f"{rows['h0']['connect_s']:.2f} / {rows['h1']['connect_s']:.2f} s; "
+                f"perfmodel.model_drift {fit.get('model_drift', float('nan')):.4f}")
+        except BaseException:
+            sim.engine.close()
+            raise
+        raise_drill(sim, "linkkill:0@3", LinkDownError, "fleet-small")
+
+        # systolic: save on two hosts, load back into the running 2-host
+        # fleet (a fenced scatter over the control link), then a corrupted
+        # slab frame armed on it under raise
+        rng = np.random.RandomState(3)
+        M, K, N = 6, 4, 4
+        A, B = rng.randn(M, K).astype(np.float32), rng.randn(K, N).astype(np.float32)
+        done = lambda s: ((~s.block_states[0].is_south)  # noqa: E731
+                          | (s.block_states[0].y_idx >= M)).all()
+
+        def result_of(s):
+            return np.stack([np.asarray(s.probe((K - 1) * N + c).y_buf.cpu())
+                             for c in range(N)], axis=1)
+
+        ref = make_systolic_network(A, B)[0].build(device="cuda").reset(0)
+        ref.run(until=done, max_epochs=100_000)
+        want_y = result_of(ref)
+        ck = os.path.join(tmp, "sys")
+        sim = make_systolic_network(A, B)[0].build(
+            engine="procs", device="cuda", timeout=PROCS_TIMEOUT, n_workers=4,
+            partition=(np.arange(K * N) // 4).tolist(), K=4, hosts=2)
+        try:
+            sim.reset(0).run(cycles=12)
+            sim.save(ck)
+            sim.run(until=done, max_epochs=100_000)
+            y1 = result_of(sim)
+            sim.reset(0).load(ck)
+            at = sim.cycle
+            sim.run(until=done, max_epochs=100_000)
+            y2 = result_of(sim)
+        except BaseException:
+            sim.engine.close()
+            raise
+        if not (at == 12 and np.array_equal(y1.view(np.uint32), want_y.view(np.uint32))
+                and np.array_equal(y2.view(np.uint32), want_y.view(np.uint32))):
+            sim.engine.close()
+            raise AssertionError(f"[fleet-small] systolic: Y differs (resumed at {at})")
+        log("[fleet-small] systolic 6x4 @ 4x4 on 4 workers, hosts=2: run(cycles=12), "
+            "save, run(until); reset, load (scatter over the control link into both "
+            "hosts' workers) and resume from cycle 12: Y bit-identical to NetworkSim on "
+            "the card both times")
+        raise_drill(sim, "linkcorrupt:0@1", RingCorruptionError, "fleet-small")
+
+        # the three link kinds under recover on one fleet, each armed in the
+        # incarnation the one before leaves (:r<N>)
+        plan = "linkkill:0@3,linkcorrupt:0@5:r1,linkslow:0@7:r2:0.05"
+        fired = REGISTRY.counters().get("faults.injected", 0.0)
+        t0 = time.perf_counter()
+        got, tree, facts, _t = chain_run(hosts=2, fault_plan=plan, on_fault="recover",
+                                         snapshot_every=2, backoff_s=0.0)
+        wall = time.perf_counter() - t0
+        fired = REGISTRY.counters().get("faults.injected", 0.0) - fired
+        faults = facts["faults"]
+        if not (same_traffic(want, got) and same_leaves(want_tree, tree)):
+            raise AssertionError(f"[fleet-small] drill {plan}: traffic or state differs")
+        kinds = [r["fault"] for r in facts["recoveries"]]
+        if (faults["restarts"] != 2 or fired != 3
+                or kinds != ["LinkDownError", "RingCorruptionError"]):
+            raise AssertionError(f"[fleet-small] drill {plan}: {faults}, faults {kinds}")
+        respawn = ", ".join(f"{r['seconds']:.2f}" for r in facts["seen"]["reopen"])
+        log(f"[fleet-small] drill {plan} under recover: LinkDownError healed, then "
+            f"RingCorruptionError healed, then the paused pump absorbed (no restart); "
+            f"host trace and gather_state bit-identical to the fault-free fleet; "
+            f"restarts {faults['restarts']}, incarnation {faults['incarnation']}, "
+            f"respawns {respawn} s, {fired:.0f} link faults fired; "
+            f"{check_no_leftovers(f'fleet {plan}', facts['seen'])}; "
+            f"{wall:.2f} s in all")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fleet_cell(args, **kw):
+    """wafer-1M-procs4-hosts2: ``procs_wafer`` on ``hosts=2`` (granules 0
+    and 1 on h0, 2 and 3 on h1, every worker on the one card)."""
+    return procs_wafer(*args, hosts=2, **kw)
+
+
+def log_setup(tag: str, eng, build_s: float, launch_s: float) -> None:
+    """The set-up split of a 2-host fleet: the leader's lowering and
+    prebuild, the build blob, rings, spawn, its workers ready, the
+    follower's boot (spawn to hello: its imports, blob, lowering, rings,
+    workers) and the rendezvous."""
+    ls = eng.launch_stats
+    h1 = ls["hosts"]["h1"]
+    fl = h1["launch"]
+    log(f"[fleet-full] {tag}: set-up {build_s + launch_s:.2f} s: constructor "
+        f"{build_s:.2f} s (lowering {eng.lowering_seconds:.2f}, prebuild "
+        f"{eng.build_stats['prebuild_seconds']:.2f}); launch {launch_s:.2f} s: blob "
+        f"{eng.build_stats['follower_blob_bytes']} B written in "
+        f"{ls['blob_seconds']:.3f} s, leader rings {ls['rings_seconds']:.2f} s, spawn "
+        f"{ls['spawn_seconds']:.2f} s, leader workers ready after "
+        f"{max(ls['ready_seconds'].values()):.2f} s (spawn to entry "
+        f"{', '.join(f'{c:.2f}' for c in ls['entry_seconds'].values())} s), followers' hellos "
+        f"{ls['followers_seconds']:.2f} s after that, rendezvous in all "
+        f"{ls['rendezvous_seconds']:.2f} s; h1: blob read + constructor "
+        f"{fl['blob_read_seconds']:.2f} s (lowering {h1['lowering_seconds']:.2f}), rings "
+        f"{fl['rings_seconds']:.2f} s, spawn {fl['spawn_seconds']:.2f} s, workers ready "
+        f"after {max(fl['ready_seconds'].values()):.2f} s (spawn to entry "
+        f"{', '.join(f'{c:.2f}' for c in fl['entry_seconds'].values())} s), CUDA in its launcher: "
+        f"{h1['cuda_initialized']}")
+
+
+def bridge_line(rows: list, n_exchanges: int) -> str:
+    """``bridge_stats`` as one log line: each side's bytes, slabs and
+    credits each way, credit RTT, wait fraction, and bytes a pod exchange."""
+    parts = []
+    for r in rows:
+        parts.append(
+            f"{r['host']} ({r['role']}): tx {r['bytes_tx']} B / rx {r['bytes_rx']} B, "
+            f"slabs {r['slabs_tx']}/{r['slabs_rx']}, credits {r['credits_tx']}/"
+            f"{r['credits_rx']}, credit RTT {r['credit_rtt_s'] * 1e3:.3f} ms, wait "
+            f"{r['wait_fraction']:.4f}, connect {r['connect_s']:.2f} s, "
+            f"{(r['bytes_tx'] + r['bytes_rx']) / max(n_exchanges, 1):.0f} B a pod exchange")
+    return "; ".join(parts)
+
+
+def telemetry_run(tag: str, eng, sim, done, want, want_stop, untraced_s: float) -> dict:
+    """The fleet's warm until-run again inside ``sim.trace``: the traced
+    run's seconds against the untraced one's, each worker's epoch split
+    into its phases from the exported trace, records dropped, and the
+    ``perfmodel.model_drift`` gauge.  Stop and blocks as GraphEngine's."""
+    import tempfile
+
+    from repro_torch.obs import drift, schema, trace
+    from repro_torch.obs.registry import REGISTRY, MetricsRegistry
+
+    path = os.path.join(tempfile.mkdtemp(prefix="fleet_trace_"), "trace.json")
+    dropped0 = {r["granule"]: r["telem_dropped"] for r in eng.worker_stats()}
+    trace.recorder().clear()  # earlier phases' windows are exported already
+    sim.reset(0)
+    t0 = time.perf_counter()
+    with sim.trace(path):
+        sim.run(until=done, max_epochs=1000)
+    traced_s = time.perf_counter() - t0
+    if sim.cycle != want_stop or not same_leaves(want, eng.gather_group(sim.state, 0)):
+        raise AssertionError(f"[{tag}] traced run: stop {sim.cycle} or blocks differ")
+    rows = eng.worker_stats(sim.state)
+    dropped = sum(r["telem_dropped"] - dropped0[r["granule"]] for r in rows)
+    doc = schema.validate_trace_file(path)
+    with open(path) as f:
+        size = len(f.read())
+    split: dict = {}
+    phases = MetricsRegistry()  # this run's phase histograms alone
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "worker":
+            w = split.setdefault((e["pid"], e["tid"]), {})
+            w[e["name"]] = w.get(e["name"], 0.0) + e["dur"] * 1e-6
+            phases.observe(f"procs.phase.{e['name']}.s", e["dur"] * 1e-6)
+            if e["name"] == "epoch":
+                w["n"] = w.get("n", 0) + 1
+    fit = drift.compute_drift(phases.snapshot(), overlap=eng.overlap, registry=REGISTRY)
+    log(f"[{tag}] telemetry: traced until-run {traced_s:.3f} s against the untraced "
+        f"{untraced_s:.3f} s ({traced_s / untraced_s:.3f}x; each phase ends with a "
+        f"synchronize of the worker's device), stop {sim.cycle}, blocks bit-identical; "
+        f"{dropped} records dropped; trace {size} B; perfmodel.model_drift "
+        f"{fit['model_drift']:.4f} (measured {fit['measured_s'] * 1e3:.2f} ms an epoch, "
+        f"predicted {fit['predicted_s'] * 1e3:.2f}: step {fit['t_step'] * 1e3:.2f}, comm "
+        f"{fit['t_comm'] * 1e3:.2f}, residual {fit['t_residual'] * 1e3:.2f})")
+    for (pid, w), ph in sorted(split.items()):
+        ep = ph.get("epoch", 0.0)
+        parts = ", ".join(f"{k} {ph.get(k, 0.0):.3f} s ({ph.get(k, 0.0) / ep:.3f})"
+                          for k in ("ingest", "step", "exchange_issue", "exchange_commit",
+                                    "flush"))
+        log(f"[{tag}] telemetry: worker {w} (trace pid {pid}) {ph.get('n', 0)} epochs, "
+            f"{ep:.3f} s in epochs: {parts}")
+    return {"traced_s": traced_s, "dropped": dropped, "drift": fit}
+
+
+def phase_fleet_full() -> None:
+    """wafer-1M-procs4-hosts2: the full wafer on 4 workers over 2 hosts
+    joined by a TCP ring bridge, every worker on the card."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.manycore import CONFIG
+    from repro_torch.core import Simulation
+    from repro_torch.hw.manycore import allreduce_done
+
+    R, C = CONFIG.grid_rows, CONFIG.grid_cols
+    args = (R, C, CONFIG.k_outer, CONFIG.k_inner, CONFIG.queue_capacity, "cuda")
+    done = lambda s: allreduce_done(s.block_states[0], s.tables.active[0])  # noqa: E731
+    if "graph" not in SHARED:
+        graph_yardstick(args, done, "fleet-full")
+    want, want_stop, gwall = (SHARED["graph"][k] for k in ("want", "want_stop", "gwall"))
+    if "procs4" not in SHARED:
+        eng, _ = procs_wafer(*args)
+        try:
+            sim = Simulation(eng).reset(0)
+            sim.run(epochs=2)
+            sim.reset(0)
+            t0 = time.perf_counter()
+            sim.run(until=done, max_epochs=1000)
+            run_s = time.perf_counter() - t0
+            single_host_done(eng, sim, done, want, want_stop, run_s, "fleet-full")
+        finally:
+            eng.close()
+        gc.collect()
+    one = SHARED["procs4"]
+
+    t0 = time.perf_counter()
+    eng, _ = fleet_cell(args)
+    build_s = time.perf_counter() - t0
+    try:
+        t1 = time.perf_counter()
+        eng.launch()
+        launch_s = time.perf_counter() - t1
+        lk = eng._links[0]
+        tiers = {eng._chan_tier[c] for c, _h in lk.chans}
+        log(f"[fleet-full] wafer-1M-procs4-hosts2: {eng.G} granules on {eng.NW} workers, "
+            f"plan {dict((h, eng.host_plan.granules_of(h)) for h in eng.host_plan.hosts)}; "
+            f"{len(eng._links)} link ({lk.label}) carrying {len(lk.chans)} channels of "
+            f"tier(s) {sorted(tiers)} (slab slot {eng._rings[next(iter(eng._rings))].stride}"
+            f" B), the other {sum(len(c) for c in eng.lowering.routes.values()) - len(lk.chans)}"
+            f" boundary channels in shared memory")
+        log_setup("wafer-1M-procs4-hosts2", eng, build_s, launch_s)
+        sim = Simulation(eng).reset(0)
+        sim.run(epochs=2)  # warm: the first epochs' graphs and rings
+        sim.reset(0)
+        b0 = {(r["link"], r["host"]): r for r in eng.bridge_stats()}
+        t2 = time.perf_counter()
+        sim.run(until=done, max_epochs=1000)
+        run_s = time.perf_counter() - t2
+        stop, epochs = sim.cycle, sim.epoch
+        rows = eng.bridge_stats()
+        delta = [dict(r, **{k: r[k] - b0[(r["link"], r["host"])][k] for k in
+                            ("bytes_tx", "bytes_rx", "slabs_tx", "slabs_rx",
+                             "credits_tx", "credits_rx")}) for r in rows]
+        wrows = eng.worker_stats(sim.state)
+        tree = eng.gather_state(sim.state)
+        blocks = eng.gather_group(sim.state, 0)
+        if stop != want_stop or not same_leaves(want, blocks):
+            raise AssertionError(f"[fleet-full] stop {stop} (GraphEngine {want_stop}) "
+                                 "or blocks differ")
+        if not np.array_equal(blocks.total, np.full_like(blocks.total, TOTAL)):
+            raise AssertionError("[fleet-full] totals are not the global sum")
+        if not same_leaves(one["tree"], tree):
+            raise AssertionError("[fleet-full] gather_state differs from the single-host "
+                                 "fleet's")
+        pod_exchanges = -(-epochs * eng.cycles_per_epoch // eng.periods[0])
+        log(f"[fleet-full] wafer-1M-procs4-hosts2: converged at cycle {stop} ({epochs} "
+            f"epochs), every total {TOTAL:.0f}, gather_state bit-identical to the "
+            f"single-host fleet's and every block to GraphEngine's; warm run(until) "
+            f"{run_s:.3f} s = {R * C * stop / run_s:.4e} core-cycles/s against the "
+            f"single-host fleet's {one['run_s']:.3f} s ({run_s / one['run_s']:.2f}x) "
+            f"and GraphEngine's {gwall:.3f} s in this call")
+        log(f"[fleet-full] bridges over the run ({pod_exchanges} pod exchanges): "
+            f"{bridge_line(delta, pod_exchanges)}")
+        for r in sorted(wrows, key=lambda r: r["granule"]):
+            log(f"[fleet-full] hosts2: worker {eng._worker_of[r['granule']]} on "
+                f"{eng._host_of_w[eng._worker_of[r['granule']]]} ({r['device']}): run "
+                f"{r['run_s']:.3f} s, ring wait {r['wait_s']:.3f} s (share "
+                f"{r['wait_fraction']:.4f}), {r['ring_ops']} ring ops")
+        del tree
+        # the fault-free recover run by run(epochs=67): the drill's yardstick
+        eng.on_fault = "recover"
+        clean = recover_epochs(eng, sim, want, want_stop, "fleet-full")
+        link_drill(eng, sim, want, want_stop, clean)
+    finally:
+        eng.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def link_drill(eng, sim, want, want_stop, clean: dict) -> None:
+    """``linkkill:0@FLEET_KILL_EPOCH`` armed on the warm wafer-1M-procs4-hosts2
+    fleet under ``on_fault="recover"`` (its fault-free ``run(epochs=67)``
+    just ran), run by ``run(epochs=67)`` (snapshots every 16, so epochs
+    32-39 are replayed): the stop and every block as GraphEngine's, MTTR
+    (the run's seconds less the fault-free run's) split into detect (the
+    kill to the faulted fleet's teardown), teardown, backoff, respawn with
+    the re-rendezvous as its own term, restore, replay and the rest."""
+    import numpy as np
+
+    arm_link_fault(eng, f"linkkill:0@{FLEET_KILL_EPOCH}")  # incarnation 0
+    seen = watch_incarnations(eng)
+    fired = []
+    fire = eng._fire_link_fault
+
+    def fire_spy(a):
+        fired.append(time.time())
+        return fire(a)
+
+    eng._fire_link_fault = fire_spy
+    sim.reset(0)
+    n0, s0 = snapshot_seconds()
+    t1 = time.perf_counter()
+    sim.run(epochs=want_stop // sim.period)
+    run_s = time.perf_counter() - t1
+    n1, s1 = snapshot_seconds()
+    stop, epochs = sim.cycle, sim.epoch
+    blocks = eng.gather_group(sim.state, 0)
+    stats = eng.fault_stats()
+    ls = eng.launch_stats
+    tag = f"linkkill:0@{FLEET_KILL_EPOCH} under recover, run(epochs)"
+    if stop != want_stop or not same_leaves(want, blocks):
+        raise AssertionError(f"[fleet-full] {tag}: stop {stop} or blocks differ")
+    if not np.array_equal(blocks.total, np.full_like(blocks.total, TOTAL)):
+        raise AssertionError(f"[fleet-full] {tag}: totals are not the global sum")
+    last = stats["last_recovery"]
+    if stats["restarts"] != 1 or last["fault"] != "LinkDownError" or not fired:
+        raise AssertionError(f"[fleet-full] {tag}: {stats}")
+    left = check_no_leftovers(f"fleet-full {tag}", seen)
+    split = recovery_split(seen, last)
+    detect = seen["close"][0]["at"] - fired[0]
+    mttr = run_s - clean["run_s"]
+    n_replay = FLEET_KILL_EPOCH - last["restored_epoch"]
+    per_epoch = (clean["run_s"] - clean["snapshot_s"]) / clean["epochs"]
+    replay = n_replay * per_epoch
+    snap_extra = (s1 - s0) - clean["snapshot_s"]
+    ready = max(ls["ready_seconds"].values())
+    rdv = ls["rendezvous_seconds"]
+    rest = (mttr - detect - split["teardown"] - last["backoff_s"] - split["respawn"]
+            - split["restore"] - replay - snap_extra)
+    log(f"[fleet-full] {tag}: LinkDownError healed, stop cycle {stop} ({epochs} epochs), "
+        f"every block bit-identical to GraphEngine's, every total {TOTAL:.0f}; restored "
+        f"epoch {last['restored_epoch']}, {n_replay} epochs replayed, {n1 - n0} snapshots "
+        f"in the run; {left}")
+    log(f"[fleet-full] {tag}: MTTR {mttr:.3f} s (the run {run_s:.3f} s less the "
+        f"fault-free recover run's {clean['run_s']:.3f} s): detect {detect:.3f} s (the "
+        f"proxy's kill to the teardown), teardown {split['teardown']:.3f} s, backoff "
+        f"{last['backoff_s']:.3f} s, respawn {split['respawn']:.3f} s (the leader's "
+        f"workers ready after {ready:.2f} s, then the re-rendezvous {rdv:.3f} s: "
+        f"the follower's hello {ls['followers_seconds']:.3f} s, links up and the "
+        f"follower ready {rdv - ls['followers_seconds']:.3f} s), restore "
+        f"{split['restore']:.3f} s, replay {replay:.3f} s ({n_replay} epochs at the "
+        f"fault-free run's {per_epoch:.4f} s an epoch less its snapshots), snapshots "
+        f"{snap_extra:.3f} s more than the fault-free run's, the rest {rest:.3f} s")
+
+
+RUN_TOKEN = "CHIP_SMOKE_RUN"  # environment variable every process of a run inherits
+
+
+def run_processes(token: str) -> dict:
+    """Every live process but this one whose environment holds this run's
+    token: whatever the run started, at any depth (forkservers, workers,
+    bridges, followers and theirs), orphans included.  pid -> command."""
+    mark = f"{RUN_TOKEN}={token}".encode()
+    out = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{d}/environ", "rb") as f:
+                if mark not in f.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if pid_alive(int(d)):
+            out[int(d)] = cmd[:160]
+    return out
+
+
+def stop_run_processes(token: str, grace: float = 5.0) -> str:
+    """Stop this process's forkserver and resource tracker, then check
+    that no other process of the run is left: one still alive ``grace``
+    seconds later is killed and fails the run (a fleet teardown that
+    leaves a process behind is a fault of the port)."""
+    import signal
+
+    from repro_torch.runtime.launcher import stop_helpers
+
+    stopped = stop_helpers()
+    deadline = time.monotonic() + grace
+    left = run_processes(token)
+    while left and time.monotonic() < deadline:
+        time.sleep(0.1)
+        left = run_processes(token)
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    if left:
+        raise AssertionError(f"[exit] processes of this run left after every fleet "
+                             f"closed (killed now): {left}")
+    return (f"[exit] no process of this run left: forkserver and resource tracker "
+            f"stopped ({len(stopped)} process(es)), nothing else alive")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4021,6 +4664,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, SRC)
     from repro_torch.kernels import _build
+
+    token = os.environ[RUN_TOKEN] = f"{os.getpid()}-{time.time_ns()}"
 
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4056,6 +4701,8 @@ def main(argv=None) -> int:
                        ("mesh-full", lambda: phase_mesh_full(kernels)),
                        ("procs-small", phase_procs_small),
                        ("procs-full", phase_procs_full),
+                       ("fleet-small", phase_fleet_small),
+                       ("fleet-full", phase_fleet_full),
                        ("lm-small", phase_lm_small),
                        ("lm-dense", phase_lm_dense),
                        ("rg-full", lambda: phase_rg_full(lm_kernels)),
@@ -4064,6 +4711,7 @@ def main(argv=None) -> int:
             t1 = time.perf_counter()
             run()
             log(f"[{phase}] phase took {time.perf_counter() - t1:.1f} s")
+    log(stop_run_processes(token))
     print(json.dumps({"kernels": [k for k in kernels + lm_kernels if k.get("name")]}),
           flush=True)
     print(nvidia_smi(), flush=True)

@@ -25,14 +25,17 @@ runs in the device loop on the card.  ``--engine procs`` runs the paper's
 own deployment: 2 pods x 2 row strips, one free-running worker process a
 strip (``ProcsEngine``), the strips joined by shared-memory rings, every
 worker on the card (``--device cpu``: on the CPU); ``--batch-signatures``
-steps the strips of one shape in one worker.  All give the same totals.
+steps the strips of one shape in one worker; ``--hosts N`` shards the
+fleet over N launcher processes whose strips exchange across hosts only
+through loopback TCP ring bridges (the paper's shm-inside, TCP-between
+transport, end to end).  All give the same totals.
 
     python examples/torch_wafer_scale.py                  # 256x256 on the card
     python examples/torch_wafer_scale.py --rows 1024 --cols 1024 --k-inner 16 \\
         --capacity 62 --engine fused
     python examples/torch_wafer_scale.py --rows 32 --cols 32 --device cpu
     python examples/torch_wafer_scale.py --rows 32 --cols 32 --engine procs \
-        [--batch-signatures] [--device cpu]
+        [--batch-signatures] [--hosts 2] [--device cpu]
 """
 from __future__ import annotations
 
@@ -59,11 +62,14 @@ from repro_torch.runtime import ProcsEngine  # noqa: E402
 
 def build_engine(R: int, C: int, k_inner: int, k_outer: int,
                  capacity: int = WAFER.queue_capacity, engine: str = "graph",
-                 overlap="auto", device="cuda", batch_signatures: bool = False):
+                 overlap="auto", device="cuda", batch_signatures: bool = False,
+                 hosts=None):
     """Torus fabric on 2 pods x 2x2 granules, every granule batched on one
     device — or, with ``engine="procs"``, on 2 pods x 2 worker processes
     over shared-memory rings (``batch_signatures`` stacks same-shape
-    workers into one).  Returns (engine, per-core values)."""
+    workers into one; ``hosts`` shards them over that many launcher
+    processes joined by TCP ring bridges).  Returns (engine, per-core
+    values)."""
     values = (np.arange(R * C, dtype=np.int64) % 97 + 1).astype(np.float32)
     graph = ChannelGraph.torus(
         ManycoreCell(R, C), R, C, params=make_core_params(values.reshape(R, C)),
@@ -76,7 +82,8 @@ def build_engine(R: int, C: int, k_inner: int, k_outer: int,
             {"pod": 2, "g": 2},
         )
         return ProcsEngine(graph, ptree, timeout=120.0, overlap=overlap,
-                           batch_signatures=batch_signatures, device=device), values
+                           batch_signatures=batch_signatures, device=device,
+                           hosts=hosts), values
     Engine = {"graph": GraphEngine, "fused": FusedEngine}[engine]
     eng = Engine(
         graph, tiered_grid_partition(R, C, [(2, 1), (2, 2)]), None,
@@ -101,11 +108,16 @@ def main(argv=None) -> None:
     ap.add_argument("--overlap", action="store_true",
                     help="split every tier exchange into issue/commit halves "
                          "(bit-identical results)")
+    ap.add_argument("--hosts", type=int, default=None,
+                    help="procs only: shard the fleet over N launcher processes "
+                         "joined by loopback TCP ring bridges (identical results)")
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs (default cuda)")
     args = ap.parse_args(argv)
     if args.batch_signatures and args.engine != "procs":
         ap.error("--batch-signatures requires --engine procs")
+    if args.hosts and args.engine != "procs":
+        ap.error("--hosts requires --engine procs")
     R, C = args.rows, args.cols
 
     where = (torch.cuda.get_device_name(0) if args.device.startswith("cuda")
@@ -116,8 +128,14 @@ def main(argv=None) -> None:
                                engine=args.engine,
                                overlap=True if args.overlap else "auto",
                                device=args.device,
-                               batch_signatures=args.batch_signatures)
+                               batch_signatures=args.batch_signatures,
+                               hosts=args.hosts)
     periods = eng.periods
+    plan = getattr(eng, "host_plan", None)
+    if plan is not None:
+        print(f"  host mesh: {plan.n_hosts} launcher processes "
+              f"{plan.hosts}, {len(eng._links)} TCP ring bridge link(s), "
+              f"granules {dict((h, plan.granules_of(h)) for h in plan.hosts)}")
     print(f"  partition: {eng.ptree.summary()}")
     if args.engine == "procs":
         print(f"  {eng.NW} worker processes for {eng.G} granules "

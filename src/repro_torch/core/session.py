@@ -236,8 +236,12 @@ class Simulation:
         self._ext_in = dict(graph.ext_in) if graph is not None else {}
         self._ext_out = dict(graph.ext_out) if graph is not None else {}
         # flight recorder: REPRO_TRACE=<path> arms the process-global
-        # recorder (exported at interpreter exit)
-        _trace.maybe_enable_from_env()
+        # recorder (exported at interpreter exit); engines that carry
+        # worker telemetry switch it on too
+        if _trace.maybe_enable_from_env():
+            st = getattr(engine, "set_tracing", None)
+            if st is not None:
+                st(True)
 
     # ------------------------------------------------------------- lifecycle
     @property
@@ -415,6 +419,14 @@ class Simulation:
             d["faults"] = fs()
         if self.kind == "procs":
             d["workers"] = self.engine.worker_stats(st)
+        bs = getattr(self.engine, "bridge_stats", None)
+        if bs is not None:
+            # multi-host fleets: one row per TCP ring bridge side —
+            # bytes/slabs/credits each way, credit RTT, wait fraction
+            # (steady-state pump only; cold-start under "connect_s")
+            rows = bs()
+            if rows:
+                d["bridges"] = rows
         d["metrics"] = REGISTRY.snapshot()
         return d
 
@@ -434,13 +446,21 @@ class Simulation:
         rec = _trace.recorder()
         prev = rec.enabled
         rec.enabled = True
+        st = getattr(self.engine, "set_tracing", None)
+        if st is not None:
+            st(True)
         try:
             yield self
         finally:
-            # the reference's procs workers also record their own phases;
-            # the port's do not yet (ROADMAP Queue 1 item 10.4)
-            rec.export(path)
-            rec.enabled = prev
+            try:
+                flush = getattr(self.engine, "flush_telemetry", None)
+                if flush is not None:
+                    flush()
+                if st is not None:
+                    st(False)
+            finally:
+                rec.export(path)
+                rec.enabled = prev
 
     def add_monitor(self, fn: Callable[["Simulation"], None],
                     every: int = 1) -> Monitor:

@@ -143,8 +143,25 @@ def instant(name: str, **kw) -> None:
     _RECORDER.instant(name, **kw)
 
 
+def _flush_engines() -> None:
+    """Pull any undrained worker telemetry into the recorder before an
+    export (live procs engines hold it in their shm rings)."""
+    import sys
+
+    launcher = sys.modules.get("repro_torch.runtime.launcher")
+    if launcher is None:  # no procs engine was ever built here
+        return
+    for eng in list(launcher._live_engines):
+        try:
+            eng.flush_telemetry()
+        except Exception:  # noqa: BLE001 - the export stays best-effort
+            pass
+
+
 def _atexit_export() -> None:  # pragma: no cover - interpreter exit
     path = os.environ.get(ENV_TRACE)
+    if path and _RECORDER.enabled:
+        _flush_engines()
     if path and _RECORDER.enabled and (_RECORDER.events or _RECORDER._tracks):
         _RECORDER.export(path)
 

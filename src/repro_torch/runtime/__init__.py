@@ -1,5 +1,5 @@
 """repro_torch.runtime — the free-running multiprocess runtime, as in
-``repro.runtime``, on a single host.
+``repro.runtime``.
 
 The paper's deployment model, realized literally: one *prebuilt* granule
 simulator per OS process, connected at runtime by lock-free shared-memory
@@ -21,9 +21,11 @@ SPSC queues, free-running with no global barrier.
   recovery         coordinated snapshots + respawn/restore/replay — the
                    self-healing policy behind ProcsEngine(on_fault=
                    "recover") / REPRO_ON_FAULT
-
-Not ported yet: the TCP bridge and multi-host fleets (ROADMAP Queue 1
-item 10.3), worker telemetry (item 10.4).
+  bridge           TCP ring bridge proxies: a cross-host channel's local
+                   ring pairs joined by one framed socket a host pair
+  fleet            multi-host fleets (ProcsEngine(hosts=...) /
+                   REPRO_HOSTS): host plans, the link map, rendezvous,
+                   follower launchers and their control protocol
 """
 from .fault_tolerance import FleetStallError, LinkDownError, WorkerDiedError
 from .faultinject import FaultAction, parse_fault_plan

@@ -42,9 +42,14 @@ record per exchange per channel — even when empty — is what makes the
 free-running schedule deterministic and the traffic bit-identical to the
 lockstep engines.
 
-Left out of the port for their own ROADMAP items: the telemetry ring and
-the traced epoch (Queue 1 item 10.4), the fault-injection hooks (item
-10.2).
+**Telemetry.**  Each worker produces into its own telemetry ring
+(``obs.telemetry``, ``{prefix}t{w}``); with tracing on (the
+``telemetry`` command) ``one_epoch`` runs as ``_traced_epoch``, which
+makes the same ring operations in the same order and emits one 48-byte
+record a phase, dropped and counted when the ring is full.  On the card
+each traced phase ends with a synchronize of the worker's device, so a
+``step`` record times the cycle graphs' work and not their launch;
+untraced, the epoch adds no synchronize.
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ from ..core.device import group_generator, to_tensor
 from ..core.distributed import GraphTables, granule_local_cycle
 from ..core.struct import tensor_dataclass, tree_leaves, tree_map
 from ..kernels.granule_step import overlap_program
+from ..obs import telemetry as _telem
 from .fault_tolerance import (
     OP_CREDIT_POP, OP_CREDIT_PUSH, OP_SLAB_POP, OP_SLAB_PUSH, encode_blocked,
 )
@@ -647,6 +653,7 @@ class Worker:
         self.wait_s = 0.0  # time blocked on peer rings (credits/slabs)
         self.run_s = 0.0  # wallclock inside "run" commands
         self.ring_ops = 0  # credit/slab records pushed or popped
+        self.telem = None  # TelemetryWriter once the entry attaches a ring
         self._init_faults(faults)
         itemsize = self.sim.np_dtype.itemsize
         self.rings: dict[tuple[str, int], ShmRing] = {}
@@ -847,6 +854,9 @@ class Worker:
                             status=encode_blocked(OP_CREDIT_PUSH, c))
 
     def one_epoch(self) -> None:
+        tl = self.telem
+        if tl is not None and tl.enabled:
+            return self._traced_epoch(tl)
         if self.injector is not None:
             # plan-driven faults fire at deterministic LOCAL epoch numbers,
             # before any of this epoch's effects (its first cycle-graph
@@ -868,6 +878,63 @@ class Worker:
         self._flush_ext()
         self.sim.tick()
         self.epochs_done += 1
+        self.beat()
+
+    def _traced_epoch(self, tl) -> None:
+        """``one_epoch`` with per-phase telemetry records.  Mirrors the
+        untraced walk exactly (same ring ops, same op order — traffic
+        stays bit-identical); each phase costs one monotonic read, one
+        non-blocking 48-byte ring push and, on the card, one synchronize
+        of the device so the record covers the phase's device work."""
+        dev = self.sim.device
+        sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+                else (lambda: None))
+        if self.injector is not None:
+            self.injector.before_epoch(self)
+        if self.slow_per_epoch:
+            time.sleep(self.slow_per_epoch)
+        wait0 = self.wait_s
+        e0 = t0 = time.monotonic()
+        self._ingest_ext()
+        sync()
+        tl.phase(_telem.TEV_INGEST, 0.0, t0)
+        for op, arg in self.sim.program:
+            t0 = time.monotonic()
+            if op == "C":
+                self.sim.cycles(arg)
+                sync()
+                tl.phase(_telem.TEV_STEP, float(arg), t0)
+            elif op == "XI":
+                self._exchange_issue(arg)
+                sync()
+                tl.phase(_telem.TEV_ISSUE, float(arg), t0)
+            elif op == "XC":
+                self._exchange_commit(arg)
+                sync()
+                tl.phase(_telem.TEV_COMMIT, float(arg), t0)
+            else:
+                self._exchange_issue(arg)
+                sync()
+                tl.phase(_telem.TEV_ISSUE, float(arg), t0)
+                t0 = time.monotonic()
+                self._exchange_commit(arg)
+                sync()
+                tl.phase(_telem.TEV_COMMIT, float(arg), t0)
+        t0 = time.monotonic()
+        self._flush_ext()
+        sync()
+        tl.phase(_telem.TEV_FLUSH, 0.0, t0)
+        self.sim.tick()
+        self.epochs_done += 1
+        occ = n_d = 0
+        for (kind, _c), ring in self.rings.items():
+            if kind == "d":
+                occ += ring.size()
+                n_d += 1
+        tl.emit(_telem.TEV_OCC, 0.0, time.monotonic(), 0.0,
+                float(occ), float(n_d))
+        tl.phase(_telem.TEV_EPOCH, float(self.epochs_done - 1), e0,
+                 v0=self.wait_s - wait0)
         self.beat()
 
     def _profiled(self, n: int) -> dict:
@@ -938,6 +1005,11 @@ class Worker:
                     self.conn.send(("ok", self.epochs_done))
                 elif op == "stats":
                     self.conn.send(("ok", self._stats()))
+                elif op == "telemetry":
+                    on = bool(cmd[1])
+                    if self.telem is not None:
+                        self.telem.enabled = on
+                    self.conn.send(("ok", on and self.telem is not None))
                 elif op == "exit":
                     self.conn.send(("ok", None))
                     return
@@ -988,6 +1060,7 @@ class Worker:
                 "wait_fraction": (self.wait_s / self.run_s) if self.run_s else 0.0,
                 "capture_s": self.sim.capture_s,
                 "ring_ops": self.ring_ops,
+                "telem_dropped": self.telem.dropped if self.telem else 0,
             }
             if self.sim.batched:
                 row.update(batch_row=r, batch_size=len(self.specs))
@@ -1024,17 +1097,20 @@ def worker_device(device: str, worker_index: int) -> torch.device:
 def worker_entry(conn, spec_segment: str, worker_index: int,
                  log_path: str | None, device: str,
                  hb_ring_name: str | None, bulk: str,
-                 faults_pickle: bytes | None = None) -> None:
+                 faults_pickle: bytes | None = None,
+                 telem_ring_name: str | None = None) -> None:
     """Process entry point (forkserver or spawn context).  Reads its
     pickled spec from the ``spec_segment`` the launcher wrote, builds the
     granule simulator on its device (capturing its cycle graphs on the
     card), then serves the command loop until "exit"; its bulk records go
     through the segment ``bulk``.  ``faults_pickle`` carries this worker's
     armed ``FaultAction``s for the current fleet incarnation (drills; None
-    in production): the environment is never re-parsed here."""
+    in production): the environment is never re-parsed here.
+    ``telem_ring_name`` is this worker's telemetry ring (it is its only
+    producer; records flow once tracing is switched on)."""
     import pickle
 
-    t_entry = time.perf_counter()
+    t_entry, entry_at = time.perf_counter(), time.time()
     if log_path:
         f = open(log_path, "w", buffering=1)
         os.dup2(f.fileno(), 1)
@@ -1069,9 +1145,16 @@ def worker_entry(conn, spec_segment: str, worker_index: int,
         if hb_ring_name:
             hb_shm, hb = attach_heartbeat(hb_ring_name, worker_index)
         w = Worker(spec, conn, hb, dev, bulk, faults)
+        if telem_ring_name:
+            # stored under ("t", 0) so the exit sweep below closes it
+            tring = ShmRing.attach(telem_ring_name, _telem.TELEM_RING_RECORDS,
+                                   _telem.TELEM_RECORD_BYTES)
+            w.rings[("t", 0)] = tring
+            w.telem = _telem.TelemetryWriter(tring)
         setup_s = time.perf_counter() - t_entry  # spec, device context, state, rings
         build = w.sim.prebuild()
         build["setup_s"] = setup_s
+        build["entry_at"] = entry_at  # wall clock: the launcher times the start
         print(f"[worker {worker_index}] prebuilt {build['n_functions']} fns "
               f"in {build['seconds']:.2f}s (capture {build['capture_s']:.2f}s)",
               flush=True)

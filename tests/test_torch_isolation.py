@@ -57,7 +57,11 @@ def test_scan_sees_the_package():
             "torch_heterogeneous_soc.py", "session.py", "trace.py", "schema.py",
             "report.py", "checkpointing.py", "perfmodel.py",
             "torch_quickstart.py", "shmem.py", "worker.py", "launcher.py",
-            "fault_tolerance.py"} <= names
+            "fault_tolerance.py", "bridge.py", "fleet.py", "telemetry.py",
+            "drift.py"} <= names
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/runtime/bridge.py", "src/repro_torch/runtime/fleet.py",
+            "src/repro_torch/obs/telemetry.py", "src/repro_torch/obs/drift.py"} <= scanned
     assert {"obs", "checkpoint", "core", "runtime"} <= {p.parent.name for p in PORT_FILES}
     assert {"flash_attention.cu", "rglru_scan.cu", "slstm_scan.cu"} <= {
         p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}

@@ -13,7 +13,7 @@ single netlist:
   * prebuild dedup (1 signature on the column-pair torus, 3 on the chain);
   * SIGKILL of one worker raises ``WorkerDiedError`` fast;
   * the ``stats()`` port schema and worker rows; stale handles; the
-    refused knobs.
+    knobs (multi-host and telemetry run, the rest refused).
 
 Workers run with ``device="cpu"`` (one intra-op thread each).  Tolerance:
 bit-exact for every packet, count, cycle and result.
@@ -344,30 +344,54 @@ def test_trace_and_spawn_start(closing, tmp_path, monkeypatch):
 
 
 def test_refused_knobs_name_their_items(monkeypatch):
-    """Every reference knob the port does not run yet raises
-    ``NotImplementedError`` naming its ROADMAP item, before any lowering;
-    none is accepted and ignored."""
+    """Every reference knob runs or is refused with a ``ValueError`` that
+    names it, before any lowering; none is accepted and ignored.  The
+    multi-host knobs (``hosts``, ``REPRO_HOSTS``, ``base_port``,
+    ``REPRO_BRIDGE_PORT``) and worker telemetry (``set_tracing``,
+    ``flush_telemetry``) run; ``host`` without a plan, ``cache_dir`` and a
+    shallow ``ring_depth`` are refused."""
+    from test_torch_fleet_plans import _free_port
+
     net = make_chain(2)
-    for kw, item in ((dict(hosts=2), "10.3"), (dict(host="a"), "10.3"),
-                     (dict(base_port=9000), "10.3")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            net.build(engine="procs", device="cpu", **kw)
-    for env, item in (("REPRO_HOSTS", "10.3"), ("REPRO_BRIDGE_PORT", "10.3")):
-        with monkeypatch.context() as m:
-            m.setenv(env, "2")
-            with pytest.raises(NotImplementedError, match=f"item {item}"):
-                net.build(engine="procs", device="cpu")
+
+    def runs(**kw):
+        eng = net.build(engine="procs", device="cpu", session=False, timeout=TIMEOUT, **kw)
+        try:
+            sim = Simulation(eng).reset(0)
+            sim.tx("tx").send([1.0, 0.0])
+            sim.run(cycles=4)
+            assert sim.rx("rx").drain().shape == (1, 2)
+            return eng.host_plan, eng._base_port
+        finally:
+            eng.close()
+
+    monkeypatch.delenv("REPRO_HOSTS", raising=False)
+    monkeypatch.delenv("REPRO_BRIDGE_PORT", raising=False)
+    plan, _ = runs(n_workers=2, hosts=2)
+    assert plan.hosts == ("h0", "h1")
+    port = _free_port()
+    assert runs(n_workers=2, hosts=2, base_port=port)[1] == port
+    with monkeypatch.context() as m:
+        env_port = _free_port()
+        m.setenv("REPRO_HOSTS", "2")
+        m.setenv("REPRO_BRIDGE_PORT", str(env_port))
+        plan, base = runs(n_workers=2)
+        assert plan.n_hosts == 2 and base == env_port
+    with pytest.raises(ValueError, match="host= names a fleet member"):
+        net.build(engine="procs", device="cpu", host="a")
     with pytest.raises(ValueError, match="cache"):
         net.build(engine="procs", device="cpu", cache_dir="/tmp/x")
     with pytest.raises(ValueError, match="ring_depth"):
         net.build(engine="procs", device="cpu", ring_depth=1)
-    eng = net.build(engine="procs", device="cpu", session=False)
+    eng = net.build(engine="procs", device="cpu", session=False, timeout=TIMEOUT)
     try:
-        with pytest.raises(NotImplementedError, match="item 10.4"):
-            eng.set_tracing(True)
-        with pytest.raises(NotImplementedError, match="item 10.4"):
-            eng.flush_telemetry()
+        assert eng.set_tracing(True) is True  # remembered before launch
+        sim = Simulation(eng).reset(0)
+        sim.tx("tx").send([1.0, 0.0])
+        sim.run(cycles=4)
+        eng.flush_telemetry()
         assert eng.set_tracing(False) is False
+        assert all(r["telem_dropped"] == 0 for r in eng.worker_stats())
     finally:
         eng.close()
 
