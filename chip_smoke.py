@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-Ten paths, each through the entry points a user calls:
+Eleven paths, each through the entry points a user calls:
 
   * the paper's wafer-scale torus: 1024x1024 ``ManycoreCell`` cores running
     a two-phase ring allreduce, partitioned over 2 pods x 2x2 granules with
@@ -60,7 +60,14 @@ Ten paths, each through the entry points a user calls:
     4, a 3,072-token prompt, 16 tokens), whose prefill runs the
     hand-written ``flash_attention``, ``rglru_scan`` and ``slstm_scan``
     kernels (``src/repro_torch/kernels/csrc/{flash_attention,rglru_scan,
-    slstm_scan}.cu``; the sLSTM kernel also serves every decode step).
+    slstm_scan}.cu``; the sLSTM kernel also serves every decode step);
+  * the MoE, vision-language and audio models: ``models.model.init_params``
+    -> ``prefill`` -> greedy ``decode_step``s for qwen3-moe-235b-a22b and
+    llama4-maverick-400b-a17b (``attn_moe``, ``models/moe.py``) and for
+    qwen2-vl-72b (M-RoPE, from embeddings), and ``forward`` of the
+    non-causal hubert-xlarge encoder over embeddings, at their published
+    widths with only the depth cut, every attention layer through the
+    hand-written ``flash_attention`` kernel.
 
 Phases (a failing phase raises, and the script exits non-zero):
 
@@ -370,6 +377,40 @@ Phases (a failing phase raises, and the script exits non-zero):
              decode step's inputs and the first prefill's: the cluster
              plan, the T = 1 call by CUDA events and the wrapper's host
              time a call, us a step and the marginal step (T against T/2).
+  23. lm-fam  the four ``SMOKE`` configs of qwen3-moe, llama4-maverick,
+             qwen2-vl and hubert in f32, kernel-aligned (``use_kernels``, a
+             256-token prompt; qwen2-vl and hubert a seeded (2, 256, d)
+             embeddings tensor), from one ``init_params`` on the card and on
+             the CPU: prefill and 4 greedy decode steps (hubert:
+             ``forward``), logits within 1e-4 and greedy tokens identical,
+             every MoE layer's routing indices identical, the flash kernel
+             launched (its CUDA-core route); ``apply_mrope`` with three
+             different position streams up to 8,192, card against CPU within
+             1e-4 (the devices' ``pow`` may round a frequency an ulp apart,
+             which the angle carries times the position).
+  24. moe-full  qwen3-moe-235b-a22b (8 of 94 layers; 128 experts, top-8)
+             then llama4-maverick-400b-a17b (2 of 48 layers, one attn /
+             attn_moe stage; top-1 sigmoid, a shared expert) at their
+             published widths: ``init_params``, ``prefill`` of 4 x 3,072
+             seeded prompts and greedy ``decode_step``s to 16 tokens, with
+             the flash launch counts set to 0 just before and read just
+             after (8 and 2, all on the tensor-core route), every logit
+             finite and the tokens in range; set-up, prefill and decode
+             rates, peak memory, the share of the first MoE layer's prefill
+             choices dropped by capacity; the first flash call held against
+             its plain version at the run's own inputs and timed beside
+             ``scaled_dot_product_attention`` (same mask) and the bound; the
+             first MoE layer's dispatch (router and slots), scatter, expert
+             GEMMs and combine timed by CUDA events; a warm prefill and one
+             decode step under ``torch.profiler``: idle share, device time in
+             the expert GEMMs, the dispatch and the combine.
+  25. emb-full  qwen2-vl-72b (12 of 80 layers; M-RoPE 16/24/24) from a
+             seeded (4, 3072, 8192) bf16 embeddings tensor through
+             ``prefill`` and greedy ``decode_step``s (12 flash launches), then
+             hubert-xlarge (all 48 layers; 16 heads of 80, non-causal) by
+             ``forward`` over a seeded (4, 3072, 1280) embeddings tensor (48
+             flash launches, D = 80 on the tensor-core route), with
+             moe-full's checks, timings and trace.
 
 After the last phase the script stops the forkserver and resource tracker
 the fleets started and checks that no process of the run is left (every one
@@ -389,6 +430,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --phases build,procs-small,procs-full
     python3 chip_smoke.py --phases build,fleet-small,fleet-full
     python3 chip_smoke.py --phases build,lm-small,lm-dense,rg-full,xl-full
+    python3 chip_smoke.py --phases build,lm-small,lm-fam,moe-full,emb-full
 """
 from __future__ import annotations
 
@@ -414,7 +456,8 @@ RGLRU_SWEEP_VARIANTS = (64, 128, 512)
 PHASES = ("build", "small", "full", "sys-small", "sys-full", "fsys-small",
           "fsys-full", "fused-io", "graph-small", "graph-full", "session-small", "session-full",
           "mesh-small", "mesh-full", "procs-small", "procs-full", "fleet-small",
-          "fleet-full", "lm-small", "lm-dense", "rg-full", "xl-full")
+          "fleet-full", "lm-small", "lm-dense", "rg-full", "xl-full", "lm-fam",
+          "moe-full", "emb-full")
 
 
 def log(msg: str) -> None:
@@ -2043,6 +2086,9 @@ def phase_graph_full() -> None:
 
 # ------------------------------------------------------------ LM serving
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 3072, 16
+FLASH_ROW = dict(name="flash_attention", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:137")
 
 
 def phase_lm_small() -> None:
@@ -2205,11 +2251,9 @@ LM_TRACE_NAMES = ("fa_fwd", "rglru_fwd", "rglru_clear", "slstm_fwd", "gemm", "nv
 
 
 def trace_serving(arch: str, tag: str) -> None:
-    """A warm prefill and one decode step of ``arch`` at full width, each
-    under ``torch.profiler``: wall, device busy and idle share, and the
-    device time of each kernel of ``LM_TRACE_NAMES`` (``gemm`` and
-    ``nvjet``: cuBLAS's matrix products).  The launch counts these calls
-    add are not the main path's."""
+    """``trace_model`` of ``arch`` at full width from fresh weights and
+    ``serve``'s prompts.  The launch counts these calls add are not the
+    main path's."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as M
@@ -2217,33 +2261,7 @@ def trace_serving(arch: str, tag: str) -> None:
     cfg = get_config(arch)
     with torch.inference_mode():
         params = M.init_params(cfg, 0, device="cuda")
-        prompts = torch.randint(2, cfg.vocab, (LM_BATCH, LM_PROMPT),
-                                generator=torch.Generator().manual_seed(1)).cuda()
-        max_seq = LM_PROMPT + LM_GEN
-        out = {}
-
-        def prefill():
-            out["prefill"] = M.prefill(params, cfg, prompts, max_seq)
-
-        def decode():
-            states, logits = out["prefill"]
-            M.decode_step(params, cfg, states, logits.argmax(-1), LM_PROMPT)
-
-        prefill()  # warm-ups
-        decode()
-        for what, fn in (("prefill", prefill), ("decode step", decode)):
-            tr = traced_run(fn, LM_TRACE_NAMES)
-            if tr["busy"] is None:
-                log(f"[{tag}] traced warm {what}: {tr['wall']:.4f} s wall; device "
-                    "idle share: not measured (the trace holds no device event)")
-                continue
-            kernels = "; ".join(f"{k} {v * 1e3:.3f} ms"
-                                for k, v in tr["per_kernel"].items())
-            other = tr["busy"] - sum(tr["per_kernel"].values())
-            log(f"[{tag}] traced warm {what}: {tr['wall']:.4f} s wall, device busy "
-                f"{tr['busy']:.4f} s over {tr['events']} device events, idle share "
-                f"{1.0 - tr['busy'] / tr['wall']:.4f}; {kernels}; other device "
-                f"work {other * 1e3:.3f} ms")
+        trace_model(tag, cfg, params, model_inputs(cfg, LM_BATCH, LM_PROMPT, "cuda"))
 
 
 def rglru_bytes(x, h0) -> int:
@@ -2277,13 +2295,56 @@ def time_kernel(tag: str, name: str, kernel, plain, reps: int, plain_reps: int,
     return out
 
 
-def phase_rg_full(results: list) -> None:
-    import torch
+def flash_at_inputs(tag: str, q, k, v, kw: dict) -> dict:
+    """A served flash call's q, k, v (as its wrapper got them) and keyword
+    arguments: the kernel against its plain version, then the times of the
+    kernel, the plain version and ``scaled_dot_product_attention`` with the
+    same mask, beside the bound counted from the inputs.  Returns the
+    kernel table's numbers (``max_abs_err``, ``ms``, ``plain_ms``,
+    ``library_ms``, ``bound_ms``, ``bound_by``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lm_checks as lc
-    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels.ref import attention_mask
+
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    causal, window, scale = kw["causal"], kw["window"], kw["sm_scale"]
+    mkw = dict(causal=causal, window=window, sm_scale=scale)
+    B, Hq, T, D = q.shape
+    err = lc.compare_flash(q, k, v, **mkw)
+    log(f"[{tag}] flash_attention at q {tuple(q.shape)}, k/v {tuple(k.shape)} "
+        f"{q.dtype}, causal {causal}, window {window}, scale {scale}: kernel == "
+        f"plain version within one bf16 ulp (max |diff| {err:.3e})")
+    # the same mask: a window's as a boolean mask, a causal one as is_causal
+    mask = (attention_mask(T, k.shape[2], causal, window, q.device)
+            if window is not None else None)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
+        enable_gqa=True)
+    lib_err = (lib().float() - fa.flash_attention_ref(
+        q, k, v, **mkw).float()).abs().max().item()
+    times = time_kernel(
+        tag, "flash_attention",
+        lambda: fa.flash_attention_cuda(q, k, v, **mkw),
+        lambda: fa.flash_attention_ref(q, k, v, **mkw),
+        10, 3, lib)
+    pairs = attention_pairs(T, k.shape[2], causal, window) * B * Hq
+    n_bytes = nbytes(q, k, v, q)  # q, k, v read; o (q's shape and dtype) written
+    bound_ms, by = bound(n_bytes, 4 * D * pairs, BF16_OPS_PER_S)
+    log(f"[{tag}] flash_attention bound: {pairs} (q, k) pairs, "
+        f"{4 * D * pairs:.4e} flop, {n_bytes} B -> {bound_ms:.4f} ms ({by}); "
+        f"kernel ({fa.route(q.dtype, D)} route, {fa.smem_bytes(q.dtype, D)} B of "
+        f"shared memory a CTA) at {times['ms'] / bound_ms:.2f}x it and "
+        f"{times['ms'] / times['library_ms']:.3f}x scaled_dot_product_attention "
+        f"(same mask), which differs from the plain version by at most {lib_err:.3e}")
+    return dict(max_abs_err=err, **times, bound_ms=bound_ms, bound_by=by)
+
+
+def phase_rg_full(results: list) -> None:
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lm_checks as lc
+    from repro_torch.kernels import rglru_scan as rg
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 unembedding stays f32
     captured: dict = {}
@@ -2295,42 +2356,10 @@ def phase_rg_full(results: list) -> None:
                              "all 8 served launches must take the tensor cores")
 
     # attention: the first local-attention layer's q, k, v from that run
-    (q, k, v), kw = captured["flash_attention_cuda", None]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    causal, window, scale = kw["causal"], kw["window"], kw["sm_scale"]
-    mkw = dict(causal=causal, window=window, sm_scale=scale)
-    B, Hq, T, D = q.shape
-    err = lc.compare_flash(q, k, v, **mkw)
-    log(f"[rg-full] flash_attention at q {tuple(q.shape)}, k/v {tuple(k.shape)} "
-        f"{q.dtype}, window {window}, scale {scale}: kernel == plain version "
-        f"within one bf16 ulp (max |diff| {err:.3e})")
-    mask = attention_mask(T, k.shape[2], causal, window, q.device)
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
-    lib_err = (lib().float() - fa.flash_attention_ref(
-        q, k, v, **mkw).float()).abs().max().item()
-    times = time_kernel(
-        "rg-full", "flash_attention",
-        lambda: fa.flash_attention_cuda(q, k, v, **mkw),
-        lambda: fa.flash_attention_ref(q, k, v, **mkw),
-        10, 3, lib)
-    pairs = attention_pairs(T, k.shape[2], causal, window) * B * Hq
-    n_bytes = nbytes(q, k, v, q)  # q, k, v read; o (q's shape and dtype) written
-    bound_ms, by = bound(n_bytes, 4 * D * pairs, BF16_OPS_PER_S)
-    log(f"[rg-full] flash_attention bound: {pairs} (q, k) pairs, "
-        f"{4 * D * pairs:.4e} flop, {n_bytes} B -> {bound_ms:.4f} ms ({by}); "
-        f"kernel ({fa.route(q.dtype, D)} route, {fa.smem_bytes(q.dtype, D)} B of "
-        f"shared memory a CTA) at {times['ms'] / bound_ms:.2f}x it and "
-        f"{times['ms'] / times['library_ms']:.3f}x scaled_dot_product_attention "
-        f"(same mask), which differs from the plain version by at most {lib_err:.3e}")
-    results.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:137",
-        launches=launches["flash_attention"], max_abs_err=err, **times,
-        bound_ms=bound_ms, bound_by=by))
-    del q, k, v, mask
-    captured.pop(("flash_attention_cuda", None))
+    (q, k, v), kw = captured.pop(("flash_attention_cuda", None))
+    row = flash_at_inputs("rg-full", q, k, v, kw)
+    results.append(dict(FLASH_ROW, launches=launches["flash_attention"], **row))
+    del q, k, v
 
     # RG-LRU: the first recurrent layer's x and a from that run
     (x, a, h0), _ = captured.pop(("rglru_scan_cuda", None))
@@ -2493,6 +2522,357 @@ def phase_xl_full(results: list) -> None:
     del r, pre, carry0
     serve_batch("xlstm-125m", "xl-full", sl, 32)
     trace_serving("xlstm-125m", "xl-full")
+
+
+# ------------------------------------------------------------ MoE, VLM, audio
+LM_FAM_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "qwen2-vl-72b",
+                "hubert-xlarge")
+LM_FAM_PROMPT, LM_FAM_BATCH, LM_FAM_GEN = 256, 2, 4
+#: moe-full's and emb-full's models and the depth each keeps: every other
+#: width is the published one.
+FULL_DEPTHS = {"qwen3-moe-235b-a22b": 8, "llama4-maverick-400b-a17b": 2,
+               "qwen2-vl-72b": 12, "hubert-xlarge": 48}
+MOE_PIECES = ("dispatch", "scatter", "experts", "combine")
+
+
+def model_inputs(cfg, batch: int, T: int, device):
+    """Prompts as ``serve`` makes them (from a generator seeded 1), or for
+    an embeddings-input config a seeded (batch, T, d) normal tensor in
+    ``cfg.dtype``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(1)
+    if cfg.input_mode == "embeddings":
+        x = torch.randn((batch, T, cfg.d_model), generator=gen)
+        return x.to(device=device, dtype=getattr(torch, cfg.dtype))
+    return torch.randint(2, cfg.vocab, (batch, T), generator=gen).to(device)
+
+
+def greedy(params, cfg, inputs, gen: int, sync=lambda: None) -> dict:
+    """``prefill`` and greedy ``decode_step``s to ``gen`` tokens (as
+    ``serve`` runs them: the rate over the steps after the first), or for
+    an encoder ``forward`` alone.  ``logits``: each call's; ``tokens``
+    (B, gen) (the encoder: every position's argmax)."""
+    import torch
+    from repro_torch.models import model as M
+
+    T = inputs.shape[1]
+    out = {"decode_s": 0.0}
+    t0 = time.perf_counter()
+    if not cfg.causal:
+        logits, out["aux"] = M.forward(params, cfg, inputs)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out.update(logits=[logits], tokens=logits.argmax(-1))
+        return out
+    states, logits = M.prefill(params, cfg, inputs, T + gen)
+    sync()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["logits"], toks = [logits], [logits.argmax(-1)]
+    for t in range(gen - 1):
+        if t == 1:
+            sync()
+            t1 = time.perf_counter()
+        states, logits = M.decode_step(params, cfg, states, toks[-1], T + t)
+        out["logits"].append(logits)
+        toks.append(logits.argmax(-1))
+    sync()
+    if gen > 2:
+        out["decode_s"] = time.perf_counter() - t1
+    out.update(tokens=torch.stack(toks, 1), states=states)
+    return out
+
+
+def phase_lm_fam() -> None:
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.struct import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in LM_FAM_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), use_kernels=True)
+        params = M.init_params(cfg, 0, device="cpu")
+        inputs = model_inputs(cfg, LM_FAM_BATCH, LM_FAM_PROMPT, "cpu")
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            routes: list = []
+            router = moe._router
+
+            def recorded(*a, _router=router, _routes=routes):
+                out = _router(*a)
+                _routes.append(out[0].cpu())
+                return out
+
+            moe._router = recorded
+            before = fa.launches
+            try:
+                with torch.inference_mode():
+                    r = greedy(tree_map(lambda t: t.to(dev), params), cfg, inputs.to(dev),
+                               LM_FAM_GEN + 1)
+            finally:
+                moe._router = router
+            r["launches"] = fa.launches - before
+            r["routes"] = routes
+            runs[dev] = r
+        card, cpu = runs["cuda"], runs["cpu"]
+        if card["launches"] < cfg.n_layers:
+            raise AssertionError(f"[lm-fam] {arch}: {card['launches']} flash launches on "
+                                 f"the card, expected at least {cfg.n_layers}")
+        err = 0.0
+        for i, (a, b) in enumerate(zip(card["logits"], cpu["logits"])):
+            d = (a.cpu() - b).abs().max().item()
+            if not d <= 1e-4:
+                raise AssertionError(f"[lm-fam] {arch} call {i}: logits differ by {d:.3e}")
+            err = max(err, d)
+        if not torch.equal(card["tokens"].cpu(), cpu["tokens"]):
+            raise AssertionError(f"[lm-fam] {arch}: greedy tokens differ")
+        if len(card["routes"]) != len(cpu["routes"]) or not all(
+                torch.equal(a, b) for a, b in zip(card["routes"], cpu["routes"])):
+            raise AssertionError(f"[lm-fam] {arch}: MoE routing differs between card "
+                                 "and CPU")
+        what = ("prefill + 4 greedy decode steps" if cfg.causal else "forward")
+        log(f"[lm-fam] {cfg.name} (f32, use_kernels, {tuple(inputs.shape)} "
+            f"{'embeddings' if cfg.input_mode == 'embeddings' else 'tokens'}): {what} "
+            f"on the card == on the CPU (logits max |diff| {err:.3e}, greedy tokens "
+            f"identical); {len(card['routes'])} MoE router calls with identical "
+            f"routing; {card['launches']} flash launches on the card")
+    # M-RoPE with three different position streams
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 64, 4, 128), generator=gen)
+    pos = torch.randint(0, 8192, (3, 2, 64), generator=gen)
+    a = L.apply_mrope(x.cuda(), pos.cuda(), 1e6, (16, 24, 24)).cpu()
+    b = L.apply_mrope(x, pos, 1e6, (16, 24, 24))
+    d = (a - b).abs().max().item()
+    # 1e-4 as the logits above: the devices' pow may round rope_freqs an ulp
+    # apart, and the angle pos * freq carries that ulp times pos (to 8192)
+    if not d <= 1e-4 or torch.equal(b, L.apply_rope(x, pos[0], 1e6)):
+        raise AssertionError(f"[lm-fam] apply_mrope: card against CPU {d:.3e}")
+    log(f"[lm-fam] apply_mrope, three different position streams, x (2, 64, 4, 128), "
+        f"sections (16, 24, 24): card == CPU (max |diff| {d:.3e})")
+
+
+def moe_drops(tag: str, cfg, call) -> None:
+    """The first MoE layer's prefill input (``moe_fwd``'s first call):
+    the share of its choices dropped by capacity, and its dispatch,
+    scatter, expert GEMMs and combine timed by CUDA events."""
+    import statistics
+
+    import torch
+    from repro_torch.models import moe
+
+    (p, _, x), _ = call
+    mc = cfg.moe
+    idx, gates, _, slot, keep, cap = moe.dispatch(p, mc, x)
+    B, S, d = x.shape
+    load = torch.stack([torch.bincount(r, minlength=mc.n_experts)
+                        for r in idx.reshape(B, -1)])
+    log(f"[{tag}] first MoE layer's prefill: {B} x {S} tokens, top-{mc.top_k} of "
+        f"{mc.n_experts}, capacity {cap} a group: {int((~keep).sum())} of "
+        f"{keep.numel()} choices dropped ({(~keep).float().mean().item():.4f}); "
+        f"tokens with a dropped choice {(~keep).any(-1).float().mean().item():.4f}; "
+        f"the busiest expert of a group took {int(load.max())} choices")
+    n = mc.n_experts * cap
+    buf = moe.scatter(x, slot, n + 1)
+    e_in = buf[:, :n].reshape(B, mc.n_experts, cap, d)
+    e_out = moe.experts(p, cfg, e_in)
+    calls = {"dispatch": lambda: moe.dispatch(p, mc, x),
+             "scatter": lambda: moe.scatter(x, slot, n + 1),
+             "experts": lambda: moe.experts(p, cfg, e_in),
+             "combine": lambda: moe.combine(e_out, slot, gates, keep)}
+    times = {}
+    for name, fn in calls.items():
+        fn()
+        times[name] = statistics.median(time_reps(fn, 5))
+    flop = 3 * 2 * B * n * d * mc.d_ff_expert
+    log(f"[{tag}] first MoE layer by CUDA events (medians of 5): "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+        + f"; the expert GEMMs {flop:.4e} flop over {B * n} slots, "
+        f"{flop / times['experts'] / 1e9:.1f} TFLOP/s")
+
+
+def moe_split(run) -> dict | None:
+    """``run()`` under ``torch.profiler`` (host and device), each piece of
+    ``moe_fwd`` in a ``record_function`` range: device ms of each piece's
+    kernels; None when the trace attributes no device time to them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe
+
+    origs = {name: getattr(moe, name) for name in MOE_PIECES}
+
+    def ranged(name, fn):
+        def wrapped(*a, **kw):
+            with record_function(f"moe.{name}"):
+                return fn(*a, **kw)
+        return wrapped
+
+    for name, fn in origs.items():
+        setattr(moe, name, ranged(name, fn))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in origs.items():
+            setattr(moe, name, fn)
+    ms = dict.fromkeys(MOE_PIECES, 0.0)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name.startswith("moe."):
+            ms[ev.name[4:]] += ev.device_time_total * 1e-3
+    return ms if any(ms.values()) else None
+
+
+def trace_model(tag: str, cfg, params, inputs) -> None:
+    """A warm prefill (an encoder's ``forward``) and one decode step, each
+    under ``torch.profiler``: wall, device busy and idle share, and the
+    device time of each kernel of ``LM_TRACE_NAMES`` (``gemm`` and
+    ``nvjet``: cuBLAS's matrix products); for a MoE model also the device
+    time of each piece of the MoE FFN (a second trace, host activity on).
+    The launch counts these calls add are not the main path's."""
+    from repro_torch.models import model as M
+
+    out = {}
+
+    def first():
+        if cfg.causal:
+            out["prefill"] = M.prefill(params, cfg, inputs, inputs.shape[1] + LM_GEN)
+        else:
+            M.forward(params, cfg, inputs)
+
+    def decode():
+        states, logits = out["prefill"]
+        M.decode_step(params, cfg, states, logits.argmax(-1), inputs.shape[1])
+
+    steps = [("prefill" if cfg.causal else "forward", first)]
+    if cfg.causal:
+        steps.append(("decode step", decode))
+    for _, fn in steps:  # warm-ups
+        fn()
+    for what, fn in steps:
+        tr = traced_run(fn, LM_TRACE_NAMES)
+        if tr["busy"] is None:
+            log(f"[{tag}] traced warm {what}: {tr['wall']:.4f} s wall; device idle "
+                "share: not measured (the trace holds no device event)")
+            continue
+        kernels = "; ".join(f"{k} {v * 1e3:.3f} ms" for k, v in tr["per_kernel"].items())
+        other = tr["busy"] - sum(tr["per_kernel"].values())
+        log(f"[{tag}] traced warm {what}: {tr['wall']:.4f} s wall, device busy "
+            f"{tr['busy']:.4f} s over {tr['events']} device events, idle share "
+            f"{idle_share(tr)}; {kernels}; other device work {other * 1e3:.3f} ms")
+        if cfg.moe is None:
+            continue
+        split = moe_split(fn)
+        if split is None:
+            log(f"[{tag}] traced warm {what}, MoE pieces: not measured (no device "
+                "time in the record_function ranges)")
+            continue
+        total = sum(split.values())
+        log(f"[{tag}] traced warm {what}, MoE FFN device time {total * 1e-3:.4f} s "
+            "over its MoE layers: " + "; ".join(f"{k} {v:.3f} ms ({v / total:.3f})"
+                                  for k, v in split.items())
+            + " (dispatch: router, top-k and slots; experts: the three GEMMs and the "
+            "activation)")
+
+
+def full_model(tag: str, arch: str, paths: dict) -> None:
+    """``arch`` at its published widths and ``FULL_DEPTHS[arch]`` layers:
+    ``init_params``, then ``greedy`` at ``LM_BATCH`` x ``LM_PROMPT`` to
+    ``LM_GEN`` tokens, the flash launch counts set to 0 just before and
+    read just after (one a layer, all on the tensor-core route), every
+    logit finite and the tokens in range; then the first flash call held
+    and timed at its inputs (``paths[cfg.name]``), the first MoE layer's
+    drops and pieces, and the traces."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.struct import tree_paths
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 unembedding stays f32
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=FULL_DEPTHS[arch])
+    captured: dict = {}
+    restore = [capture_first_calls(fa, "flash_attention_cuda", captured)]
+    if cfg.moe is not None:
+        restore.append(capture_first_calls(M, "moe_fwd", captured))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.inference_mode():
+            fa.launches = 0
+            for route in fa.route_launches:
+                fa.route_launches[route] = 0
+            t0 = time.perf_counter()
+            params = M.init_params(cfg, 0, device="cuda")
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            inputs = model_inputs(cfg, LM_BATCH, LM_PROMPT, "cuda")
+            r = greedy(params, cfg, inputs, LM_GEN, torch.cuda.synchronize)
+            launches, routes = fa.launches, dict(fa.route_launches)
+    finally:
+        for undo in restore:
+            undo()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.n_layers or routes["tensor_cores"] != cfg.n_layers:
+        raise AssertionError(f"[{tag}] {cfg.name}: flash launches {launches}, by route "
+                             f"{routes}; expected {cfg.n_layers}, all on the tensor "
+                             "cores")
+    if not all(torch.isfinite(lg).all() for lg in r["logits"]):
+        raise AssertionError(f"[{tag}] {cfg.name}: a logit of the run was not finite")
+    tok = r["tokens"]
+    if tok.min() < 0 or tok.max() >= cfg.vocab:
+        raise AssertionError(f"[{tag}] {cfg.name}: tokens out of range")
+    n_tok = LM_BATCH * LM_PROMPT
+    n_params = sum(t.numel() * t.element_size() for _, t in tree_paths(params))
+    if cfg.causal:
+        rates = (f"prefill {r['prefill_s']:.4f} s ({n_tok / r['prefill_s']:.1f} tok/s); "
+                 f"decode {LM_BATCH * (LM_GEN - 2) / r['decode_s']:.2f} tok/s "
+                 f"({r['decode_s'] / (LM_GEN - 2) * 1e3:.1f} ms a step); "
+                 f"{LM_GEN} greedy tokens, first {tok[:, :6].tolist()}")
+    else:
+        rates = (f"forward {r['prefill_s']:.4f} s ({n_tok / r['prefill_s']:.1f} tok/s), "
+                 f"logits {tuple(r['logits'][0].shape)}, aux {r['aux'].item()}")
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers (of {get_config(arch).n_layers}), "
+        f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, vocab "
+        f"{cfg.vocab}, {cfg.dtype} weights {n_params / 1e9:.2f} GB; "
+        f"{'embeddings' if cfg.input_mode == 'embeddings' else 'tokens'} "
+        f"{tuple(inputs.shape)}; set-up {setup_s:.3f} s; {rates}; every logit finite; "
+        f"flash launches {launches}, by route {routes}; peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    del r
+    (q, k, v), kw = captured.pop(("flash_attention_cuda", None))
+    paths[cfg.name] = dict(launches=launches, **flash_at_inputs(tag, q, k, v, kw))
+    del q, k, v
+    if cfg.moe is not None:
+        moe_drops(tag, cfg, captured.pop(("moe_fwd", None)))
+    captured.clear()
+    with torch.inference_mode():
+        trace_model(tag, cfg, params, inputs)
+    del params, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe_full(paths: dict) -> None:
+    for arch in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"):
+        full_model("moe-full", arch, paths)
+
+
+def phase_emb_full(paths: dict) -> None:
+    for arch in ("qwen2-vl-72b", "hubert-xlarge"):
+        full_model("emb-full", arch, paths)
 
 
 # ------------------------------------------------------------ session surface
@@ -4686,6 +5066,7 @@ def main(argv=None) -> int:
     log(f"[build] {time.perf_counter() - t0:.2f} s wall for all {len(builds)}")
     kernels = [{}, {}, {}]
     lm_kernels: list = []
+    lm_paths: dict = {}  # flash at moe-full's and emb-full's models
     for phase, run in (("small", phase_small),
                        ("full", lambda: phase_full(kernels[0])),
                        ("sys-small", phase_sys_small),
@@ -4706,12 +5087,21 @@ def main(argv=None) -> int:
                        ("lm-small", phase_lm_small),
                        ("lm-dense", phase_lm_dense),
                        ("rg-full", lambda: phase_rg_full(lm_kernels)),
-                       ("xl-full", lambda: phase_xl_full(lm_kernels))):
+                       ("xl-full", lambda: phase_xl_full(lm_kernels)),
+                       ("lm-fam", phase_lm_fam),
+                       ("moe-full", lambda: phase_moe_full(lm_paths)),
+                       ("emb-full", lambda: phase_emb_full(lm_paths))):
         if phase in phases:
             t1 = time.perf_counter()
             run()
             log(f"[{phase}] phase took {time.perf_counter() - t1:.1f} s")
     log(stop_run_processes(token))
+    if lm_paths:  # flash's row (rg-full's, or the first model's) takes each model's
+        flash = next((k for k in lm_kernels if k["name"] == "flash_attention"), None)
+        if flash is None:
+            flash = dict(FLASH_ROW, **next(iter(lm_paths.values())))
+            lm_kernels.append(flash)
+        flash["paths"] = lm_paths
     print(json.dumps({"kernels": [k for k in kernels + lm_kernels if k.get("name")]}),
           flush=True)
     print(nvidia_smi(), flush=True)

@@ -1,2 +1,2 @@
-"""Configurations of the port: the manycore wafer, and the LM architectures
-ported so far (``registry.get_config``)."""
+"""Configurations of the port: the manycore wafer and the LM architectures
+(``registry.get_config``)."""

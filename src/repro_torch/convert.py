@@ -66,7 +66,7 @@ def params_from_numpy(params_cls, arrays: Mapping[str, np.ndarray], device="cuda
 
 
 #: LM parameter and state leaves that are f32 whatever the model dtype.
-LM_F32_PARAMS = frozenset({"lam", "b_if", "b_i", "b_f", "b_z", "b_o"})
+LM_F32_PARAMS = frozenset({"lam", "b_if", "b_i", "b_f", "b_z", "b_o", "router"})
 LM_MODEL_DTYPE_STATE = frozenset({"conv", "k", "v"})
 
 

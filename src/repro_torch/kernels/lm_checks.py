@@ -39,6 +39,10 @@ FLASH_CASES = (
     (2, 4, 2, 320, 320, 128, True, 96, torch.bfloat16),    # T not a multiple of 128
     (1, 2, 2, 256, 256, 128, False, None, torch.bfloat16),  # not causal, D 128
     (1, 4, 1, 256, 256, 192, True, 96, torch.bfloat16),    # D 192: 3 column chunks
+    (1, 2, 2, 384, 384, 80, False, None, torch.bfloat16),  # hubert's D 80, not causal:
+                                                           # a chunk of 16 real columns
+    (1, 10, 2, 256, 256, 128, True, None, torch.bfloat16),  # GQA group 5 (llama4)
+    (1, 16, 1, 256, 256, 128, True, None, torch.bfloat16),  # GQA group 16 (qwen3-moe)
 )
 #: (B, T, D, with h0[, dtype]) — f32 where no dtype is given.  The
 #: comments give the kernel's cut at its chunk of 256 steps.

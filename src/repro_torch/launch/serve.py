@@ -33,10 +33,17 @@ def serve(arch: str = "llama3.2-1b", smoke: bool = True, batch: int = 4,
     Returns ``tokens`` (batch, gen), ``prefill_s`` and ``tok_per_s`` (over
     the decode steps after the first), as ``repro.launch.serve`` does, plus
     ``setup_s`` (weights on the device) and ``finite`` (every logit of the
-    run was finite)."""
+    run was finite).  An encoder-only or embeddings-input config raises
+    ``ValueError``: serve makes token prompts, so such a model is driven
+    through ``models.model`` (``forward``; ``prefill`` and ``decode_step``)
+    with its embeddings."""
     cfg = get_config(arch, smoke=smoke)
     if not cfg.causal:
         raise ValueError(f"{arch} is encoder-only; no decode step")
+    if cfg.input_mode == "embeddings":
+        raise ValueError(
+            f"{arch} takes embeddings (B, S, d), not the token prompts serve makes; "
+            "drive models.model.prefill and decode_step with them")
     dev = resolve_device(device)
     with torch.inference_mode():
         t0 = time.perf_counter()

@@ -1,5 +1,5 @@
-"""Shared layer primitives, as ``repro.models.layers``: RMSNorm, RoPE,
-attention (prefill and one-token decode), the gated MLP, embedding.
+"""Shared layer primitives, as ``repro.models.layers``: RMSNorm, RoPE and
+M-RoPE, attention (prefill and one-token decode), the gated MLP, embedding.
 
 Functions over explicit parameter dicts of tensors.  Parameters are in
 ``cfg.dtype`` (bf16 by default) and norm, softmax and recurrence math runs
@@ -17,13 +17,37 @@ from ..kernels import ops as kops
 from .config import ModelConfig
 
 
+#: Elements of the largest leaf :func:`truncnorm` draws in one piece; a
+#: larger one (a stacked expert weight at full width) is drawn in slices
+#: along its leading dims, so the f32 draw stays at most 4 GiB.
+DRAW_LIMIT = 1 << 30
+
+
+def _draw(gen, shape, scale: float, device) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t * scale
+
+
+def _draw_into(out: torch.Tensor, gen, scale: float) -> None:
+    if out.numel() <= DRAW_LIMIT:
+        out.copy_(_draw(gen, out.shape, scale, out.device))
+        return
+    step = max(1, DRAW_LIMIT // out[0].numel())
+    for i in range(0, out.shape[0], step):
+        _draw_into(out[i:i + step] if step > 1 else out[i], gen, scale)
+
+
 def truncnorm(gen: torch.Generator, shape, scale: float, dtype,
               device) -> torch.Tensor:
     """Normal truncated to [-2, 2] (not renormalized), times ``scale``,
-    drawn in f32 from ``gen`` and cast to ``dtype``."""
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * scale).to(dtype)
+    drawn in f32 from ``gen`` and cast to ``dtype``; a leaf of more than
+    ``DRAW_LIMIT`` elements in slices along its leading dims."""
+    if math.prod(shape) <= DRAW_LIMIT:
+        return _draw(gen, shape, scale, device).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    _draw_into(out, gen, scale)
+    return out
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -63,10 +87,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  positions: (3, B, T), the (t, h, w)
+    streams.  The D/2 frequencies fall into three sections, each rotated
+    by its own stream; with three equal streams this is :func:`apply_rope`."""
+    D = x.shape[-1]
+    freqs = rope_freqs(D, theta, x.device)
+    sec = torch.tensor(sum(([i] * s for i, s in enumerate(sections)), []),
+                       dtype=torch.long, device=x.device)  # (D/2,) stream ids
+    pos_sec = positions.float()[sec]  # (D/2, B, T)
+    angles = pos_sec.movedim(0, -1) * freqs  # (B, T, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def positional_rotate(cfg: ModelConfig, x, positions):
     if cfg.rope_type == "mrope":
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP Queue 1 item 11, qwen2-vl)")
+        if positions.dim() == 2:  # a text-only stream: the same on all three axes
+            positions = positions[None].expand((3,) + tuple(positions.shape))
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
 
 

@@ -9,9 +9,11 @@ with a leading ``n_stages`` dim).  A Python loop over the stages takes the
 place of ``lax.scan`` and walks them in the same order.  Decode states are
 stacked the same way.
 
-Layer kinds: attn | attn_local | rglru | mlstm | slstm (``attn_moe`` waits
-for ``moe.py``).  Every layer is pre-norm residual; attention and RG-LRU
-layers carry a gated MLP, xLSTM blocks are self-contained (d_ff = 0).
+Layer kinds: attn | attn_local | attn_moe | rglru | mlstm | slstm.  Every
+layer is pre-norm residual; attention and RG-LRU layers carry a gated MLP
+(``attn_moe``: the MoE FFN of ``moe.py``), xLSTM blocks are self-contained
+(d_ff = 0).  ``forward`` and ``prefill`` take token ids (B, S) or, for an
+``input_mode="embeddings"`` config, embeddings (B, S, d).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from ..core.device import resolve_device
 from . import layers as L
 from . import recurrent as R
 from .config import ModelConfig
+from .moe import moe_fwd, moe_init
 
 ATTN_KINDS = ("attn", "attn_local", "attn_moe")
 
@@ -40,15 +43,8 @@ def _has_mlp(cfg: ModelConfig, kind: str) -> bool:
     return kind in ("attn", "attn_local", "rglru") and cfg.d_ff > 0
 
 
-def _check(cfg: ModelConfig) -> None:
-    kinds = set(cfg.block_pattern)
-    if "attn_moe" in kinds or cfg.moe is not None:
-        raise NotImplementedError(
-            "attn_moe layers wait for moe.py (ROADMAP Queue 1 item 11)")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            "the embeddings input waits for qwen2-vl and hubert (ROADMAP Queue 1 "
-            "item 11)")
+def _uses_moe(cfg: ModelConfig, kind: str) -> bool:
+    return kind == "attn_moe"
 
 
 def _window(cfg: ModelConfig, kind: str):
@@ -70,7 +66,7 @@ def _stack(stages: list) -> tuple:
 # ----------------------------------------------------------------- init
 def _layer_init(gen, lead, cfg: ModelConfig, kind: str, dtype, device) -> dict:
     p: dict = {"norm1": L.rmsnorm_init(lead, cfg.d_model, dtype, device)}
-    if kind in ("attn", "attn_local"):
+    if kind in ATTN_KINDS:
         p["mix"] = L.attention_init(gen, lead, cfg, dtype, device)
     elif kind == "rglru":
         p["mix"] = R.rglru_block_init(gen, lead, cfg, dtype, device)
@@ -82,7 +78,10 @@ def _layer_init(gen, lead, cfg: ModelConfig, kind: str, dtype, device) -> dict:
         raise ValueError(kind)
     if _has_mlp(cfg, kind):
         p["norm2"] = L.rmsnorm_init(lead, cfg.d_model, dtype, device)
-        p["mlp"] = L.mlp_init(gen, lead, cfg.d_model, cfg.d_ff, dtype, device)
+        if _uses_moe(cfg, kind):
+            p["mlp"] = moe_init(gen, lead, cfg, dtype, device)
+        else:
+            p["mlp"] = L.mlp_init(gen, lead, cfg.d_model, cfg.d_ff, dtype, device)
     return p
 
 
@@ -91,7 +90,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     ``device`` (``"cuda"`` by default; raises without CUDA — pass
     ``device="cpu"``).  The JAX package's tree and dtypes; not its numbers
     (``convert.lm_params_from_numpy`` carries those across)."""
-    _check(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -108,10 +106,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
 
 
 # ----------------------------------------------------------------- forward
+def _ffn(p: dict, cfg: ModelConfig, kind: str, x):
+    """The layer's MLP or MoE FFN on its pre-norm input -> (out, aux)."""
+    if _uses_moe(cfg, kind):
+        return moe_fwd(p["mlp"], cfg, x)
+    return L.mlp_fwd(p["mlp"], x, cfg.hidden_act), None
+
+
 def _layer_fwd(p: dict, cfg: ModelConfig, kind: str, x, positions, state):
-    """One layer over the full sequence.  Returns (x, new_state)."""
+    """One layer over the full sequence.  Returns (x, new_state, aux): the
+    MoE aux loss, or None for a layer without one."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    new_state = state
+    new_state, aux = state, None
     if kind in ATTN_KINDS:
         mix = L.attention_fwd(p["mix"], cfg, h, positions, _window(cfg, kind))
     elif kind == "rglru":
@@ -124,14 +130,21 @@ def _layer_fwd(p: dict, cfg: ModelConfig, kind: str, x, positions, state):
         raise ValueError(kind)
     x = x + mix
     if _has_mlp(cfg, kind):
-        x = x + L.mlp_fwd(p["mlp"], L.rmsnorm(p["norm2"], x, cfg.norm_eps),
-                          cfg.hidden_act)
-    return x, new_state
+        ff, aux = _ffn(p, cfg, kind, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+        x = x + ff
+    return x, new_state, aux
 
 
 def _embed(params, cfg: ModelConfig, tokens):
-    _check(cfg)
     return L.embed_scale(cfg, L.embed_lookup(params["embed"], tokens))
+
+
+def _inputs(params, cfg: ModelConfig, inputs):
+    """The first layer's input: embeddings (B, S, d) cast to ``cfg.dtype``,
+    or token ids (B, S) looked up."""
+    if cfg.input_mode == "embeddings":
+        return inputs.to(getattr(torch, cfg.dtype))
+    return _embed(params, cfg, inputs)
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -144,15 +157,20 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
-def forward(params: dict, cfg: ModelConfig, tokens):
-    """Full-sequence forward over tokens (B, S) -> logits (B, S, vocab) f32."""
-    x = _embed(params, cfg, tokens)
-    positions = _positions(*tokens.shape, tokens.device)
+def forward(params: dict, cfg: ModelConfig, inputs):
+    """Full-sequence forward over token ids (B, S) or embeddings (B, S, d)
+    -> (logits (B, S, vocab) f32, the MoE aux loss summed over the layers
+    () f32)."""
+    x = _inputs(params, cfg, inputs)
+    positions = _positions(*x.shape[:2], x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (pattern, n_stages), seg in zip(segments_of(cfg), params["segments"]):
         for s in range(n_stages):
             for i, kind in enumerate(pattern):
-                x, _ = _layer_fwd(_at(seg[i], s), cfg, kind, x, positions, None)
-    return _logits(params, cfg, x)
+                x, _, aux = _layer_fwd(_at(seg[i], s), cfg, kind, x, positions, None)
+                if aux is not None:
+                    aux_total = aux_total + aux
+    return _logits(params, cfg, x), aux_total
 
 
 # ----------------------------------------------------------------- decode
@@ -195,8 +213,7 @@ def _layer_decode(p: dict, cfg: ModelConfig, kind: str, x, pos: int, state: dict
         raise ValueError(kind)
     x = x + mix
     if _has_mlp(cfg, kind):
-        x = x + L.mlp_fwd(p["mlp"], L.rmsnorm(p["norm2"], x, cfg.norm_eps),
-                          cfg.hidden_act)
+        x = x + _ffn(p, cfg, kind, L.rmsnorm(p["norm2"], x, cfg.norm_eps))[0]
     return x, new_state
 
 
@@ -219,13 +236,14 @@ def decode_step(params: dict, cfg: ModelConfig, states: list, token, pos: int):
     return new_states, _logits(params, cfg, x)[:, 0]
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int):
-    """Run the prompts (B, S) through the model, building decode states.
-    Returns (states, last-token logits (B, vocab) f32)."""
-    x = _embed(params, cfg, tokens)
-    B, S = tokens.shape
-    positions = _positions(B, S, tokens.device)
-    states = init_decode_state(cfg, B, max_seq, tokens.device)
+def prefill(params: dict, cfg: ModelConfig, inputs, max_seq: int):
+    """Run the prompts, token ids (B, S) or embeddings (B, S, d), through
+    the model, building decode states.  Returns (states, last-token logits
+    (B, vocab) f32)."""
+    x = _inputs(params, cfg, inputs)
+    B, S = x.shape[:2]
+    positions = _positions(B, S, x.device)
+    states = init_decode_state(cfg, B, max_seq, x.device)
     new_states = []
     for (pattern, n_stages), seg, seg_state in zip(segments_of(cfg),
                                                    params["segments"], states):
@@ -241,13 +259,12 @@ def prefill(params: dict, cfg: ModelConfig, tokens, max_seq: int):
                                                      _at(seg_state[i], s))
                     x = x + mix
                     if _has_mlp(cfg, kind):
-                        x = x + L.mlp_fwd(p["mlp"],
-                                          L.rmsnorm(p["norm2"], x, cfg.norm_eps),
-                                          cfg.hidden_act)
+                        x = x + _ffn(p, cfg, kind,
+                                     L.rmsnorm(p["norm2"], x, cfg.norm_eps))[0]
                     new_s.append({"k": kk, "v": vv})
                 else:
                     # the final recurrent state seeds the decode state
-                    x, st = _layer_fwd(p, cfg, kind, x, positions, None)
+                    x, st, _ = _layer_fwd(p, cfg, kind, x, positions, None)
                     new_s.append(st)
             stages.append(new_s)
         new_states.append(_stack(stages))

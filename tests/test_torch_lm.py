@@ -158,8 +158,9 @@ def test_forward_matches_jax():
         JM.init_params(jcfg, jax.random.key(0)), jnp.asarray(run["tokens"]))
     params = lm_params_from_numpy(tcfg, run["params"], device="cpu")
     with torch.inference_mode():
-        got = TM.forward(params, tcfg, torch.tensor(run["tokens"]).long())
+        got, aux = TM.forward(params, tcfg, torch.tensor(run["tokens"]).long())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+    assert aux.item() == 0.0  # no MoE layer
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-125m"])
@@ -201,17 +202,15 @@ def test_serve_on_the_cpu(arch):
 
 
 def test_registry():
-    """``get_config`` and ``ALIASES`` as in JAX for the ported archs; the
-    others raise naming their ROADMAP item."""
+    """``get_config`` and ``ALIASES`` as in JAX for every LM arch, the MoE,
+    vision-language and audio ones included; an unknown name raises."""
     for arch in ("recurrentgemma-2b", "recurrentgemma_2b", "xlstm-125m",
-                 "llama3.2-1b", "llama3.2-3b", "gemma-2b", "gemma-7b"):
+                 "llama3.2-1b", "llama3.2-3b", "gemma-2b", "gemma-7b",
+                 "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+                 "qwen2-vl-72b", "hubert-xlarge"):
         for smoke in (False, True):
             assert (dataclasses.asdict(get_config(arch, smoke))
                     == dataclasses.asdict(j_get_config(arch, smoke)))
-    for arch in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
-                 "qwen2-vl-72b", "hubert-xlarge"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -13,6 +13,7 @@ no processes.
 
 Tolerance: exact (bytes and integer counters).
 """
+import gc
 import os
 
 import numpy as np
@@ -197,11 +198,19 @@ def test_sequence_slip_raises():
 
 def test_segment_keeps_no_descriptor():
     """Creating and attaching segments opens no file descriptor that
-    outlives the call; closing the creator unlinks the name."""
-    fds = len(os.listdir("/proc/self/fd"))
-    rings = [ShmRing.create(_name(f"fd{i}"), 3, 4) for i in range(64)]
-    peers = [ShmRing.attach(r.name, 3, 4) for r in rings]
-    assert len(os.listdir("/proc/self/fd")) == fds
+    outlives the call; closing the creator unlinks the name.  The
+    collector runs first and stays off while the descriptors are counted,
+    so that no finalizer of an earlier test's garbage closes one of its
+    own descriptors between the two counts."""
+    gc.collect()
+    gc.disable()
+    try:
+        fds = len(os.listdir("/proc/self/fd"))
+        rings = [ShmRing.create(_name(f"fd{i}"), 3, 4) for i in range(64)]
+        peers = [ShmRing.attach(r.name, 3, 4) for r in rings]
+        assert len(os.listdir("/proc/self/fd")) == fds
+    finally:
+        gc.enable()
     for p in peers:
         p.close()
     for r in rings:
