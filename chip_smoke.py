@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-Eleven paths, each through the entry points a user calls:
+Twelve paths, each through the entry points a user calls:
 
   * the paper's wafer-scale torus: 1024x1024 ``ManycoreCell`` cores running
     a two-phase ring allreduce, partitioned over 2 pods x 2x2 granules with
@@ -67,7 +67,15 @@ Eleven paths, each through the entry points a user calls:
     qwen2-vl-72b (M-RoPE, from embeddings), and ``forward`` of the
     non-causal hubert-xlarge encoder over embeddings, at their published
     widths with only the depth cut, every attention layer through the
-    hand-written ``flash_attention`` kernel.
+    hand-written ``flash_attention`` kernel;
+  * training: ``launch.train.train`` -> ``launch.steps.make_train_step``
+    (``models.model.loss_fn``, its gradients, ``optim.optimizer.AdamW``)
+    over the synthetic ``data.pipeline.TokenPipeline``, for llama3.2-1b at
+    its published widths and ``train_4k``'s 4,096-token sequence (batch
+    4), then recurrentgemma-2b and xlstm-125m, every flash, RG-LRU and
+    sLSTM call through its ``torch.autograd.Function``
+    (``kernels/ops.py``): the Hopper kernel forward, the reference's
+    backward in torch ops (the RG-LRU's reverse scan a kernel launch).
 
 Phases (a failing phase raises, and the script exits non-zero):
 
@@ -411,6 +419,29 @@ Phases (a failing phase raises, and the script exits non-zero):
              ``forward`` over a seeded (4, 3072, 1280) embeddings tensor (48
              flash launches, D = 80 on the tensor-core route), with
              moe-full's checks, timings and trace.
+  26. train-small  the gradient check: each ``Function`` of ``kernels/ops.py``
+             (flash f32 and bf16, causal, windowed and not; the RG-LRU with
+             and without h0; the sLSTM with f32 and bf16 R, a zero carry
+             with m = -inf) on the card, its kernel path against its plain
+             path (``lm_checks.plain_forward``) on the same inputs and
+             output gradients: the output and every input's gradient within
+             ``lm_checks.GRAD_TOL_*``, the kernel launched; then
+             ``train("llama3.2-1b", smoke=True)`` for 24 steps with
+             ``fail_at=(10, 19)`` and a checkpoint every 8 (2 restarts, the
+             loss falling, every loss finite) and the resume-determinism
+             pair of ``tests/test_system.py``.
+  27. train-full  ``train`` at published widths: llama3.2-1b (1.236 B
+             parameters, 16 layers) at 4 x 4,096 tokens for 20 steps, lr
+             3e-3, the launch counts set to 0 just before and read just
+             after (each attention layer twice a step: remat recomputes it),
+             the loss falling and finite: set-up, step time, tokens/s, peak
+             memory, the loss curve and grad norms; a traced warm step (idle
+             share, top device ops, each backward's device time); then
+             recurrentgemma-2b (2 x 4,096, 3 steps) and xlstm-125m (4 x
+             2,048, 2 steps) the same way.  Each kernel's first call with
+             grad: kernel path against plain path, the forward's times and
+             bound, the backward's time beside the plain backward (autograd
+             through the plain version).
 
 After the last phase the script stops the forkserver and resource tracker
 the fleets started and checks that no process of the run is left (every one
@@ -431,6 +462,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --phases build,fleet-small,fleet-full
     python3 chip_smoke.py --phases build,lm-small,lm-dense,rg-full,xl-full
     python3 chip_smoke.py --phases build,lm-small,lm-fam,moe-full,emb-full
+    python3 chip_smoke.py --phases build,train-small,train-full
 """
 from __future__ import annotations
 
@@ -457,7 +489,7 @@ PHASES = ("build", "small", "full", "sys-small", "sys-full", "fsys-small",
           "fsys-full", "fused-io", "graph-small", "graph-full", "session-small", "session-full",
           "mesh-small", "mesh-full", "procs-small", "procs-full", "fleet-small",
           "fleet-full", "lm-small", "lm-dense", "rg-full", "xl-full", "lm-fam",
-          "moe-full", "emb-full")
+          "moe-full", "emb-full", "train-small", "train-full")
 
 
 def log(msg: str) -> None:
@@ -2089,6 +2121,16 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 3072, 16
 FLASH_ROW = dict(name="flash_attention", route="cuda",
                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
                  replaces="src/repro/kernels/flash_attention.py:137")
+#: the kernel table's fixed keys of the three LM kernels' rows
+KERNEL_ROWS = {
+    "flash_attention": FLASH_ROW,
+    "rglru_scan": dict(name="rglru_scan", route="cuda",
+                       source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+                       replaces="src/repro/kernels/rglru_scan.py:78"),
+    "slstm_scan": dict(name="slstm_scan", route="cuda",
+                       source="src/repro_torch/kernels/csrc/slstm_scan.cu",
+                       replaces="src/repro/kernels/slstm_scan.py:121"),
+}
 
 
 def phase_lm_small() -> None:
@@ -2410,11 +2452,8 @@ def phase_rg_full(results: list) -> None:
         f"{bound_ms:.4f} ms ({by}); kernel (chunk {plan.chunk}) at "
         f"{times['ms'] / bound_ms:.2f}x it, {bound_ms / times['ms']:.3f} of it")
     results.append(dict(
-        name="rglru_scan", route="cuda",
-        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
-        replaces="src/repro/kernels/rglru_scan.py:78",
-        launches=launches["rglru_scan"], max_abs_err=err, **times,
-        bound_ms=bound_ms, bound_by=by))
+        KERNEL_ROWS["rglru_scan"], launches=launches["rglru_scan"], max_abs_err=err,
+        **times, bound_ms=bound_ms, bound_by=by))
     del x, a, h0
     trace_serving("recurrentgemma-2b", "rg-full")
 
@@ -2514,10 +2553,8 @@ def phase_xl_full(results: list) -> None:
         f"{t_big['ms'] / T * 1e3:.3f} us a step")
     del big, carry_big
     results.append(dict(
-        name="slstm_scan", route="cuda",
-        source="src/repro_torch/kernels/csrc/slstm_scan.cu",
-        replaces="src/repro/kernels/slstm_scan.py:121",
-        launches=launches["slstm_scan"], max_abs_err=max(err, err_dec), **times,
+        KERNEL_ROWS["slstm_scan"], launches=launches["slstm_scan"],
+        max_abs_err=max(err, err_dec), **times,
         bound_ms=bound_ms, bound_by=by))
     del r, pre, carry0
     serve_batch("xlstm-125m", "xl-full", sl, 32)
@@ -2873,6 +2910,367 @@ def phase_moe_full(paths: dict) -> None:
 def phase_emb_full(paths: dict) -> None:
     for arch in ("qwen2-vl-72b", "hubert-xlarge"):
         full_model("emb-full", arch, paths)
+
+
+# ------------------------------------------------------------ training
+#: train-full's runs: arch -> (batch, sequence, steps).  ``train_4k``'s
+#: 4,096-token sequence (xlstm-125m 2,048), published widths, the batch
+#: cut from 256 to fit one card.
+TRAIN_FULL = {"llama3.2-1b": (4, 4096, 20), "recurrentgemma-2b": (2, 4096, 3),
+              "xlstm-125m": (4, 2048, 2)}
+TRAIN_LR = 3e-3
+#: the ``kernels/ops.py`` entry of each kernel, and its ``Function``'s
+#: backward (``record_function`` ranges of the traced step)
+TRAIN_OPS = {"flash_attention": "flash_attention", "rglru_scan": "rglru",
+             "slstm_scan": "slstm_scan"}
+TRAIN_BWD = ("flash_bwd", "rglru_bwd", "slstm_bwd")
+
+
+def phase_train_small() -> None:
+    """Each ``Function``'s kernel path against its plain path on the card,
+    then ``train`` with crashes and the resume pair."""
+    import math
+    import tempfile
+
+    import numpy as np
+    from repro_torch.kernels import lm_checks as lc
+    from repro_torch.launch.train import train
+
+    for case in lc.FLASH_GRAD_CASES:
+        err = lc.check_flash_grads(case)
+        log(f"[train-small] FlashFn (B, Hq, Hkv, T, D, causal, window, dtype) = {case}: "
+            f"kernel path == plain path, o and dq, dk, dv (max |diff| {err:.3e})")
+    for case in lc.RGLRU_GRAD_CASES:
+        err = lc.check_rglru_grads(case)
+        log(f"[train-small] RglruFn (B, T, D, h0) = {case}: kernel path (2 launches: "
+            f"the forward and the reverse scan) == plain path, dx, da, dh0 "
+            f"(max |diff| {err:.3e})")
+    for case in lc.SLSTM_GRAD_CASES:
+        err = lc.check_slstm_grads(case)
+        log(f"[train-small] SlstmFn (B, T, d, H, R dtype, carry) = {case}: kernel path "
+            f"== plain path, dR, dpre, dcarry0 (max |diff| {err:.3e})")
+    log(f"[train-small] gradient tolerances: {lc.GRAD_TOL_F32} (f32) and "
+        f"{lc.GRAD_TOL_BF16} (bf16) of the plain path's largest magnitude")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = train("llama3.2-1b", smoke=True, steps=24, batch=4, seq=128,
+                    ckpt_dir=os.path.join(tmp, "crash"), ckpt_every=8, fail_at=(10, 19),
+                    verbose=False)
+        losses = out["losses"]
+        if not (out["restarts"] == 2 and out["steps_run"] > 24
+                and np.isfinite(losses + out["grad_norms"]).all()
+                and out["final_loss"] < losses[0]):
+            raise AssertionError(f"[train-small] crash run: restarts {out['restarts']}, "
+                                 f"steps run {out['steps_run']}, losses {losses}")
+        log(f"[train-small] train(llama3.2-1b, smoke, 24 steps, batch 4, seq 128, "
+            f"fail_at (10, 19), a checkpoint every 8) on the card: {out['restarts']} "
+            f"restarts, {out['steps_run']} steps run, loss {losses[0]:.4f} -> "
+            f"{out['final_loss']:.4f}, every loss and grad norm finite "
+            f"({time.perf_counter() - t0:.1f} s)")
+        kw = dict(smoke=True, steps=16, batch=2, seq=32, ckpt_every=4, verbose=False)
+        a = train("llama3.2-1b", ckpt_dir=os.path.join(tmp, "a"), **kw)
+        b = train("llama3.2-1b", ckpt_dir=os.path.join(tmp, "b"), fail_at=(9,), **kw)
+        if not (b["restarts"] == 1
+                and math.isclose(a["final_loss"], b["final_loss"], rel_tol=1e-5)):
+            raise AssertionError(f"[train-small] resume: {a['final_loss']} against "
+                                 f"{b['final_loss']} after {b['restarts']} restarts")
+        log(f"[train-small] resume determinism (tests/test_system.py:23): uninterrupted "
+            f"{a['final_loss']:.6f}, crashed at step 9 and resumed {b['final_loss']:.6f}")
+
+
+def capture_grad_calls(store: dict):
+    """Wrap the ``kernels/ops.py`` entry of each kernel so that the
+    arguments of its first call with grad (detached copies) land in
+    ``store[kernel]``; returns a function that restores them."""
+    import torch
+    from repro_torch.kernels import ops
+
+    undo = []
+    for name, entry in TRAIN_OPS.items():
+        orig = getattr(ops, entry)
+
+        def wrapped(*args, _orig=orig, _name=name, **kw):
+            if _name not in store and torch.is_grad_enabled():
+                copy = lambda x: (x.detach().clone() if isinstance(x, torch.Tensor)  # noqa: E731
+                                  else x)
+                store[_name] = ([{g: copy(t) for g, t in a.items()} if isinstance(a, dict)
+                                 else tuple(map(copy, a)) if isinstance(a, tuple)
+                                 else copy(a) for a in args], dict(kw))
+            return _orig(*args, **kw)
+
+        setattr(ops, entry, wrapped)
+        undo.append((entry, orig))
+    return lambda: [setattr(ops, e, o) for e, o in undo]
+
+
+def expected_train_launches(cfg, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps of ``cfg`` at full width:
+    each layer's forward twice (remat recomputes it in the backward), and
+    the RG-LRU once more (the backward's reverse scan)."""
+    from repro_torch.models import model as M
+
+    kinds = [k for pattern, n in M.segments_of(cfg) for k in pattern * n]
+    fwd = 2 if cfg.remat else 1
+    return {"flash_attention": fwd * steps * sum(k in M.ATTN_KINDS for k in kinds),
+            "rglru_scan": (fwd + 1) * steps * kinds.count("rglru"),
+            "slstm_scan": fwd * steps * kinds.count("slstm")}
+
+
+def time_backward(forward, inputs: list, grads_out, reps: int) -> float:
+    """Median ms of ``torch.autograd.grad`` of ``forward(*inputs)`` (one
+    forward, its graph kept), by CUDA events; a warm-up call first where
+    ``reps`` > 1 (a backward of seconds is timed cold, once)."""
+    import statistics
+
+    import torch
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    outs = forward(*leaves)
+    run = lambda: torch.autograd.grad(outs, leaves, grads_out, retain_graph=True)  # noqa: E731
+    if reps > 1:
+        run()
+    ms = statistics.median(time_reps(run, reps))
+    del outs
+    return ms
+
+
+def train_kernel_row(tag: str, name: str, args: list, kw: dict) -> dict:
+    """The first call of ``name``'s ``Function`` in a train run, at its
+    inputs: kernel path against plain path (output and every input's
+    gradient, ``lm_checks``), the forward's times and bound as the serving
+    phases take them, and the backward's time on the kernel path beside
+    the plain backward (autograd through the plain version)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lm_checks as lc
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import slstm_scan as sl
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rand = lambda x: torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)  # noqa: E731
+    if name == "flash_attention":
+        q, k, v = (x.contiguous() for x in args[:3])
+        mkw = dict(causal=kw["causal"], window=kw["window"], sm_scale=kw.get("sm_scale"))
+        do = rand(q)
+        err = lc.compare_flash_grads(q, k, v, do, **mkw)
+        fwd = flash_at_inputs(tag, q, k, v, dict(mkw, sm_scale=mkw["sm_scale"]
+                                                 or q.shape[-1] ** -0.5))
+        kern = lambda *t: ops.flash_attention(*t, **mkw)  # noqa: E731
+        plain = lambda *t: fa.flash_attention_ref(*t, **mkw)  # noqa: E731
+        inputs, gout = [q, k, v], (do,)
+        pairs = attention_pairs(q.shape[2], k.shape[2], mkw["causal"], mkw["window"])
+        bwd_flop = 7 * 2 * pairs * q.shape[0] * q.shape[1] * q.shape[3]
+        # q, k, v, o, do and lse read; dq, dk, dv written
+        bwd_bytes = 2 * nbytes(q, k, v) + 2 * nbytes(q) + 4 * q[..., 0].numel()
+        shape = f"q {tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype}, {mkw}"
+        reps = 3
+    elif name == "rglru_scan":
+        x, a, h0 = args[:3]
+        dh, dlast = rand(x), rand(x[:, 0])
+        err = lc.compare_rglru_grads(x, a, h0, dh, dlast)
+        fwd = time_kernel(tag, "rglru_scan", lambda: rg.rglru_scan_cuda(x, a, h0),
+                          lambda: rg.rglru_scan_ref(x, a, h0), 10, 3, hold=True)
+        fwd["bound_ms"], fwd["bound_by"] = rglru_bound(x, h0)
+        fwd["library_ms"], fwd["max_abs_err"] = None, lc.compare_rglru(x, a, h0)
+        kern = lambda x_, a_: ops.rglru(x_, a_, h0)  # noqa: E731
+        plain = lambda x_, a_: rg.rglru_scan_ref(x_, a_, h0)  # noqa: E731
+        inputs, gout = [x, a], (dh, dlast)
+        bwd_flop = 5 * x.numel()
+        bwd_bytes = 5 * nbytes(x) + 2 * nbytes(x[:, 0])  # a, h, dh in; dx, da out
+        shape = f"x {tuple(x.shape)} {x.dtype}, h0 {'given' if h0 is not None else 'None'}"
+        reps = 5
+    else:
+        r, pre, carry0 = args[:3]
+        B, T, _, d = pre.shape
+        H, hd = r["i"].shape[:2]
+        dhs, dfin = rand(pre[:, :, 0]), [rand(c) for c in carry0]
+        err = lc.compare_slstm_grads(r, pre, carry0, dhs, dfin)
+        fwd = time_kernel(tag, "slstm_scan", lambda: sl.slstm_scan_cuda(r, pre, carry0),
+                          lambda: sl.slstm_scan_ref(r, pre, carry0), 3, 1)
+        n_bytes = (nbytes(*r.values(), pre, *carry0) + 4 * B * T * d * 4 + nbytes(*carry0))
+        fwd["bound_ms"], fwd["bound_by"] = bound(n_bytes, 4 * 2 * hd * d * B * T,
+                                                 F32_OPS_PER_S)
+        fwd["library_ms"], fwd["max_abs_err"] = None, lc.compare_slstm(r, pre, carry0)
+        rs = [r[g] for g in sl.GATES]
+        kern = lambda *t: _slstm_outs(ops.slstm_scan, t)  # noqa: E731
+        plain = lambda *t: _slstm_outs(sl.slstm_scan_ref, t)  # noqa: E731
+        inputs, gout = rs + [pre, *carry0], (dhs, *dfin)
+        bwd_flop = 3 * 4 * 2 * hd * d * B * T
+        # pre, dpre and the four sequences and dhs (f32), R and dR
+        bwd_bytes = 2 * nbytes(pre) + 5 * 4 * B * T * d + 2 * nbytes(*rs)
+        shape = f"pre {tuple(pre.shape)}, R {H}x({hd}, {hd}) {r['i'].dtype}"
+        reps = 1
+    bwd_ms = time_backward(kern, inputs, gout, reps)
+    plain_bwd_ms = time_backward(plain, inputs, gout, max(1, reps - 1))
+    bwd_bound, bwd_by = bound(bwd_bytes, bwd_flop, F32_OPS_PER_S)
+    log(f"[{tag}] {name} at the train step's first call, {shape}: kernel path == plain "
+        f"path (every input's gradient, max |diff| {err:.3e}); forward {fwd['ms']:.4f} ms "
+        f"(plain {fwd['plain_ms']:.4f}, bound {fwd['bound_ms']:.4f}, {fwd['bound_by']}); "
+        f"backward (torch ops) {bwd_ms:.4f} ms against its bound {bwd_bound:.4f} ms "
+        f"({bwd_by}: {bwd_flop:.4e} f32 flop, {bwd_bytes} B); the plain backward "
+        f"(autograd through the plain version) {plain_bwd_ms:.4f} ms")
+    return dict(max_abs_err=fwd["max_abs_err"], grad_max_abs_err=err, ms=fwd["ms"],
+                plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
+                bound_by=fwd["bound_by"], library_ms=fwd["library_ms"], bwd_ms=bwd_ms,
+                plain_bwd_ms=plain_bwd_ms, bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
+                shape=shape)
+
+
+def _slstm_outs(scan, t):
+    from repro_torch.kernels import slstm_scan as sl
+
+    hs, _, fin = scan(dict(zip(sl.GATES, t[:4])), t[4], tuple(t[5:]))
+    return (hs, *fin)
+
+
+def trace_train_step(tag: str, arch: str, B: int, T: int) -> None:
+    """One warm train step of ``arch`` at full width under ``torch.profiler``
+    (device activity): wall, idle share, the top device ops; then one with
+    host activity too, each ``Function``'s backward in a ``record_function``
+    range: its device time and share of the step's.  Fresh weights; the
+    launches these steps add are not the main path's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import AdamW
+
+    cfg = get_config(arch)
+    params = M.init_params(cfg, 0, device="cuda")
+    opt = AdamW(lr=TRAIN_LR, warmup_steps=2, total_steps=20)
+    state = {"opt": opt.init(params), "params": params}
+    step = make_train_step(cfg, opt)
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=T, global_batch=B))
+
+    def run():
+        b = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch().items()}
+        state["params"], state["opt"], m = step(state["params"], state["opt"], b)
+        float(m["loss"])
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                   for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+    if not spans:
+        log(f"[{tag}] traced train step: {wall:.4f} s wall; device idle share: not "
+            "measured (the trace holds no device event)")
+        return
+    per_op: dict = {}
+    busy_us, reach = 0.0, float("-inf")
+    for lo, hi, name in spans:
+        per_op[name] = per_op.get(name, 0.0) + (hi - lo) * 1e-3
+        if hi > reach:
+            busy_us += hi - max(lo, reach)
+            reach = hi
+    busy_ms = busy_us * 1e-3
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[{tag}] traced warm train step ({arch}, {B} x {T}): {wall:.4f} s wall, device "
+        f"busy {busy_ms * 1e-3:.4f} s over {len(spans)} device events, idle share "
+        f"{1.0 - busy_ms * 1e-3 / wall:.4f}; top device ops: "
+        + "; ".join(f"{n[:60]} {ms:.2f} ms" for n, ms in top))
+    origs = {name: getattr(ops, name) for name in TRAIN_BWD}
+
+    def ranged(name, fn):
+        def wrapped(*a, **kw):
+            with record_function(f"bwd.{name}"):
+                return fn(*a, **kw)
+        return wrapped
+
+    for name, fn in origs.items():
+        setattr(ops, name, ranged(name, fn))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in origs.items():
+            setattr(ops, name, fn)
+    ms = dict.fromkeys(TRAIN_BWD, 0.0)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name.startswith("bwd."):
+            ms[ev.name[4:]] += ev.device_time_total * 1e-3
+    log(f"[{tag}] traced warm train step, the Functions' backwards by device time: "
+        + "; ".join(f"{k} {v:.2f} ms ({v / busy_ms:.3f} of the untraced step's busy)"
+                    for k, v in ms.items() if v)
+        + ("" if any(ms.values()) else "not measured (no device time in the ranges)"))
+    del state, params
+
+
+def phase_train_full(rows: dict) -> None:
+    """``launch.train.train`` at published widths: llama3.2-1b (the path),
+    then recurrentgemma-2b and xlstm-125m; each run's launch counts set to
+    0 just before and read just after; each kernel's first call held and
+    timed at its inputs (``rows``: kernel -> arch -> numbers)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import slstm_scan as sl
+    from repro_torch.launch.train import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 unembedding stays f32
+    mods = {"flash_attention": fa, "rglru_scan": rg, "slstm_scan": sl}
+    for arch, (B, T, steps) in TRAIN_FULL.items():
+        tag = "train-full"
+        cfg = get_config(arch)
+        captured: dict = {}
+        undo = capture_grad_calls(captured)
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for mod in mods.values():
+                mod.launches = 0
+            t0 = time.perf_counter()
+            out = train(arch, smoke=False, steps=steps, batch=B, seq=T, lr=TRAIN_LR,
+                        verbose=False)
+            run_s = time.perf_counter() - t0
+            launches = {n: mod.launches for n, mod in mods.items()}
+        finally:
+            undo()
+        peak = torch.cuda.max_memory_allocated()
+        want = expected_train_launches(cfg, steps)
+        if launches != want:
+            raise AssertionError(f"[{tag}] {arch}: launches {launches}, expected {want}")
+        losses, gnorms = out["losses"], out["grad_norms"]
+        if not np.isfinite(losses + gnorms).all() or len(losses) != steps:
+            raise AssertionError(f"[{tag}] {arch}: losses {losses}, grad norms {gnorms}")
+        if arch == "llama3.2-1b" and not losses[-1] < losses[0]:
+            raise AssertionError(f"[{tag}] {arch}: the loss did not fall: {losses}")
+        warm = out["step_s"][1:] or out["step_s"]
+        step_s = statistics.median(warm)
+        log(f"[{tag}] {arch}: {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+            f"{cfg.param_count() / 1e9:.3f} B parameters, {cfg.dtype}, remat "
+            f"{cfg.remat}; batch {B} x {T} tokens, {steps} steps at lr {TRAIN_LR}: "
+            f"set-up {out['setup_s']:.3f} s, first step {out['step_s'][0]:.3f} s, step "
+            f"median {step_s:.4f} s ({min(warm):.4f}-{max(warm):.4f}) = "
+            f"{B * T / step_s:.1f} tokens/s, run {run_s:.1f} s; peak device memory "
+            f"{peak / 2**30:.2f} GiB; launches {launches}")
+        log(f"[{tag}] {arch} loss curve: " + ", ".join(f"{x:.4f}" for x in losses))
+        log(f"[{tag}] {arch} grad norms: " + ", ".join(f"{x:.3f}" for x in gnorms))
+        del out
+        torch.cuda.empty_cache()
+        if arch == "llama3.2-1b":
+            trace_train_step(tag, arch, B, T)
+            torch.cuda.empty_cache()
+        for name, (args, kw) in captured.items():
+            row = train_kernel_row(tag, name, args, kw)
+            rows.setdefault(name, {})[arch] = dict(row, launches=launches[name])
+            torch.cuda.empty_cache()
+        del captured
 
 
 # ------------------------------------------------------------ session surface
@@ -5067,6 +5465,7 @@ def main(argv=None) -> int:
     kernels = [{}, {}, {}]
     lm_kernels: list = []
     lm_paths: dict = {}  # flash at moe-full's and emb-full's models
+    train_rows: dict = {}  # kernel -> arch -> train-full's numbers
     for phase, run in (("small", phase_small),
                        ("full", lambda: phase_full(kernels[0])),
                        ("sys-small", phase_sys_small),
@@ -5090,7 +5489,9 @@ def main(argv=None) -> int:
                        ("xl-full", lambda: phase_xl_full(lm_kernels)),
                        ("lm-fam", phase_lm_fam),
                        ("moe-full", lambda: phase_moe_full(lm_paths)),
-                       ("emb-full", lambda: phase_emb_full(lm_paths))):
+                       ("emb-full", lambda: phase_emb_full(lm_paths)),
+                       ("train-small", phase_train_small),
+                       ("train-full", lambda: phase_train_full(train_rows))):
         if phase in phases:
             t1 = time.perf_counter()
             run()
@@ -5102,6 +5503,19 @@ def main(argv=None) -> int:
             flash = dict(FLASH_ROW, **next(iter(lm_paths.values())))
             lm_kernels.append(flash)
         flash["paths"] = lm_paths
+    for name, by_arch in train_rows.items():
+        # rows 3-5 gain the backward's times at the train path's first call
+        # (the first arch that reached the kernel); a run without the
+        # serving phases takes the whole row from there
+        first = next(iter(by_arch.values()))
+        row = next((k for k in lm_kernels if k["name"] == name), None)
+        if row is None:
+            row = dict(KERNEL_ROWS[name], **{k: first[k] for k in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
+            lm_kernels.append(row)
+        row.update(bwd_ms=first["bwd_ms"], plain_bwd_ms=first["plain_bwd_ms"],
+                   train=by_arch)
     print(json.dumps({"kernels": [k for k in kernels + lm_kernels if k.get("name")]}),
           flush=True)
     print(nvidia_smi(), flush=True)

@@ -11,9 +11,13 @@ Layout per step::
 A tree is flattened with ``core.struct.tree_paths``; its dotted leaf
 paths go into ``tree.json`` where the reference writes its treedef
 string, and ``restore`` refuses a checkpoint whose paths, leaf count or
-shapes differ from its template's.  numpy has no bfloat16: such a leaf is
-stored as its raw ``uint16`` bits with ``"bfloat16"`` recorded as its
-dtype, as the reference stores an ml_dtypes leaf.
+shapes differ from its template's.  A checkpoint of the JAX package (a
+treedef, no paths) restores only on request (``from_reference``, as the
+trainer asks) and where the template renders to the same treedef
+(``reference_treedef``), its leaves read in the reference's flatten
+order.  numpy has no bfloat16: such a leaf is stored as its raw
+``uint16`` bits with ``"bfloat16"`` recorded as its dtype, as the
+reference stores an ml_dtypes leaf.
 
   * ``save_async`` copies the leaves to the host on the caller's thread,
     so a later in-place update of the live tensors cannot reach the
@@ -127,11 +131,14 @@ def latest_step(path: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(path: str, template: Tree, step: int | None = None) -> tuple[Tree, dict]:
+def restore(path: str, template: Tree, step: int | None = None,
+            from_reference: bool = False) -> tuple[Tree, dict]:
     """Restore into the structure of ``template``: each leaf goes to its
     template leaf's device, as its dtype.  Returns (tree, meta).  Raises
     ``ValueError`` where the checkpoint's leaf count, paths or shapes
-    differ from the template's."""
+    differ from the template's.  A checkpoint of the JAX package is
+    refused unless ``from_reference``, and then read only where its
+    treedef is the template's ``reference_treedef``."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -139,20 +146,25 @@ def restore(path: str, template: Tree, step: int | None = None) -> tuple[Tree, d
     final = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(final, "tree.json")) as f:
         spec = json.load(f)
-    if "paths" not in spec:
-        # the JAX package writes its treedef string instead: nothing ties
-        # its leaf order to this template, so its leaves are not read
-        raise ValueError(
-            f"{final} has no leaf paths (a checkpoint of the JAX package, "
-            f"which records {'a treedef' if 'treedef' in spec else 'none'}); "
-            "carry a reference state across with repro_torch.convert's "
-            "*_state_from_numpy instead")
+    reference = "paths" not in spec
+    if reference:
+        # the JAX package writes its treedef string: its leaves are read
+        # only on request, and only where the template renders to the
+        # same string, in the reference's order
+        want = reference_treedef(template) if from_reference else None
+        if want is None or spec.get("treedef") != want:
+            raise ValueError(
+                f"{final} has no leaf paths (a checkpoint of the JAX package, "
+                f"which records {'a treedef' if 'treedef' in spec else 'none'}"
+                + ("" if want is None else f" other than the template's {want!r}")
+                + "); carry a reference state across with repro_torch.convert's "
+                "*_state_from_numpy instead")
     t_paths = [p for p, _ in tree_paths(template)]
     if len(t_paths) != spec["n_leaves"]:
         raise ValueError(
             f"checkpoint has {spec['n_leaves']} leaves, template {len(t_paths)}"
         )
-    if spec["paths"] != t_paths:
+    if not reference and spec["paths"] != t_paths:
         bad = next(i for i, (a, b) in enumerate(zip(spec["paths"], t_paths)) if a != b)
         raise ValueError(f"tree mismatch at leaf {bad}: checkpoint "
                          f"{spec['paths'][bad]!r}, template {t_paths[bad]!r}")
@@ -168,7 +180,52 @@ def restore(path: str, template: Tree, step: int | None = None) -> tuple[Tree, d
             return _from_host(a, dtype).to(device=tmpl.device, dtype=tmpl.dtype)
         return a.astype(np.asarray(tmpl).dtype)
 
-    return tree_map(put, template), spec["meta"]
+    fill = _map_sorted if reference else tree_map
+    return fill(put, template), spec["meta"]
+
+
+# ------------------------------------------------- the JAX package's trees
+def reference_treedef(tree: Tree) -> str:
+    """``str(jax.tree.structure(tree))`` of the JAX package's counterpart
+    of ``tree``: dicts with sorted keys, lists, tuples, and the dataclasses
+    that name their reference node (``reference_node``, e.g. the
+    optimizer state's ``"namedtuple[AdamWState]"``); a leaf is ``*``.
+    Raises ``ValueError`` for a node with no reference form."""
+    def render(x) -> str:
+        if x is None:
+            return "None"
+        if isinstance(x, dict):
+            return "{" + ", ".join(f"{k!r}: {render(x[k])}" for k in sorted(x)) + "}"
+        if isinstance(x, list):
+            return "[" + ", ".join(render(v) for v in x) + "]"
+        if isinstance(x, tuple):
+            body = ", ".join(render(v) for v in x)
+            return f"({body},)" if len(x) == 1 else f"({body})"
+        node = getattr(type(x), "reference_node", None)
+        if node is not None:
+            kids = ", ".join(render(getattr(x, n)) for n in type(x)._data_fields)
+            return f"CustomNode({node}, [{kids}])"
+        if hasattr(type(x), "_data_fields"):
+            raise ValueError(f"{type(x).__name__} has no reference pytree node")
+        return "*"
+
+    return f"PyTreeDef({render(tree)})"
+
+
+def _map_sorted(fn, tree: Tree) -> Tree:
+    """``tree_map(fn, tree)`` visiting the leaves in the JAX package's
+    flatten order (dict keys sorted); the structure is ``tree``'s own."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        done = {k: _map_sorted(fn, tree[k]) for k in sorted(tree)}
+        return {k: done[k] for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_sorted(fn, v) for v in tree)
+    if hasattr(type(tree), "_data_fields"):
+        return tree.replace(**{n: _map_sorted(fn, getattr(tree, n))
+                               for n in type(tree)._data_fields})
+    return fn(tree)
 
 
 def _gc(path: str, keep_last: int) -> None:
@@ -179,4 +236,4 @@ def _gc(path: str, keep_last: int) -> None:
         shutil.rmtree(os.path.join(path, d))
 
 
-__all__ = ["latest_step", "restore", "save", "save_async"]
+__all__ = ["latest_step", "reference_treedef", "restore", "save", "save_async"]

@@ -1,6 +1,7 @@
 """The LM kernels against their plain versions on the card: the checks
-``chip_smoke.py`` (phases ``lm-small``, ``rg-full``, ``xl-full``) and the
-``cuda`` tests of ``tests/test_torch_kernel.py`` share.
+``chip_smoke.py`` (phases ``lm-small``, ``rg-full``, ``xl-full``,
+``train-small``, ``train-full``) and the ``cuda`` tests of
+``tests/test_torch_kernel.py`` and ``tests/test_torch_train_cuda.py`` share.
 
 Every check runs the kernel and its plain version on the same CUDA inputs
 and raises ``AssertionError`` unless they agree within the stated
@@ -15,9 +16,20 @@ tolerance; it returns the largest absolute difference.  Tolerances:
     differs in its last bits, which can move the bf16 result by one ulp);
   * the sLSTM over thousands of steps: relative and absolute 1e-4, since a
     step's rounding is carried through every later step.
+
+The gradient checks (``compare_*_grads``) run one ``Function`` of
+``kernels/ops.py`` twice on the same CUDA inputs and output gradients:
+its kernel forward (the kernel path; the RG-LRU's backward launches the
+kernel too) and its plain forward (:func:`plain_forward`), with the same
+backward code.  Each input's gradient must agree: for f32 inputs (and
+f32 R) within ``GRAD_TOL_F32`` of the largest magnitude of the plain
+path's gradient, for bf16 inputs or R within ``GRAD_TOL_BF16`` of it
+(the kernel's bf16 ``o`` may sit one ulp from the plain version's, and
+``delta = sum(do o)`` and the rounded sLSTM cotangents carry that).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -217,3 +229,145 @@ def slstm_inputs(case, seed: int = 0, device="cuda"):
 
 def check_slstm(case, seed: int = 0) -> float:
     return compare_slstm(*slstm_inputs(case, seed))
+
+
+# ------------------------------------------------------------ gradients
+#: Gradient tolerances, as a share of the plain path's largest magnitude.
+GRAD_TOL_F32 = 1e-4
+GRAD_TOL_BF16 = 2e-2
+#: (B, Hq, Hkv, T, D, causal, window, dtype) of ``train-small``'s flash checks.
+FLASH_GRAD_CASES = ((1, 4, 2, 128, 32, True, None, torch.float32),
+                    (2, 4, 2, 256, 32, True, 40, torch.float32),
+                    (1, 4, 1, 256, 64, True, 96, torch.bfloat16),
+                    (2, 2, 2, 128, 128, False, None, torch.bfloat16))
+#: (B, T, D, with h0) of its RG-LRU checks (f32, as the model runs it).
+RGLRU_GRAD_CASES = ((1, 256, 256, True), (2, 512, 256, False), (2, 128, 64, True))
+#: (B, T, d, H, R dtype, carry) of its sLSTM checks.
+SLSTM_GRAD_CASES = ((2, 64, 64, 4, torch.float32, "random"),
+                    (2, 64, 64, 4, torch.bfloat16, "zero"),
+                    (4, 32, 768, 4, torch.bfloat16, "zero"))
+
+
+@contextlib.contextmanager
+def plain_forward():
+    """Inside, the kernel modules' dispatchers send CUDA tensors to their
+    plain versions: the ``Function``s' plain path on the card, for the
+    gradient checks only."""
+    saved = (fa.flash_attention, rg.rglru_scan, sl.slstm_scan)
+    fa.flash_attention = fa.flash_attention_ref
+    rg.rglru_scan = rg.rglru_scan_ref
+    sl.slstm_scan = sl.slstm_scan_ref
+    try:
+        yield
+    finally:
+        fa.flash_attention, rg.rglru_scan, sl.slstm_scan = saved
+
+
+def assert_grads_close(got, want, name: str, bf16: bool) -> float:
+    """|got - want| <= tol * max|want| (``GRAD_TOL_BF16`` or ``_F32``),
+    both finite; returns the largest absolute difference."""
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        raise AssertionError(f"{name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+    if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+        raise AssertionError(f"{name}: a gradient is not finite")
+    err = (g - w).abs().max().item()
+    tol = (GRAD_TOL_BF16 if bf16 else GRAD_TOL_F32) * w.abs().max().item()
+    if err > tol:
+        raise AssertionError(f"{name}: max |diff| {err:.3e} > {tol:.3e}")
+    return err
+
+
+def _both_paths(fn, inputs: list, grads_out):
+    """(outputs, input gradients) of ``fn(*inputs)`` by the kernel path and
+    by the plain path, each from fresh leaves of the same values."""
+    def run():
+        leaves = [None if x is None else x.detach().clone().requires_grad_(True)
+                  for x in inputs]
+        outs = fn(*leaves)
+        used = [x for x in leaves if x is not None]
+        grads = torch.autograd.grad(outs, used, grads_out)
+        return [o.detach() for o in outs], grads
+
+    kernel = run()
+    with plain_forward():
+        plain = run()
+    torch.cuda.synchronize()
+    return kernel, plain
+
+
+def compare_flash_grads(q, k, v, do, *, causal=True, window=None, sm_scale=None) -> float:
+    """``FlashFn``'s kernel path against its plain path: o, dq, dk, dv."""
+    from . import ops
+
+    fn = lambda q_, k_, v_: (ops.flash_attention(  # noqa: E731
+        q_, k_, v_, causal=causal, window=window, sm_scale=sm_scale),)
+    before = fa.launches
+    (o_k, g_k), (o_p, g_p) = _both_paths(fn, [q, k, v], (do,))
+    if fa.launches != before + 1:
+        raise AssertionError(f"flash_attention: {fa.launches - before} kernel launches "
+                             "in the kernel path, expected 1")
+    bf16 = q.dtype == torch.bfloat16
+    (assert_bf16_close if bf16 else assert_close)(o_k[0], o_p[0], "flash_attention o")
+    return max(assert_grads_close(a, b, f"flash_attention d{n}", bf16)
+               for n, a, b in zip("qkv", g_k, g_p))
+
+
+def compare_rglru_grads(x, a, h0, dh, dh_last) -> float:
+    """``RglruFn``'s kernel path (the forward and the backward's reverse
+    scan both launch the kernel) against its plain path: dx, da, dh0."""
+    from . import ops
+
+    before = rg.launches
+    (_, g_k), (_, g_p) = _both_paths(lambda *t: ops.rglru(*t), [x, a, h0], (dh, dh_last))
+    if rg.launches != before + 2:
+        raise AssertionError(f"rglru_scan: {rg.launches - before} kernel launches in "
+                             "the kernel path, expected 2")
+    return max(assert_grads_close(a_, b_, f"rglru d{n}", x.dtype == torch.bfloat16)
+               for n, a_, b_ in zip(("x", "a", "h0"), g_k, g_p))
+
+
+def compare_slstm_grads(r, pre, carry0, dhs, dfinal) -> float:
+    """``SlstmFn``'s kernel path against its plain path: dR by gate, dpre
+    and dcarry0."""
+    from . import ops
+
+    def fn(r_i, r_f, r_z, r_o, pre_, c0, n0, h0, m0):
+        hs, _, fin = ops.slstm_scan(dict(zip(sl.GATES, (r_i, r_f, r_z, r_o))), pre_,
+                                    (c0, n0, h0, m0))
+        return (hs, *fin)
+
+    before = sl.launches
+    (_, g_k), (_, g_p) = _both_paths(fn, [r[g] for g in sl.GATES] + [pre, *carry0],
+                                     (dhs, *dfinal))
+    if sl.launches != before + 1:
+        raise AssertionError(f"slstm_scan: {sl.launches - before} kernel launches in "
+                             "the kernel path, expected 1")
+    bf16 = r["i"].dtype == torch.bfloat16
+    names = [f"dR_{g}" for g in sl.GATES] + ["dpre", "dc0", "dn0", "dh0", "dm0"]
+    return max(assert_grads_close(a_, b_, f"slstm {n}", bf16)
+               for n, a_, b_ in zip(names, g_k, g_p))
+
+
+def check_flash_grads(case, seed: int = 0) -> float:
+    B, Hq, Hkv, T, D, causal, window, dtype = case
+    rng = _gen(seed)
+    q, k, v, do = (_t(rng.randn(B, h, T, D), dtype) for h in (Hq, Hkv, Hkv, Hq))
+    return compare_flash_grads(q, k, v, do, causal=causal, window=window)
+
+
+def check_rglru_grads(case, seed: int = 0) -> float:
+    B, T, D, with_h0 = case
+    rng = _gen(seed)
+    x = _t(rng.randn(B, T, D))
+    a = _t(rng.uniform(0.3, 0.999, (B, T, D)))
+    h0 = _t(rng.randn(B, D)) if with_h0 else None
+    return compare_rglru_grads(x, a, h0, _t(rng.randn(B, T, D)), _t(rng.randn(B, D)))
+
+
+def check_slstm_grads(case, seed: int = 0) -> float:
+    r, pre, carry0 = slstm_inputs(case, seed)
+    rng = _gen(seed + 1)
+    B, T, _, d = pre.shape
+    return compare_slstm_grads(r, pre, carry0, _t(rng.randn(B, T, d)),
+                               [_t(rng.randn(B, d)) for _ in range(4)])

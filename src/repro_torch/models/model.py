@@ -1,5 +1,5 @@
-"""Model assembly, as ``repro.models.model``: init, full-sequence forward,
-prefill and one-token decode.
+"""Model assembly, as ``repro.models.model``: init, full-sequence forward
+(differentiable), the training loss, prefill and one-token decode.
 
 A model is a list of *segments*, each (pattern, n_stages): ``pattern`` is a
 tuple of layer kinds (e.g. ('rglru', 'rglru', 'attn_local')) and the
@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from . import layers as L
@@ -157,20 +158,53 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
+def _stage_fwd(cfg: ModelConfig, pattern: tuple, stage_p: tuple, x, aux_total,
+               positions):
+    """One stage (a pass over ``pattern``) -> (x, aux_total)."""
+    for p, kind in zip(stage_p, pattern):
+        x, _, aux = _layer_fwd(p, cfg, kind, x, positions, None)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
 def forward(params: dict, cfg: ModelConfig, inputs):
     """Full-sequence forward over token ids (B, S) or embeddings (B, S, d)
     -> (logits (B, S, vocab) f32, the MoE aux loss summed over the layers
-    () f32)."""
+    () f32).  With ``cfg.remat`` and grad enabled each stage runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    stage body): its activations are recomputed in the backward, not
+    kept; the gradients are the same."""
     x = _inputs(params, cfg, inputs)
     positions = _positions(*x.shape[:2], x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for (pattern, n_stages), seg in zip(segments_of(cfg), params["segments"]):
         for s in range(n_stages):
-            for i, kind in enumerate(pattern):
-                x, _, aux = _layer_fwd(_at(seg[i], s), cfg, kind, x, positions, None)
-                if aux is not None:
-                    aux_total = aux_total + aux
+            stage_p = tuple(_at(layer, s) for layer in seg)
+            if remat:
+                x, aux_total = checkpoint(_stage_fwd, cfg, pattern, stage_p, x,
+                                          aux_total, positions, use_reentrant=False)
+            else:
+                x, aux_total = _stage_fwd(cfg, pattern, stage_p, x, aux_total, positions)
     return _logits(params, cfg, x), aux_total
+
+
+# ----------------------------------------------------------------- loss
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+    """The reference's training loss: the mean f32 next-token NLL by
+    logsumexp, plus ``z_loss`` 1e-4 mean(logz^2) and 0.01 x the MoE aux
+    loss.  ``batch``: {"inputs": token ids (B, S) or embeddings (B, S, d),
+    "labels": (B, S) ints}.  Returns (loss, {"nll", "z_loss", "moe_aux"}),
+    each () f32."""
+    logits, aux = forward(params, cfg, batch["inputs"])
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    nll = (logz - ll).mean()
+    z_loss = 1e-4 * (logz ** 2).mean()
+    loss = nll + z_loss + 0.01 * aux
+    return loss, {"nll": nll, "z_loss": z_loss, "moe_aux": aux}
 
 
 # ----------------------------------------------------------------- decode

@@ -1,5 +1,5 @@
 """Recurrent time-mixing blocks, as ``repro.models.recurrent``: the RG-LRU
-(Griffin / RecurrentGemma), the mLSTM and the sLSTM (xLSTM), forward only.
+(Griffin / RecurrentGemma), the mLSTM and the sLSTM (xLSTM), differentiable.
 
 Each block has
   *_init(gen, lead, cfg, dtype, device) -> params (leading dims ``lead``)

@@ -18,6 +18,7 @@ from repro_torch.core.struct import tree_paths
 from repro_torch.hw.manycore import CoreParams, ManycoreCell, make_core_params
 from repro_torch.hw.systolic import SystolicCell, make_cell_params, make_systolic_network
 from repro_torch.launch.serve import serve
+from repro_torch.launch.train import train
 from repro_torch.models import model as lm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -58,11 +59,13 @@ def test_scan_sees_the_package():
             "report.py", "checkpointing.py", "perfmodel.py",
             "torch_quickstart.py", "shmem.py", "worker.py", "launcher.py",
             "fault_tolerance.py", "bridge.py", "fleet.py", "telemetry.py",
-            "drift.py"} <= names
+            "drift.py", "optimizer.py", "grad_compression.py", "pipeline.py",
+            "steps.py", "train.py", "torch_train_pipeline.py"} <= names
     scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/runtime/bridge.py", "src/repro_torch/runtime/fleet.py",
             "src/repro_torch/obs/telemetry.py", "src/repro_torch/obs/drift.py"} <= scanned
-    assert {"obs", "checkpoint", "core", "runtime"} <= {p.parent.name for p in PORT_FILES}
+    assert {"obs", "checkpoint", "core", "runtime", "optim", "data"} <= {
+        p.parent.name for p in PORT_FILES}
     assert {"flash_attention.cu", "rglru_scan.cu", "slstm_scan.cu"} <= {
         p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
@@ -120,7 +123,7 @@ def test_procs_engine_defaults_to_cuda(monkeypatch):
 
 
 def test_lm_entry_points_default_to_cuda():
-    """``serve``, ``init_params``, ``lm_params_from_numpy`` and
+    """``serve``, ``train``, ``init_params``, ``lm_params_from_numpy`` and
     ``lm_state_from_numpy`` run on CUDA unless told ``device="cpu"``; without
     CUDA the default raises."""
     cfg = get_config("xlstm-125m", smoke=True)
@@ -130,6 +133,8 @@ def test_lm_entry_points_default_to_cuda():
     makers = [
         lambda **kw: serve("xlstm-125m", smoke=True, batch=1, prompt_len=8, gen=2,
                            verbose=False, **kw)["tokens"],
+        lambda **kw: train("xlstm-125m", smoke=True, steps=1, batch=1, seq=8,
+                           verbose=False, **kw)["losses"],
         lambda **kw: lm.init_params(cfg, 0, **kw)["embed"],
         lambda **kw: lm_params_from_numpy(cfg, arrays, **kw)["embed"],
         lambda **kw: lm_state_from_numpy(cfg, states, **kw)[0][1]["m"],
