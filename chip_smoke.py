@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-Twelve paths, each through the entry points a user calls:
+Thirteen paths, each through the entry points a user calls:
 
   * the paper's wafer-scale torus: 1024x1024 ``ManycoreCell`` cores running
     a two-phase ring allreduce, partitioned over 2 pods x 2x2 granules with
@@ -75,7 +75,14 @@ Twelve paths, each through the entry points a user calls:
     4), then recurrentgemma-2b and xlstm-125m, every flash, RG-LRU and
     sLSTM call through its ``torch.autograd.Function``
     (``kernels/ops.py``): the Hopper kernel forward, the reference's
-    backward in torch ops (the RG-LRU's reverse scan a kernel launch).
+    backward in torch ops (the RG-LRU's reverse scan a kernel launch);
+  * the XLA-only tooling's counterparts: ``launch.dryrun.run_lm_cell`` on
+    the card (``launch.steps.cell_step``: the eager train, prefill and
+    decode steps of a cell) for llama3.2-1b's ``train_4k``, ``prefill_32k``
+    and ``decode_32k`` at its published widths, counted by
+    ``launch.op_analysis`` (flash attention reporting its plain version's
+    work), ``run_manycore`` on the card, and the ``single``/``multi``
+    tables of every cell through ``launch.report``.
 
 Phases (a failing phase raises, and the script exits non-zero):
 
@@ -441,7 +448,23 @@ Phases (a failing phase raises, and the script exits non-zero):
              2,048, 2 steps) the same way.  Each kernel's first call with
              grad: kernel path against plain path, the forward's times and
              bound, the backward's time beside the plain backward (autograd
-             through the plain version).
+             through the plain version) and ``scaled_dot_product_attention``'s
+             backward (flash).
+  28. dryrun-full  the dry-run on the card (``launch.dryrun``): llama3.2-1b
+             ``train_4k`` at published widths, batch 4 (train-full's), the
+             launch counts set to 0 just before and read just after: the
+             arguments' bytes predicted from the specs equal to the bytes
+             its params, moments and batch take on the card, the step timed
+             beside train-full's, the op counts' roofline terms,
+             ``dominant`` and ``useful_ratio``; ``prefill_32k`` and
+             ``decode_32k`` at the batches the card holds (``reduced``);
+             the counts through the kernels equal to those through their
+             plain versions (``lm_checks.count_paths``; FLOPs exactly,
+             bytes beside) at 2-layer cuts of llama3.2-1b ``train_4k``,
+             recurrentgemma-2b ``prefill_32k`` and xlstm-125m prefill;
+             ``run_manycore`` on the card; every record rendered through
+             ``launch.report`` with the ``single``/``multi`` records of all
+             10 architectures x 4 shapes and the manycore grid.
 
 After the last phase the script stops the forkserver and resource tracker
 the fleets started and checks that no process of the run is left (every one
@@ -463,6 +486,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --phases build,lm-small,lm-dense,rg-full,xl-full
     python3 chip_smoke.py --phases build,lm-small,lm-fam,moe-full,emb-full
     python3 chip_smoke.py --phases build,train-small,train-full
+    python3 chip_smoke.py --phases build,dryrun-full
 """
 from __future__ import annotations
 
@@ -489,7 +513,7 @@ PHASES = ("build", "small", "full", "sys-small", "sys-full", "fsys-small",
           "fsys-full", "fused-io", "graph-small", "graph-full", "session-small", "session-full",
           "mesh-small", "mesh-full", "procs-small", "procs-full", "fleet-small",
           "fleet-full", "lm-small", "lm-dense", "rg-full", "xl-full", "lm-fam",
-          "moe-full", "emb-full", "train-small", "train-full")
+          "moe-full", "emb-full", "train-small", "train-full", "dryrun-full")
 
 
 def log(msg: str) -> None:
@@ -2703,7 +2727,7 @@ def moe_drops(tag: str, cfg, call) -> None:
     import torch
     from repro_torch.models import moe
 
-    (p, _, x), _ = call
+    (p, _, x, *_), _ = call
     mc = cfg.moe
     idx, gates, _, slot, keep, cap = moe.dispatch(p, mc, x)
     B, S, d = x.shape
@@ -3041,11 +3065,13 @@ def train_kernel_row(tag: str, name: str, args: list, kw: dict) -> dict:
     phases take them, and the backward's time on the kernel path beside
     the plain backward (autograd through the plain version)."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lm_checks as lc
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import slstm_scan as sl
+    from repro_torch.kernels.ref import attention_mask
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     rand = lambda x: torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)  # noqa: E731
@@ -3059,6 +3085,11 @@ def train_kernel_row(tag: str, name: str, args: list, kw: dict) -> dict:
         kern = lambda *t: ops.flash_attention(*t, **mkw)  # noqa: E731
         plain = lambda *t: fa.flash_attention_ref(*t, **mkw)  # noqa: E731
         inputs, gout = [q, k, v], (do,)
+        mask = (attention_mask(q.shape[2], k.shape[2], mkw["causal"], mkw["window"],
+                               q.device) if mkw["window"] is not None else None)
+        library = lambda *t: F.scaled_dot_product_attention(  # noqa: E731
+            *t, attn_mask=mask, is_causal=mkw["causal"] and mask is None,
+            scale=mkw["sm_scale"], enable_gqa=True)
         pairs = attention_pairs(q.shape[2], k.shape[2], mkw["causal"], mkw["window"])
         bwd_flop = 7 * 2 * pairs * q.shape[0] * q.shape[1] * q.shape[3]
         # q, k, v, o, do and lse read; dq, dk, dv written
@@ -3066,6 +3097,7 @@ def train_kernel_row(tag: str, name: str, args: list, kw: dict) -> dict:
         shape = f"q {tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype}, {mkw}"
         reps = 3
     elif name == "rglru_scan":
+        library = None
         x, a, h0 = args[:3]
         dh, dlast = rand(x), rand(x[:, 0])
         err = lc.compare_rglru_grads(x, a, h0, dh, dlast)
@@ -3101,20 +3133,25 @@ def train_kernel_row(tag: str, name: str, args: list, kw: dict) -> dict:
         bwd_bytes = 2 * nbytes(pre) + 5 * 4 * B * T * d + 2 * nbytes(*rs)
         shape = f"pre {tuple(pre.shape)}, R {H}x({hd}, {hd}) {r['i'].dtype}"
         reps = 1
+        library = None
     bwd_ms = time_backward(kern, inputs, gout, reps)
     plain_bwd_ms = time_backward(plain, inputs, gout, max(1, reps - 1))
+    library_bwd_ms = None if library is None else time_backward(library, inputs, gout, reps)
     bwd_bound, bwd_by = bound(bwd_bytes, bwd_flop, F32_OPS_PER_S)
     log(f"[{tag}] {name} at the train step's first call, {shape}: kernel path == plain "
         f"path (every input's gradient, max |diff| {err:.3e}); forward {fwd['ms']:.4f} ms "
         f"(plain {fwd['plain_ms']:.4f}, bound {fwd['bound_ms']:.4f}, {fwd['bound_by']}); "
         f"backward (torch ops) {bwd_ms:.4f} ms against its bound {bwd_bound:.4f} ms "
         f"({bwd_by}: {bwd_flop:.4e} f32 flop, {bwd_bytes} B); the plain backward "
-        f"(autograd through the plain version) {plain_bwd_ms:.4f} ms")
+        f"(autograd through the plain version) {plain_bwd_ms:.4f} ms"
+        + ("" if library_bwd_ms is None else
+           f"; scaled_dot_product_attention's backward (same mask, enable_gqa) "
+           f"{library_bwd_ms:.4f} ms"))
     return dict(max_abs_err=fwd["max_abs_err"], grad_max_abs_err=err, ms=fwd["ms"],
                 plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
                 bound_by=fwd["bound_by"], library_ms=fwd["library_ms"], bwd_ms=bwd_ms,
-                plain_bwd_ms=plain_bwd_ms, bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
-                shape=shape)
+                plain_bwd_ms=plain_bwd_ms, library_bwd_ms=library_bwd_ms,
+                bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by, shape=shape)
 
 
 def _slstm_outs(scan, t):
@@ -3271,6 +3308,163 @@ def phase_train_full(rows: dict) -> None:
             rows.setdefault(name, {})[arch] = dict(row, launches=launches[name])
             torch.cuda.empty_cache()
         del captured
+
+
+# ------------------------------------------------------------ the dry-run
+DRYRUN_ARCH = "llama3.2-1b"
+PR26_STEP_S = 2.7576  # train-full's llama step, PR 26 (PERF.md; H100 80GB HBM3, 700 W)
+#: count_paths' cells: (arch, shape, layers, batch, sequence cut or None).
+#: The xlstm prefill's sequence is cut to 1,024: its plain path runs the
+#: sLSTM's ~90 aten ops a step under the counter's Python modes.
+COUNT_CELLS = (("llama3.2-1b", "train_4k", 2, 1, None),
+               ("recurrentgemma-2b", "prefill_32k", 2, 1, None),
+               ("xlstm-125m", "prefill_32k", 2, 1, 1024))
+COUNT_KERNELS = {"llama3.2-1b": "flash_attention", "recurrentgemma-2b": "rglru_scan",
+                 "xlstm-125m": "slstm_scan"}
+
+
+def dryrun_line(rec: dict, card: str) -> str:
+    mem = rec["memory_analysis"]
+    peak = mem.get("peak_bytes")
+    return (f"batch {rec.get('batch', '-')} (reduced: {rec.get('reduced') or 'nothing'}); "
+            f"build {rec['build_s']:.3f} s, step {rec['step_s']:.4f} s on {card}; "
+            f"arguments predicted {mem['argument_size_in_bytes']} B, allocated "
+            f"{mem['argument_allocated_bytes']} B; peak "
+            f"{'-' if peak is None else f'{peak / 2**30:.2f} GiB'}; counted "
+            f"{rec['hlo_flops']:.6e} flop, {rec['hlo_bytes_per_chip']:.6e} B over "
+            f"{rec['ops']} aten ops (kernel reports {rec.get('kernels', {})}); terms "
+            f"compute {rec['compute_s']:.6f} s, memory {rec['memory_s']:.6f} s, "
+            f"collective {rec['collective_s']} s at 989 TFLOP/s and 3.35 TB/s: dominant "
+            f"{rec['dominant']}, model flops {rec['model_flops']:.6e}, useful_ratio "
+            f"{rec['useful_ratio']:.6f}")
+
+
+def phase_dryrun_full() -> None:
+    """``launch.dryrun`` on the card: llama3.2-1b's three cells through
+    ``run_lm_cell`` (the launch counts set to 0 just before each and read
+    just after), the counts through the kernels against those through
+    their plain versions, ``run_manycore``, and every record rendered
+    through ``launch.report``."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.configs.registry import ARCH_IDS, SHAPES, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lm_checks as lc
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import slstm_scan as sl
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import report as R
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding.partition import Strategy
+
+    tag = "dryrun-full"
+    card = nvidia_smi()
+    mods = {"flash_attention": fa, "rglru_scan": rg, "slstm_scan": sl}
+    cfg = get_config(DRYRUN_ARCH)
+    n_attn = sum(k in M.ATTN_KINDS for pattern, n in M.segments_of(cfg) for k in pattern * n)
+    fwd = 2 if cfg.remat else 1
+    with tempfile.TemporaryDirectory() as out_dir:
+        # the first batch tried: train-full's for train_4k; prefill_32k's 32
+        # rows need ~115 GB of activations, so its search starts at 16
+        for shape, batch in (("train_4k", TRAIN_FULL[DRYRUN_ARCH][0]), ("prefill_32k", 16),
+                             ("decode_32k", None)):
+            torch.cuda.empty_cache()
+            for mod in mods.values():
+                mod.launches = 0
+            t0 = time.perf_counter()
+            rec = D.run_lm_cell(DRYRUN_ARCH, shape, "card", batch=batch)
+            launches = {n: m.launches for n, m in mods.items()}
+            if rec["status"] != "ok":
+                raise AssertionError(f"[{tag}] {shape}: {rec.get('error') or rec.get('reason')}"
+                                     f"\n{rec.get('trace', '')}")
+            D.save(rec, out_dir)
+            mem = rec["memory_analysis"]
+            step = SHAPES[shape].step
+            want = {"train": {"flash_attention": fwd * n_attn},
+                    "prefill": {"flash_attention": n_attn}, "decode": {}}[step]
+            if rec["kernels"] != want:
+                raise AssertionError(f"[{tag}] {shape}: the counted run's kernel reports "
+                                     f"{rec['kernels']}, expected {want}")
+            if step == "train":
+                if mem["argument_size_in_bytes"] != mem["argument_allocated_bytes"]:
+                    raise AssertionError(f"[{tag}] train_4k: predicted argument bytes "
+                                         f"{mem['argument_size_in_bytes']} != allocated "
+                                         f"{mem['argument_allocated_bytes']}")
+                if launches != {"flash_attention": 2 * fwd * n_attn, "rglru_scan": 0,
+                                "slstm_scan": 0}:
+                    raise AssertionError(f"[{tag}] train_4k: launches {launches}")
+            elif launches["flash_attention"] < (step == "prefill") * 2 * n_attn:
+                raise AssertionError(f"[{tag}] {shape}: launches {launches}")
+            log(f"[{tag}] {DRYRUN_ARCH} {shape} on the card ({time.perf_counter() - t0:.1f} s, "
+                f"launches {launches}): " + dryrun_line(rec, card)
+                + (f"; train-full's step (PR 26) {PR26_STEP_S} s, this step "
+                   f"{rec['step_s'] / PR26_STEP_S:.3f}x it; predicted == allocated argument "
+                   f"bytes" if step == "train" else
+                   f"; decode's position is a host int here, 4 B in the reference's "
+                   f"arguments" if step == "decode" else ""))
+            del rec
+        for arch, shape_name, layers, batch, seq in COUNT_CELLS:
+            ccfg = dataclasses.replace(get_config(arch), n_layers=layers)
+            cshape = SHAPES[shape_name]
+            if seq is not None:
+                cshape = dataclasses.replace(cshape, seq_len=seq)
+
+            def run(ccfg=ccfg, cshape=cshape, batch=batch):
+                fn, args, _ = S.cell_step(ccfg, cshape, make_host_mesh(), Strategy(), "cuda",
+                                          batch=batch)
+                fn(*args)
+                torch.cuda.synchronize()
+
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            kern, plain = lc.count_paths(run)
+            name = COUNT_KERNELS[arch]
+            layout = lc.flash_layout_bytes(ccfg, batch, cshape.seq_len, kern)
+            if (kern.flops != plain.flops or name not in kern.kernels or plain.kernels
+                    or kern.bytes - plain.bytes != layout):
+                raise AssertionError(
+                    f"[{tag}] {arch} {shape_name}: through the kernels {kern.flops} flop, "
+                    f"{kern.bytes} B (reports {kern.kernels}), through the plain versions "
+                    f"{plain.flops} flop, {plain.bytes} B; o's layout copies {layout} B")
+            log(f"[{tag}] counts of {arch} {shape_name} ({layers}-layer cut, batch {batch}, "
+                f"sequence {cshape.seq_len}{' (cut)' if seq else ''}) with use_kernels=True "
+                f"through the kernels (reports {kern.kernels}) == through their plain "
+                f"versions: {kern.flops} flop each; bytes {kern.bytes} and {plain.bytes}, "
+                f"the difference {kern.bytes - plain.bytes} the copies of flash's "
+                f"(B, H, T, D) output into the layer's (B, T, H, D) order (one a call, "
+                f"after the kernel only); aten ops {kern.ops} and {plain.ops} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec = D.run_manycore("card")
+        if rec["status"] != "ok":
+            raise AssertionError(f"[{tag}] manycore: {rec.get('error')}\n{rec.get('trace', '')}")
+        D.save(rec, out_dir)
+        mem = rec["memory_analysis"]
+        log(f"[{tag}] manycore {rec['shape']} on GridEngine, one shard on the card "
+            f"({time.perf_counter() - t0:.1f} s): build {rec['build_s']:.3f} s, "
+            f"an epoch ({rec['step_kind']}) {rec['step_s']:.4f} s on {card}; state "
+            f"{mem['argument_size_in_bytes']} B, peak {mem['peak_bytes'] / 2**30:.2f} GiB; "
+            f"counted {rec['hlo_bytes_per_chip']:.6e} B over {rec['ops']} aten ops, memory "
+            f"term {rec['memory_s']:.6f} s")
+        t0 = time.perf_counter()
+        for arch in ARCH_IDS:
+            for mk in ("single", "multi"):
+                recs = ([D.run_manycore(mk)] if arch == "manycore" else
+                        [D.run_lm_cell(arch, shape, mk) for shape in SHAPES])
+                for r in recs:
+                    if r["status"] == "error":
+                        raise AssertionError(f"[{tag}] {arch} {r['shape']} {mk}: {r['error']}")
+                    D.save(r, out_dir)
+        log(f"[{tag}] single and multi records of 10 architectures x 4 shapes and the "
+            f"manycore grid in {time.perf_counter() - t0:.1f} s; launch.report:")
+        for line in (R.dryrun_table(out_dir) + "\n\n" + R.roofline_table("card", out_dir)
+                     ).splitlines():
+            log(f"[{tag}] {line}")
 
 
 # ------------------------------------------------------------ session surface
@@ -5491,7 +5685,8 @@ def main(argv=None) -> int:
                        ("moe-full", lambda: phase_moe_full(lm_paths)),
                        ("emb-full", lambda: phase_emb_full(lm_paths)),
                        ("train-small", phase_train_small),
-                       ("train-full", lambda: phase_train_full(train_rows))):
+                       ("train-full", lambda: phase_train_full(train_rows)),
+                       ("dryrun-full", phase_dryrun_full)):
         if phase in phases:
             t1 = time.perf_counter()
             run()
@@ -5515,7 +5710,7 @@ def main(argv=None) -> int:
                 "library_ms")})
             lm_kernels.append(row)
         row.update(bwd_ms=first["bwd_ms"], plain_bwd_ms=first["plain_bwd_ms"],
-                   train=by_arch)
+                   library_bwd_ms=first["library_bwd_ms"], train=by_arch)
     print(json.dumps({"kernels": [k for k in kernels + lm_kernels if k.get("name")]}),
           flush=True)
     print(nvidia_smi(), flush=True)

@@ -13,7 +13,8 @@ with no visible key gives ``o = 0`` and ``lse = -1e30``.
     version: the same blocked online softmax, block by block;
   * CUDA tensors go to :func:`flash_attention_cuda`, the hand-written
     Hopper kernel ``csrc/flash_attention.cu``, or raise.  Nothing falls
-    back.
+    back.  While an ``obs.op_counts`` counter is active, the launch reports
+    its plain version's counts at the call (:func:`plain_counts`).
 
 The kernel has two routes, chosen by dtype (:func:`route`), with no
 fallback between them:
@@ -27,10 +28,12 @@ fallback between them:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
+from ..obs import op_counts
 from ..obs.registry import REGISTRY
 from ._build import tensor_ptr
 from .ref import NEG_INF, attention_mask
@@ -120,9 +123,47 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                                    sm_scale=sm_scale, block_q=block_q,
                                    block_k=block_k, return_lse=return_lse)
     if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    sm_scale=sm_scale, return_lse=return_lse)
+        if op_counts.active is None:
+            return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        sm_scale=sm_scale, return_lse=return_lse)
+        run = functools.partial(flash_attention_cuda, q, k, v, causal=causal,
+                                window=window, sm_scale=sm_scale, return_lse=return_lse)
+        return op_counts.kernel("flash_attention", run, lambda: plain_counts(
+            str(q.device), *map(op_counts.signature, (q, k, v)), causal, window,
+            sm_scale, block_q, block_k, return_lse))
     raise ValueError(f"no flash_attention for device {q.device}")
+
+
+@functools.lru_cache(maxsize=256)
+def plain_counts(device: str, q_sig, k_sig, v_sig, causal, window, sm_scale, block_q,
+                 block_k, return_lse) -> op_counts.Counts:
+    """What :func:`flash_attention_ref` counts under ``obs.op_counts`` at a
+    call on ``device`` of these signatures (``op_counts.signature``) and
+    arguments: its runs there at up to 3 x 3 blocks, fitted in the KV
+    blocks, the query blocks and the visible block pairs (each visible
+    pair dispatches the same ops)."""
+    (B, Hq, T, D), (S, Hkv) = q_sig[0], (k_sig[0][2], k_sig[0][1])
+    bq, bk = min(block_q, T), min(block_k, S)
+
+    def pairs(nq: int, nk: int) -> int:
+        return sum(_visible(i * bq, bq, j * bk, bk, causal, window)
+                   for i in range(nq) for j in range(nk))
+
+    def measure(p):
+        nk, nq, _ = p
+        kv = (B, Hkv, nk * bk, D)
+        return op_counts.run_counts(
+            flash_attention_ref, op_counts.like(q_sig, device, (B, Hq, nq * bq, D)),
+            op_counts.like(k_sig, device, kv), op_counts.like(v_sig, device, kv),
+            causal=causal, window=window, sm_scale=sm_scale, block_q=bq, block_k=bk,
+            return_lse=return_lse)
+
+    nq, nk = T // bq, S // bk
+    target = (nk, nq, pairs(nq, nk))
+    if nq <= 2 and nk <= 2:
+        return measure(target)
+    return op_counts.linear_counts(
+        measure, [(j, i, pairs(i, j)) for i in (1, 2, 3) for j in (1, 2, 3)], target)
 
 
 # ------------------------------------------------------------- the kernel

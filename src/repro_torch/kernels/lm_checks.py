@@ -371,3 +371,48 @@ def check_slstm_grads(case, seed: int = 0) -> float:
     B, T, _, d = pre.shape
     return compare_slstm_grads(r, pre, carry0, _t(rng.randn(B, T, d)),
                                [_t(rng.randn(B, d)) for _ in range(4)])
+
+
+# ------------------------------------------------------------- op counts
+@contextlib.contextmanager
+def plain_versions():
+    """Each LM kernel module's dispatcher (``flash_attention``,
+    ``rglru_scan``, ``slstm_scan``) replaced by its plain version on every
+    device while the block runs: the plain path that ``count_paths``
+    holds the kernel path against."""
+    swaps = ((fa, "flash_attention", fa.flash_attention_ref),
+             (rg, "rglru_scan", rg.rglru_scan_ref),
+             (sl, "slstm_scan", sl.slstm_scan_ref))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def count_paths(run):
+    """``obs.op_counts`` counts of ``run()`` through the kernels (on
+    the card each launch reports its plain version's counts) and through
+    the plain versions (:func:`plain_versions`): (kernel path, plain
+    path).  ``run`` builds its own inputs each call."""
+    from ..obs import op_counts
+
+    with op_counts.count() as kernel:
+        run()
+    with plain_versions(), op_counts.count() as plain:
+        run()
+    return kernel, plain
+
+
+def flash_layout_bytes(cfg, batch: int, T: int, kernel_counts) -> int:
+    """The bytes by which a step of ``cfg`` through the kernels counts more
+    than through their plain versions: the kernel writes o in (B, H, T, D)
+    order, the plain version into ``empty_like(q)``, which keeps the
+    layer's (B, T, H, D) memory; so ``attention_fwd``'s ``o.transpose(1,
+    2).reshape(...)`` copies o (read and written) after each kernel call
+    only."""
+    o = batch * cfg.n_heads * T * cfg.head_dim * getattr(torch, cfg.dtype).itemsize
+    return kernel_counts.kernels.get("flash_attention", 0) * 2 * o

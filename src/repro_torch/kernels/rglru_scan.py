@@ -10,7 +10,8 @@ Returns (h (B, T, D), h_last (B, D)) in x's dtype, f32 math.
   * CUDA tensors go to :func:`rglru_scan_cuda`, the hand-written Hopper
     kernel ``csrc/rglru_scan.cu`` (a chunked single-pass scan with
     decoupled look-back; the same h up to rounding), or raise.  Nothing
-    falls back.
+    falls back.  While an ``obs.op_counts`` counter is active, the launch
+    reports its plain version's counts at the call (:func:`plain_counts`).
 
 :func:`rglru_scan` takes the TPU kernel's shape rule (T and D divisible by
 the blocks); :func:`rglru_scan_cuda` takes any B, T, D >= 1.
@@ -23,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs import op_counts
 from ..obs.registry import REGISTRY
 from ._build import tensor_ptr
 from .ref import affine_scan
@@ -69,8 +71,34 @@ def rglru_scan(x, a, h0=None, *, block_t: int = 256, block_d: int = 256):
     if x.device.type == "cpu":
         return rglru_scan_ref(x, a, h0, block_t=block_t, block_d=block_d)
     if x.device.type == "cuda":
-        return rglru_scan_cuda(x, a, h0)
+        if op_counts.active is None:
+            return rglru_scan_cuda(x, a, h0)
+        run = functools.partial(rglru_scan_cuda, x, a, h0)
+        return op_counts.kernel("rglru_scan", run, lambda: plain_counts(
+            str(x.device), *map(op_counts.signature, (x, a, h0)), block_t, block_d))
     raise ValueError(f"no rglru_scan for device {x.device}")
+
+
+@functools.lru_cache(maxsize=256)
+def plain_counts(device: str, x_sig, a_sig, h0_sig, block_t: int,
+                 block_d: int) -> op_counts.Counts:
+    """What :func:`rglru_scan_ref` counts under ``obs.op_counts`` at a call
+    on ``device`` of these signatures (``op_counts.signature``): its
+    runs there at one and two time chunks, fitted in the chunks (each
+    chunk dispatches the same ops)."""
+    B, T, D = x_sig[0]
+    bt = min(block_t, T)
+
+    def measure(p):
+        shape = (B, p[0] * bt, D)
+        like = op_counts.like
+        return op_counts.run_counts(
+            rglru_scan_ref, like(x_sig, device, shape), like(a_sig, device, shape),
+            like(h0_sig, device), block_t=block_t, block_d=block_d)
+
+    if T // bt <= 2:
+        return measure((T // bt,))
+    return op_counts.linear_counts(measure, [(1,), (2,)], (T // bt,))
 
 
 # ------------------------------------------------------------- the kernel

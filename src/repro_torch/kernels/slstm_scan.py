@@ -12,7 +12,9 @@ device:
   * CUDA tensors go to :func:`slstm_scan_cuda`, the hand-written Hopper
     kernel ``csrc/slstm_scan.cu`` (one thread-block cluster per head and
     group of batch rows, R resident in the cluster's shared memory,
-    :func:`cluster_plan`), or raise.  Nothing falls back.
+    :func:`cluster_plan`), or raise.  Nothing falls back.  While an
+    ``obs.op_counts`` counter is active, the launch reports its plain
+    version's counts at the call (:func:`plain_counts`).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..obs import op_counts
 from ..obs.registry import REGISTRY
 from . import ref
 from ._build import SMEM_LIMIT, tensor_ptr
@@ -57,8 +60,35 @@ def slstm_scan(r: dict, pre, carry0: tuple, *, block_t: int = 128):
     if pre.device.type == "cpu":
         return slstm_scan_ref(r, pre, carry0, block_t=block_t)
     if pre.device.type == "cuda":
-        return slstm_scan_cuda(r, pre, carry0)
+        if op_counts.active is None:
+            return slstm_scan_cuda(r, pre, carry0)
+        run = functools.partial(slstm_scan_cuda, r, pre, carry0)
+        sig = op_counts.signature
+        return op_counts.kernel("slstm_scan", run, lambda: plain_counts(
+            str(pre.device), tuple(sig(r[g]) for g in GATES), sig(pre),
+            tuple(map(sig, carry0)), block_t))
     raise ValueError(f"no slstm_scan for device {pre.device}")
+
+
+@functools.lru_cache(maxsize=256)
+def plain_counts(device: str, r_sigs: tuple, pre_sig, carry_sigs: tuple,
+                 block_t: int) -> op_counts.Counts:
+    """What :func:`slstm_scan_ref` counts under ``obs.op_counts`` at a call
+    on ``device`` of these signatures (``op_counts.signature``): its
+    runs there at 2 and 3 steps, fitted in the steps (every step after
+    the first dispatches the same ops), or the call itself where T <= 3."""
+    B, T, four, d = pre_sig[0]
+
+    def measure(p):
+        like = op_counts.like
+        return op_counts.run_counts(
+            slstm_scan_ref, {g: like(s, device) for g, s in zip(GATES, r_sigs)},
+            like(pre_sig, device, (B, p[0], four, d)),
+            tuple(like(s, device) for s in carry_sigs), block_t=block_t)
+
+    if T <= 3:
+        return measure((T,))
+    return op_counts.linear_counts(measure, [(2,), (3,)], (T,))
 
 
 # ------------------------------------------------------------- the kernel

@@ -26,18 +26,24 @@ from ..data.pipeline import PipelineConfig, TokenPipeline
 from ..models import model as M
 from ..optim.optimizer import AdamW
 from ..runtime.fault_tolerance import FailureInjector, Watchdog, run_resumable
+from ..sharding import partition as SP
+from .mesh import mesh_size
 from .steps import make_train_step
 
 
 def make_trainer(cfg, opt, mesh=None, strategy=None):
-    """The train step of ``cfg`` and ``opt``.  A ``mesh`` or ``strategy``
-    (the reference's sharded trainer) raises ``NotImplementedError``: the
-    port's counterpart of ``sharding/partition.py`` is not decided yet."""
-    if mesh is not None or strategy is not None:
+    """The train step of ``cfg`` and ``opt``; with a ``mesh`` and a
+    ``strategy``, with the reference's sharding hook
+    (``sharding.partition.make_constrain``).  A mesh of one device
+    (``launch.mesh.make_host_mesh()``) runs the same step as no mesh; a
+    larger one raises ``NotImplementedError`` (the port runs an LM on one
+    card and has no SPMD partitioner)."""
+    if mesh is not None and mesh_size(mesh) > 1:
         raise NotImplementedError(
-            "a sharded trainer (mesh, strategy): the port has no "
-            "sharding/partition.py yet")
-    return make_train_step(cfg, opt)
+            f"a trainer sharded over {mesh_size(mesh)} devices: the port runs an LM "
+            "on one card and has no SPMD partitioner")
+    constrain = SP.make_constrain(strategy, mesh) if (mesh and strategy) else None
+    return make_train_step(cfg, opt, constrain)
 
 
 def _sync(dev: torch.device) -> None:

@@ -42,12 +42,22 @@ def truncnorm(gen: torch.Generator, shape, scale: float, dtype,
               device) -> torch.Tensor:
     """Normal truncated to [-2, 2] (not renormalized), times ``scale``,
     drawn in f32 from ``gen`` and cast to ``dtype``; a leaf of more than
-    ``DRAW_LIMIT`` elements in slices along its leading dims."""
+    ``DRAW_LIMIT`` elements in slices along its leading dims.  On the
+    ``meta`` device (``gen`` None) nothing is drawn: the leaf's shape and
+    dtype only."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     if math.prod(shape) <= DRAW_LIMIT:
         return _draw(gen, shape, scale, device).to(dtype)
     out = torch.empty(shape, dtype=dtype, device=device)
     _draw_into(out, gen, scale)
     return out
+
+
+def no_constraint(x, kind: str):
+    """The default sharding hook (``sharding.partition.make_constrain``'s
+    place): ``x`` as it is."""
+    return x
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

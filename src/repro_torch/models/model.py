@@ -57,9 +57,12 @@ def _at(tree, s: int):
     return {k: _at(v, s) if isinstance(v, dict) else v[s] for k, v in tree.items()}
 
 
-def _stack(stages: list) -> tuple:
+def _stack(stages: list, empty: tuple) -> tuple:
     """Per-stage tuples of per-layer dicts -> a tuple of stage-stacked
-    dicts."""
+    dicts; ``empty`` (the segment's states, stacked over 0 stages) where
+    there are none, as the reference's scan of length 0 gives them."""
+    if not stages:
+        return empty
     return tuple({k: torch.stack([st[i][k] for st in stages]) for k in stages[0][i]}
                  for i in range(len(stages[0])))
 
@@ -90,10 +93,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (``"cuda"`` by default; raises without CUDA — pass
     ``device="cpu"``).  The JAX package's tree and dtypes; not its numbers
-    (``convert.lm_params_from_numpy`` carries those across)."""
+    (``convert.lm_params_from_numpy`` carries those across).  On
+    ``device="meta"`` nothing is drawn: the tree of shapes and dtypes
+    (``jax.eval_shape`` of the reference's ``init_params``)."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     params: dict = {"embed": L.truncnorm(gen, (cfg.vocab, cfg.d_model), 1.0, dtype, dev)}
     params["segments"] = [
         tuple(_layer_init(gen, (n_stages,), cfg, kind, dtype, dev) for kind in pattern)
@@ -107,16 +112,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
 
 
 # ----------------------------------------------------------------- forward
-def _ffn(p: dict, cfg: ModelConfig, kind: str, x):
+no_constraint = L.no_constraint
+
+
+def _ffn(p: dict, cfg: ModelConfig, kind: str, x, constrain=no_constraint):
     """The layer's MLP or MoE FFN on its pre-norm input -> (out, aux)."""
     if _uses_moe(cfg, kind):
-        return moe_fwd(p["mlp"], cfg, x)
+        return moe_fwd(p["mlp"], cfg, x, constrain)
     return L.mlp_fwd(p["mlp"], x, cfg.hidden_act), None
 
 
-def _layer_fwd(p: dict, cfg: ModelConfig, kind: str, x, positions, state):
+def _layer_fwd(p: dict, cfg: ModelConfig, kind: str, x, positions, state,
+               constrain=no_constraint):
     """One layer over the full sequence.  Returns (x, new_state, aux): the
-    MoE aux loss, or None for a layer without one."""
+    MoE aux loss, or None for a layer without one.  ``constrain`` is the
+    reference's sharding hook (``sharding.partition.make_constrain``), at
+    the reference's points: each residual branch, and the MoE's dispatch
+    and combine buffers."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     new_state, aux = state, None
     if kind in ATTN_KINDS:
@@ -129,10 +141,10 @@ def _layer_fwd(p: dict, cfg: ModelConfig, kind: str, x, positions, state):
         mix, new_state = R.slstm_block_fwd(p["mix"], cfg, h, state)
     else:
         raise ValueError(kind)
-    x = x + mix
+    x = x + constrain(mix, "residual")
     if _has_mlp(cfg, kind):
-        ff, aux = _ffn(p, cfg, kind, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
-        x = x + ff
+        ff, aux = _ffn(p, cfg, kind, L.rmsnorm(p["norm2"], x, cfg.norm_eps), constrain)
+        x = x + constrain(ff, "residual")
     return x, new_state, aux
 
 
@@ -159,23 +171,23 @@ def _positions(B: int, S: int, device):
 
 
 def _stage_fwd(cfg: ModelConfig, pattern: tuple, stage_p: tuple, x, aux_total,
-               positions):
+               positions, constrain=no_constraint):
     """One stage (a pass over ``pattern``) -> (x, aux_total)."""
     for p, kind in zip(stage_p, pattern):
-        x, _, aux = _layer_fwd(p, cfg, kind, x, positions, None)
+        x, _, aux = _layer_fwd(p, cfg, kind, x, positions, None, constrain)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
 
 
-def forward(params: dict, cfg: ModelConfig, inputs):
+def forward(params: dict, cfg: ModelConfig, inputs, constrain=no_constraint):
     """Full-sequence forward over token ids (B, S) or embeddings (B, S, d)
     -> (logits (B, S, vocab) f32, the MoE aux loss summed over the layers
     () f32).  With ``cfg.remat`` and grad enabled each stage runs under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
     stage body): its activations are recomputed in the backward, not
     kept; the gradients are the same."""
-    x = _inputs(params, cfg, inputs)
+    x = constrain(_inputs(params, cfg, inputs), "activation")
     positions = _positions(*x.shape[:2], x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -184,20 +196,22 @@ def forward(params: dict, cfg: ModelConfig, inputs):
             stage_p = tuple(_at(layer, s) for layer in seg)
             if remat:
                 x, aux_total = checkpoint(_stage_fwd, cfg, pattern, stage_p, x,
-                                          aux_total, positions, use_reentrant=False)
+                                          aux_total, positions, constrain,
+                                          use_reentrant=False)
             else:
-                x, aux_total = _stage_fwd(cfg, pattern, stage_p, x, aux_total, positions)
+                x, aux_total = _stage_fwd(cfg, pattern, stage_p, x, aux_total, positions,
+                                          constrain)
     return _logits(params, cfg, x), aux_total
 
 
 # ----------------------------------------------------------------- loss
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, constrain=no_constraint):
     """The reference's training loss: the mean f32 next-token NLL by
     logsumexp, plus ``z_loss`` 1e-4 mean(logz^2) and 0.01 x the MoE aux
     loss.  ``batch``: {"inputs": token ids (B, S) or embeddings (B, S, d),
     "labels": (B, S) ints}.  Returns (loss, {"nll", "z_loss", "moe_aux"}),
     each () f32."""
-    logits, aux = forward(params, cfg, batch["inputs"])
+    logits, aux = forward(params, cfg, batch["inputs"], constrain)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
@@ -231,7 +245,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, device) -> lis
             for pattern, n_stages in segments_of(cfg)]
 
 
-def _layer_decode(p: dict, cfg: ModelConfig, kind: str, x, pos: int, state: dict):
+def _layer_decode(p: dict, cfg: ModelConfig, kind: str, x, pos: int, state: dict,
+                  constrain=no_constraint):
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind in ATTN_KINDS:
         mix, ck, cv = L.attention_decode(p["mix"], cfg, h, state["k"], state["v"],
@@ -247,11 +262,12 @@ def _layer_decode(p: dict, cfg: ModelConfig, kind: str, x, pos: int, state: dict
         raise ValueError(kind)
     x = x + mix
     if _has_mlp(cfg, kind):
-        x = x + _ffn(p, cfg, kind, L.rmsnorm(p["norm2"], x, cfg.norm_eps))[0]
+        x = x + _ffn(p, cfg, kind, L.rmsnorm(p["norm2"], x, cfg.norm_eps), constrain)[0]
     return x, new_state
 
 
-def decode_step(params: dict, cfg: ModelConfig, states: list, token, pos: int):
+def decode_step(params: dict, cfg: ModelConfig, states: list, token, pos: int,
+                constrain=no_constraint):
     """One autoregressive step: token (B,) at position ``pos``.  Returns
     (new_states, logits (B, vocab) f32); ``states`` is left as it was."""
     x = _embed(params, cfg, token[:, None])
@@ -263,18 +279,19 @@ def decode_step(params: dict, cfg: ModelConfig, states: list, token, pos: int):
             new_s = []
             for i, kind in enumerate(pattern):
                 x, st = _layer_decode(_at(seg[i], s), cfg, kind, x, pos,
-                                      _at(seg_state[i], s))
+                                      _at(seg_state[i], s), constrain)
                 new_s.append(st)
             stages.append(new_s)
-        new_states.append(_stack(stages))
+        new_states.append(_stack(stages, seg_state))
     return new_states, _logits(params, cfg, x)[:, 0]
 
 
-def prefill(params: dict, cfg: ModelConfig, inputs, max_seq: int):
+def prefill(params: dict, cfg: ModelConfig, inputs, max_seq: int,
+            constrain=no_constraint):
     """Run the prompts, token ids (B, S) or embeddings (B, S, d), through
     the model, building decode states.  Returns (states, last-token logits
     (B, vocab) f32)."""
-    x = _inputs(params, cfg, inputs)
+    x = constrain(_inputs(params, cfg, inputs), "activation")
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
     states = init_decode_state(cfg, B, max_seq, x.device)
@@ -291,17 +308,18 @@ def prefill(params: dict, cfg: ModelConfig, inputs, max_seq: int):
                     mix, kk, vv = _attention_prefill(p["mix"], cfg, h, positions,
                                                      _window(cfg, kind),
                                                      _at(seg_state[i], s))
-                    x = x + mix
+                    x = x + constrain(mix, "residual")
                     if _has_mlp(cfg, kind):
-                        x = x + _ffn(p, cfg, kind,
-                                     L.rmsnorm(p["norm2"], x, cfg.norm_eps))[0]
+                        ff = _ffn(p, cfg, kind, L.rmsnorm(p["norm2"], x, cfg.norm_eps),
+                                  constrain)[0]
+                        x = x + constrain(ff, "residual")
                     new_s.append({"k": kk, "v": vv})
                 else:
                     # the final recurrent state seeds the decode state
-                    x, st, _ = _layer_fwd(p, cfg, kind, x, positions, None)
+                    x, st, _ = _layer_fwd(p, cfg, kind, x, positions, None, constrain)
                     new_s.append(st)
             stages.append(new_s)
-        new_states.append(_stack(stages))
+        new_states.append(_stack(stages, seg_state))
     return new_states, _logits(params, cfg, x[:, -1:])[:, 0]
 
 

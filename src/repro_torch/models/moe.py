@@ -13,7 +13,8 @@ Per group (a batch row):
 
 The reference computes all of this in XLA, outside any Pallas kernel, so
 plain PyTorch (``einsum``, ``index_add_``, indexing) is its counterpart
-here.  The port takes no sharding hook.  On the card the scatter adds with
+here.  ``constrain`` is the reference's sharding hook, called on the
+dispatch and combine buffers.  On the card the scatter adds with
 atomics; each real slot takes exactly one add onto zero, so only the
 overflow slot, whose row every kept choice weights by 0 and whose gather
 is discarded, sees contended adds.
@@ -26,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig, MoEConfig
-from .layers import gelu, mlp_fwd, mlp_init, truncnorm
+from .layers import gelu, mlp_fwd, mlp_init, no_constraint, truncnorm
 
 
 def moe_init(gen, lead: tuple, cfg: ModelConfig, dtype, device) -> dict:
@@ -126,15 +127,17 @@ def combine(expert_out, slot, gates, keep):
     return y.to(expert_out.dtype)
 
 
-def moe_fwd(params: dict, cfg: ModelConfig, x):
+def moe_fwd(params: dict, cfg: ModelConfig, x, constrain=no_constraint):
     """x (B, S, d), B doubling as the group dim -> (y (B, S, d) in x's
-    dtype, aux ())."""
+    dtype, aux ()).  ``constrain(buffer, "dispatch" | "combine")`` is the
+    sharding hook at the reference's two points."""
     mc = cfg.moe
     B, S, d = x.shape
     E = mc.n_experts
     idx, gates, aux, slot, keep, cap = dispatch(params, mc, x)
     buf = scatter(x, slot, E * cap + 1)
-    expert_out = experts(params, cfg, buf[:, :E * cap].reshape(B, E, cap, d))
+    expert_in = constrain(buf[:, :E * cap].reshape(B, E, cap, d), "dispatch")
+    expert_out = constrain(experts(params, cfg, expert_in), "combine")
     y = combine(expert_out, slot, gates, keep)
     if mc.shared_expert:
         y = y + mlp_fwd(params["shared"], x, cfg.hidden_act)

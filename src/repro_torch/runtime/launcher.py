@@ -1830,13 +1830,20 @@ class ProcsEngine:
         (numpy leaves)."""
         self._require(state)
         views = self._views()
-        low = self.lowering
+        gran = np.asarray(self.lowering.member_granule[gi])
+        slot = np.asarray(self.lowering.member_slot[gi])
+        # one gather a granule, not one a member: a member's row is its
+        # granule's leaf at its slot
+        rows = {int(g): (gran == g, slot[gran == g]) for g in np.unique(gran)}
 
         def pick(*leaves):
-            if not len(low.member_granule[gi]):
+            if not len(gran):
                 return np.zeros((0,))
-            return np.stack([leaves[g][low.member_slot[gi][m]]
-                             for m, g in enumerate(low.member_granule[gi])])
+            first = leaves[int(gran[0])]
+            out = np.empty((len(gran),) + first.shape[1:], first.dtype)
+            for g, (where, at) in rows.items():
+                out[where] = leaves[g][at]
+            return out
 
         return tree_map(pick, *[v.block_states[gi] for v in views])
 

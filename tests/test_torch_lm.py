@@ -4,14 +4,14 @@ Both packages start from the JAX ``init_params`` weights (carried across
 by ``convert.lm_params_from_numpy``) and the same prompts, then run
 ``prefill`` and greedy ``decode_step``s: the logits must agree within 1e-4
 (f32; they reach ~60 in magnitude, and differ by ~1e-5 from sums taken in
-other orders) and the greedy tokens must be identical.  Six configs: each
+other orders) and the greedy tokens must be identical.  Eight configs: each
 recurrent architecture's ``SMOKE`` (no kernel route but the sLSTM's) and a
 kernel-aligned variant (``use_kernels``, a 256-token prompt; for
 recurrentgemma ``rnn_width`` 256 and a 96-token window, so the ring cache
 wraps and the prefill rolls it), whose prefill takes the flash attention
 and RG-LRU kernel modules (their plain versions, on the CPU); and the
-dense llama3.2-1b (GQA, SwiGLU) and gemma-2b (MQA, GeGLU, the embedding
-scale) at ``SMOKE``.
+dense llama3.2-1b (GQA, SwiGLU), gemma-2b (MQA, GeGLU, the embedding
+scale), llama3.2-3b and gemma-7b at ``SMOKE``.
 """
 import dataclasses
 
@@ -44,6 +44,8 @@ CONFIGS = {
     "xl-kernel": ("xlstm-125m", 256, dict(use_kernels=True), (0, 0, 1 + GEN)),
     "llama-smoke": ("llama3.2-1b", 32, {}, (0, 0, 0)),
     "gemma-smoke": ("gemma-2b", 32, {}, (0, 0, 0)),
+    "llama3b-smoke": ("llama3.2-3b", 32, {}, (0, 0, 0)),
+    "gemma7b-smoke": ("gemma-7b", 32, {}, (0, 0, 0)),
 }
 
 

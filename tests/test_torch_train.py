@@ -158,7 +158,7 @@ def test_train_step_matches_jax(arch):
         np.testing.assert_allclose(p.numpy(), want[path], rtol=1e-4, atol=1e-5,
                                    err_msg=path)
     with pytest.raises(NotImplementedError):
-        make_trainer(tcfg, topt, mesh={"data": 1})
+        make_trainer(tcfg, topt, mesh={"data": 2})
 
 
 # ------------------------------------------------------------- train
