@@ -237,7 +237,10 @@ Phases (a failing phase raises, and the script exits non-zero):
              session (in place: its resume captures no span) and into a
              fresh one, both resuming to a final state bit-identical to the
              uninterrupted run; one warm ``run(epochs=8)`` traced, its
-             ``epoch_window`` span beside the untraced window's wall.
+             state bit for bit the untraced run's; the ``epoch_window``
+             span, which ends when the launches return (host time: the
+             card's time is in the profiler's trace), beside the untraced
+             window's wall, which waits for the card.
   13. mesh-small  real mesh axes, every shard on the card: the 32x32 wafer
              (tiers (2, 4), capacity 4) on ``GraphEngine`` and
              ``FusedEngine`` with the pods real and the granules batched
@@ -3861,10 +3864,10 @@ def phase_session_full() -> None:
         doc = schema.validate_trace_file(trace_path)
         span = [e for e in doc["traceEvents"] if e["name"] == "epoch_window"][-1]
         report.summarize(doc)
-        log(f"[session-full] run(epochs=8) warm: untraced wall {min(walls):.4f}-"
-            f"{max(walls):.4f} s (3 runs); traced epoch_window span "
-            f"{span['dur'] / 1e6:.4f} s (args {span['args']}), state bit for bit the "
-            f"untraced run's; trace valid")
+        log(f"[session-full] run(epochs=8) warm: untraced wall to the card's end "
+            f"{min(walls):.4f}-{max(walls):.4f} s (3 runs); traced epoch_window span "
+            f"(host time, to the launches' return) {span['dur'] / 1e6:.4f} s "
+            f"(args {span['args']}), state bit for bit the untraced run's; trace valid")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if granule_step.launches <= 0:

@@ -51,6 +51,7 @@ from typing import Any, Callable
 import torch
 
 from ..kernels import granule_step, systolic_step
+from ..obs import trace as _trace
 from ..obs.registry import REGISTRY
 from .struct import tree_leaves
 
@@ -148,6 +149,16 @@ class _Captured:
         self.ptrs, self.calls = ptrs, calls
 
 
+def capture_cause(entry: _Captured | None, ptrs: tuple) -> str | None:
+    """Why :func:`run_until` captures its span: ``"first"`` where the cache
+    holds no entry under the key, ``"moved"`` where its entry was captured
+    on state tensors at other addresses (or of other shapes or dtypes) than
+    ``ptrs``, and None where the entry replays."""
+    if entry is None:
+        return "first"
+    return "moved" if entry.ptrs != ptrs else None
+
+
 def _capture(run, state, anchor, ptrs, device) -> _Captured:
     """Capture ``run`` (one span) on ``state`` into a CUDA graph whose last
     nodes copy every leaf the span left in a new tensor back into the
@@ -216,8 +227,12 @@ def run_until(cache: dict, state: Tree, *, epoch: Callable, done: Callable,
 
     Counters: ``until.epochs`` (epochs run), ``until.spans`` (spans run or
     replayed), ``until.host_syncs`` (host reads of the card),
-    ``until.captures`` and ``until.capture_s``; each kernel wrapper counts
-    its own launches, a replay's through the module's ``replayed``."""
+    ``until.captures``, split by :func:`capture_cause` into
+    ``until.captures.first`` and ``until.captures.moved``, and
+    ``until.capture_s``; each kernel wrapper counts its own launches, a
+    replay's through the module's ``replayed``.  A capture is traced as an
+    ``until.capture`` span (``obs.trace``) with its ``cause``: the old
+    entry's graph released, the warm-up and the capture."""
     span, max_epochs = int(SPAN), int(max_epochs)
     if span < 1:
         raise ValueError(f"SPAN must be at least 1, got {span}")
@@ -239,13 +254,16 @@ def run_until(cache: dict, state: Tree, *, epoch: Callable, done: Callable,
     key = (id(anchor), max_epochs, bool(donate), span)
     ptrs = tuple((x.data_ptr(), tuple(x.shape), x.dtype) for x in leaves)
     entry = cache.get(key)
-    if entry is None or entry.ptrs != ptrs:
-        cache.pop(key, None)  # its graph's memory goes before the next capture
-        while len(cache) >= CACHE_SIZE:
-            cache.pop(next(iter(cache)))
-        t0 = time.perf_counter()
-        entry = cache[key] = _capture(run, state, anchor, ptrs, device)
+    cause = capture_cause(entry, ptrs)
+    if cause is not None:
+        with _trace.recorder().session_span("until.capture", cause=cause):
+            cache.pop(key, None)  # its graph's memory goes before the next capture
+            while len(cache) >= CACHE_SIZE:
+                cache.pop(next(iter(cache)))
+            t0 = time.perf_counter()
+            entry = cache[key] = _capture(run, state, anchor, ptrs, device)
         REGISTRY.inc("until.captures")
+        REGISTRY.inc(f"until.captures.{cause}")
         REGISTRY.observe("until.capture_s", time.perf_counter() - t0)
     entry.stop.zero_()
     entry.ran.zero_()
@@ -283,4 +301,5 @@ def host_loop(state: Tree, *, epoch: Callable, done: Callable,
     return leave(c)
 
 
-__all__ = ["CACHE_SIZE", "HostSyncError", "SPAN", "flag", "host_loop", "run_until"]
+__all__ = ["CACHE_SIZE", "HostSyncError", "SPAN", "capture_cause", "flag", "host_loop",
+           "run_until"]

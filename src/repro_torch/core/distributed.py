@@ -67,6 +67,7 @@ import torch
 from . import device_loop
 from . import queue as qmod
 from ..kernels import granule_step
+from ..obs import trace as _trace
 from ..obs.registry import REGISTRY
 from .block import Block
 from .device import group_generator, resolve_device, shard_devices, to_tensor
@@ -696,25 +697,29 @@ class GraphEngine(Placement):
         for block ``init_state``; ``group_params[gi]`` overrides the IR's
         stacked per-member params of group ``gi`` (leading dim =
         n_members, in global instantiation order).  A sharded engine's
-        state is a ``core.mesh.ShardedState`` (see :meth:`place`)."""
-        states = self._init_block_states(key, group_params)
-        lead = self.dev_shape
-        q = qmod.make_queues(self.n_local, self.W, self.capacity, self.dtype,
-                             self.device)
-        zi = lambda shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
-                                       device=self.device)
-        return self.place(GraphState(
-            queues=tree_map(lambda x: x.expand(lead + x.shape).contiguous(), q),
-            block_states=tuple(states),
-            credits=tuple(
-                torch.full(lead + (si.shape[1],), self.capacity - 1,
-                           dtype=torch.int32, device=self.device)
-                for si in self._send_idx
-            ),
-            cycle=zi(lead),
-            epoch=zi(lead),
-            tables=self.tables(),
-        ))
+        state is a ``core.mesh.ShardedState`` (see :meth:`place`).  Traced
+        as the ``init.state`` and ``init.tables`` spans (``obs.trace``)."""
+        rec = _trace.recorder()
+        with rec.session_span("init.state"):
+            states = self._init_block_states(key, group_params)
+            lead = self.dev_shape
+            q = qmod.make_queues(self.n_local, self.W, self.capacity, self.dtype,
+                                 self.device)
+            zi = lambda shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
+                                           device=self.device)
+            fields = dict(
+                queues=tree_map(lambda x: x.expand(lead + x.shape).contiguous(), q),
+                block_states=tuple(states),
+                credits=tuple(
+                    torch.full(lead + (si.shape[1],), self.capacity - 1,
+                               dtype=torch.int32, device=self.device)
+                    for si in self._send_idx
+                ),
+                cycle=zi(lead),
+                epoch=zi(lead),
+            )
+        with rec.session_span("init.tables"):
+            return self.place(GraphState(**fields, tables=self.tables()))
 
     # ------------------------------------------------- shards and placement
     def _gathered(self, state, pick: Callable) -> Tree:
@@ -1126,12 +1131,13 @@ class GraphEngine(Placement):
     # ------------------------------------------------------- host utilities
     def gather_group(self, state, gi: int) -> Tree:
         """Group ``gi``'s member states in global instantiation order
-        (numpy leaves)."""
+        (numpy leaves); traced as a ``session.read`` span."""
         n_slot = self._n_slot[gi]
         idx = self._member_granule[gi] * n_slot + self._member_slot[gi]
-        return tree_map(
-            lambda x: x.reshape((self.G * n_slot,) + x.shape[self.nd + 1:])[idx],
-            self._gathered(state, lambda s: s.block_states[gi]))
+        with _trace.recorder().session_span("session.read", api="gather_group"):
+            return tree_map(
+                lambda x: x.reshape((self.G * n_slot,) + x.shape[self.nd + 1:])[idx],
+                self._gathered(state, lambda s: s.block_states[gi]))
 
     def group_state(self, state, inst) -> Tree:
         """One instance's (unstacked) state — mirrors NetworkSim.group_state."""

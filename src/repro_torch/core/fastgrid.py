@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..kernels import systolic_step as sk
+from ..obs import trace as _trace
 from ..obs.registry import REGISTRY
 from . import device_loop
 from .device import resolve_device, shard_devices
@@ -449,13 +450,15 @@ class RegisterGridEngine(Placement):
 
     def result(self, state) -> np.ndarray:
         """Y (M, C) from the south-edge cells (only their y_buf is copied
-        to the host)."""
-        if self._sharded:
-            shards = self._shards(state)[(self.Dr - 1) * self.Dc:]
-            y = torch.cat([st.cell["y_buf"][0, 0, self.Tr - 1].cpu() for st in shards])
-        else:
-            y = state.cell["y_buf"][self.Dr - 1, :, self.Tr - 1]  # (Dc, Tc, M)
-        return y.reshape(self.C, self.M).T.cpu().numpy()
+        to the host); traced as a ``session.read`` span."""
+        with _trace.recorder().session_span("session.read", api="result"):
+            if self._sharded:
+                shards = self._shards(state)[(self.Dr - 1) * self.Dc:]
+                y = torch.cat([st.cell["y_buf"][0, 0, self.Tr - 1].cpu()
+                               for st in shards])
+            else:
+                y = state.cell["y_buf"][self.Dr - 1, :, self.Tr - 1]  # (Dc, Tc, M)
+            return y.reshape(self.C, self.M).T.cpu().numpy()
 
     def port_stats(self, state: RegGridState) -> dict:
         """The register engine has no external ports."""

@@ -47,6 +47,7 @@ import torch
 
 from . import queue as qmod
 from ..kernels import granule_step
+from ..obs import trace as _trace
 from .distributed import GraphEngine
 from .graph import ChannelGraph, _rank_within, grid_partition
 from .struct import tensor_dataclass, tree_map
@@ -286,31 +287,35 @@ class FusedEngine(GraphEngine):
         """Initial state.  ``key`` is an int seed or a ``torch.Generator``
         for block ``init_state`` (``ManycoreCell`` ignores it, so states
         match the JAX package's exactly); ``group_params[gi]`` overrides the
-        IR's stacked per-member params of group ``gi``."""
-        states = self._init_block_states(key, group_params)
-        lead = self.dev_shape
-        q = qmod.make_queues(self.n_q, self.W, self.capacity, self.dtype,
-                             self.device)
-        queues = tree_map(lambda x: x.expand(lead + x.shape).contiguous(), q)
-        cap1 = self.capacity - 1
-        zi = lambda shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
-                                       device=self.device)
-        return self.place(FusedState(
-            reg_val=torch.zeros(lead + (self.n_reg, self.W), dtype=self.dtype,
-                                device=self.device),
-            reg_v=torch.zeros(lead + (self.n_reg,), dtype=torch.bool,
-                              device=self.device),
-            queues=queues,
-            block_states=tuple(states),
-            credits=tuple(
-                torch.full(lead + (si.shape[1],), cap1, dtype=torch.int32,
-                           device=self.device)
-                for si in self._send_idx
-            ),
-            cycle=zi(lead),
-            epoch=zi(lead),
-            tables=self.tables(),
-        ))
+        IR's stacked per-member params of group ``gi``.  Traced as the
+        ``init.state`` and ``init.tables`` spans (``obs.trace``)."""
+        rec = _trace.recorder()
+        with rec.session_span("init.state"):
+            states = self._init_block_states(key, group_params)
+            lead = self.dev_shape
+            q = qmod.make_queues(self.n_q, self.W, self.capacity, self.dtype,
+                                 self.device)
+            queues = tree_map(lambda x: x.expand(lead + x.shape).contiguous(), q)
+            cap1 = self.capacity - 1
+            zi = lambda shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
+                                           device=self.device)
+            fields = dict(
+                reg_val=torch.zeros(lead + (self.n_reg, self.W), dtype=self.dtype,
+                                    device=self.device),
+                reg_v=torch.zeros(lead + (self.n_reg,), dtype=torch.bool,
+                                  device=self.device),
+                queues=queues,
+                block_states=tuple(states),
+                credits=tuple(
+                    torch.full(lead + (si.shape[1],), cap1, dtype=torch.int32,
+                               device=self.device)
+                    for si in self._send_idx
+                ),
+                cycle=zi(lead),
+                epoch=zi(lead),
+            )
+        with rec.session_span("init.tables"):
+            return self.place(FusedState(**fields, tables=self.tables()))
 
     # ------------------------------------------------ flat-batch local views
     def _local_view(self, state: FusedState) -> FusedState:

@@ -256,11 +256,16 @@ class Simulation:
         """(Re)initialize and take ownership of the engine state.  ``key``
         (an int seed or a ``torch.Generator``) seeds per-block
         ``init_state``, and is ignored by the register engine, whose
-        operands live in the IR; extra kwargs go to ``engine.init``."""
-        if self.kind == "register":
-            self._state = self.engine.init(**init_kw)
-        else:
-            self._state = self.engine.init(key, **init_kw)
+        operands live in the IR; extra kwargs go to ``engine.init``.  Each
+        call is a new ``run`` of the trace recorder: the ``session.reset``
+        span and the spans of the run after it carry its number."""
+        rec = _trace.recorder()
+        rec.run += 1
+        with rec.session_span("session.reset"):
+            if self.kind == "register":
+                self._state = self.engine.init(**init_kw)
+            else:
+                self._state = self.engine.init(key, **init_kw)
         for p in self._tx_ports.values():
             p.sent = 0
             p._pending.clear()
@@ -439,13 +444,16 @@ class Simulation:
                 sim.run(epochs=200)
 
         Tracing changes no simulated behavior: final state and host Rx
-        traffic stay bit-identical to an untraced run.  On a CUDA state
-        each ``epoch_window`` span ends after the stream has finished the
-        window's work.  The ``REPRO_TRACE=<path>`` env knob is the
+        traffic stay bit-identical to an untraced run.  No span
+        synchronizes with the card: each ends when the host returns from
+        the call (a CUDA run returns at launch), and the device's time
+        comes from a device trace (``torch.profiler``) of the same window,
+        laid beside the spans through the clock anchors the file carries
+        (``obs.trace``).  The ``REPRO_TRACE=<path>`` env knob is the
         non-contextual variant (exports at interpreter exit)."""
         rec = _trace.recorder()
         prev = rec.enabled
-        rec.enabled = True
+        rec.enable()
         st = getattr(self.engine, "set_tracing", None)
         if st is not None:
             st(True)
@@ -460,7 +468,8 @@ class Simulation:
                     st(False)
             finally:
                 rec.export(path)
-                rec.enabled = prev
+                if not prev:
+                    rec.disable()
 
     def add_monitor(self, fn: Callable[["Simulation"], None],
                     every: int = 1) -> Monitor:
@@ -473,9 +482,9 @@ class Simulation:
 
     # ------------------------------------------------------------------- run
     def _window_span(self, t0: float, args: dict) -> None:
-        """Record the ``epoch_window`` span begun at ``t0``, ended once the
-        stream has finished the window (a CUDA run returns at launch)."""
-        self.block_until_ready()
+        """Record the ``epoch_window`` span begun at ``t0``, ended now: when
+        the host returns, which on a CUDA state may be before the stream
+        has finished the window (the device trace holds that)."""
         _trace.recorder().span("epoch_window", t0, time.monotonic() - t0,
                                cat="session", args=args)
 
@@ -492,7 +501,6 @@ class Simulation:
         else:
             per = self.period // int(self.engine.cycles_per_epoch)
             self._state = self.engine.run_epochs(st, n_epochs * per, donate=True)
-        REGISTRY.inc("session.epochs", float(n_epochs))
         if rec.enabled:
             self._window_span(t0, {"epochs": int(n_epochs)})
 
@@ -501,7 +509,6 @@ class Simulation:
             rec = _trace.recorder()
             t0 = time.monotonic() if rec.enabled else 0.0
             self._state = self.engine.run(self._require_state(), n_cycles)
-            REGISTRY.inc("session.cycles", float(n_cycles))
             if rec.enabled:
                 self._window_span(t0, {"cycles": int(n_cycles)})
 
@@ -659,10 +666,7 @@ class Simulation:
         if not rec.enabled:
             c0 = self.cycle
             self._until(done_fn, step, cache_key)
-            n = (self.cycle - c0) // per
-            if n:
-                REGISTRY.inc("session.epochs", float(n))
-            return n
+            return (self.cycle - c0) // per
         n = 0
         while n < step:
             c0, t0 = self.cycle, time.monotonic()
@@ -670,21 +674,27 @@ class Simulation:
             if self.cycle == c0:
                 break
             n += 1
-            REGISTRY.inc("session.epochs")
             self._window_span(t0, {"epochs": 1})
         return n
 
     def _until(self, done_fn, n_epochs: int, cache_key) -> None:
         """The engine's until-loop within a budget of ``n_epochs`` boundary
-        periods (relative to now)."""
+        periods (relative to now), traced as one ``session.until`` span
+        whose ``epochs`` are the device loop's (``until.epochs``, a host
+        counter)."""
         st = self._require_state()
-        if self.kind == "single":
-            self._state = self.engine.run_until(st, done_fn, n_epochs * self.period)
-        else:
-            per_engine = self.period // int(self.engine.cycles_per_epoch)
-            self._state = self.engine.run_until(
-                st, done_fn, n_epochs * per_engine, cache_key=cache_key,
-                donate=True)
+        rec = _trace.recorder()
+        with rec.session_span("session.until") as args:
+            e0 = REGISTRY.counters().get("until.epochs", 0.0) if rec.enabled else 0.0
+            if self.kind == "single":
+                self._state = self.engine.run_until(st, done_fn, n_epochs * self.period)
+            else:
+                per_engine = self.period // int(self.engine.cycles_per_epoch)
+                self._state = self.engine.run_until(
+                    st, done_fn, n_epochs * per_engine, cache_key=cache_key,
+                    donate=True)
+            if rec.enabled:
+                args["epochs"] = int(REGISTRY.counters().get("until.epochs", 0.0) - e0)
 
     # ---------------------------------------------------------- checkpoints
     def save(self, path: str, step: int | None = None, *,

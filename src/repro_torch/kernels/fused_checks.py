@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.struct import tree_map, tree_paths
+from ..obs import trace as _trace
 from . import granule_step
 
 
@@ -274,9 +275,11 @@ def network_done(eng):
 def grid_result(eng, state, gi: int, R: int, C: int, M: int) -> np.ndarray:
     """``Y`` (M, C) from the south row of the R x C grid held by group
     ``gi`` (its members in row-major order), gathered where the state lies
-    (only those C rows of ``y_buf`` come to the host)."""
+    (only those C rows of ``y_buf`` come to the host); traced as a
+    ``session.read`` span."""
     n_slot = eng._n_slot[gi]
     flat = eng._member_granule[gi] * n_slot + eng._member_slot[gi]
-    y = state.block_states[gi].y_buf
-    rows = torch.as_tensor(flat[(R - 1) * C:R * C], device=y.device)
-    return y.reshape(-1, M)[rows].cpu().numpy().T
+    with _trace.recorder().session_span("session.read", api="grid_result"):
+        y = state.block_states[gi].y_buf
+        rows = torch.as_tensor(flat[(R - 1) * C:R * C], device=y.device)
+        return y.reshape(-1, M)[rows].cpu().numpy().T

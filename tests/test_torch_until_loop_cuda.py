@@ -209,3 +209,43 @@ def test_syncing_predicate_raises(cuda, config):
         eng.run_until(st, lambda v: bool(inner(v)), 100)
     with pytest.raises(device_loop.HostSyncError, match="without reading it back"):
         eng.run_until(st, lambda v: True, 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["wafer", "grid", "register"])
+def test_capture_cause_after_reset(cuda, config):
+    """Through the session: the first run under a predicate captures with
+    cause ``first``; a reset builds its state at new addresses, so the run
+    after it captures with cause ``moved``; a rerun on the same state
+    captures nothing.  The causes add up to ``until.captures``, and the
+    traced ``until.capture`` span names the cause."""
+    from repro_torch.core import Simulation
+    from repro_torch.obs import trace as obs_trace
+
+    eng, _ = port_engine(config, cuda)
+    done = _t_done(config)
+    sim = Simulation(eng)
+    names = ("until.captures", "until.captures.first", "until.captures.moved")
+    counts = lambda: [REGISTRY.counters().get(n, 0) for n in names]  # noqa: E731
+    rec = obs_trace.recorder()
+    rec.clear()
+    rec.enable()
+    try:
+        c0 = counts()
+        sim.reset(0)
+        sim.run(until=done, max_epochs=1000)
+        c1 = counts()
+        sim.reset(0)
+        sim.run(until=done, max_epochs=1000)
+        c2 = counts()
+        sim.run(until=done, max_epochs=1000)
+        c3 = counts()
+        caps = [e for e in rec.events if e["name"] == "until.capture"]
+    finally:
+        rec.disable()
+        rec.clear()
+    assert [b - a for a, b in zip(c0, c1)] == [1, 1, 0]
+    assert [b - a for a, b in zip(c1, c2)] == [1, 0, 1]
+    assert c3 == c2
+    assert [e["args"]["cause"] for e in caps] == ["first", "moved"]
+    assert [e["args"]["run"] for e in caps] == [rec.run - 1, rec.run]
