@@ -15,10 +15,10 @@ benchmark's ``idle_share`` reads it) down to them.
 
 Prints one JSON line, appended to ``--out`` too: the idle share and its
 four parts and remainder (% of the window), ``capture_ms_per_run`` (the
-``until.capture`` spans' ms a run), the captures by cause over the
-window, the recorder's spans a run by name and their host milliseconds a
-run (``span_ms_per_run``: the reset's ``init.state`` against its
-``init.tables``), and ``clock_err_ms``: the most by which a session span,
+``until.capture`` spans' ms a run), the captures by cause and the resets
+by ``mode`` over the window, the recorder's spans a run by name and their
+host milliseconds a run (``span_ms_per_run``: the reset's ``init.state``
+against its ``init.tables``), and ``clock_err_ms``: the most by which a session span,
 mapped, leaves the benchmark's own ``bench.*`` range around it (0 where
 the two clocks agree).  Needs a CUDA card.
 """
@@ -129,6 +129,8 @@ def main(argv=None) -> int:
         "idle_other_share": pct(split["other"]),
         "capture_ms_per_run": sum(b - a for a, b in by_name["until.capture"]) * 1e-6 / runs,
         "captures": {c: v - c0[c] for c, v in captures().items()},
+        "resets": dict(collections.Counter(s["args"].get("mode") for s in spans
+                                           if s["name"] == "session.reset")),
         "spans_per_run": {k: v / runs for k, v in sorted(counts.items())},
         "span_ms_per_run": {k: v * 1e-6 / runs for k, v in sorted(span_ns.items())},
         "recorder_events_per_run": n_events / runs,

@@ -23,8 +23,10 @@ CUDA graph and replayed until the host reads ``stop`` set: the host waits
 once a span, never once an epoch.  The graph is cached, as the reference
 caches its jit, under (``cache_key`` or the predicate, ``max_epochs``,
 ``donate``, the span) and the addresses of the state's tensors, which the
-kernels update in place: a run re-entered on the same state replays, a
-new state (a ``reset``, or the clone that ``donate=False`` runs on)
+kernels update in place: a run re-entered on the same state replays, and
+so does the run after a ``Simulation.reset``, which writes the new initial
+values into the same tensors; a state at new addresses (the clone that
+``donate=False`` runs on, or a reset that had to build its state anew)
 captures anew.  On the CPU the same span runs eagerly with the
 kernels' plain versions, so the CPU tests hold the stop and budget logic
 that the card replays.  :func:`host_loop` is the plain version of the
@@ -222,8 +224,8 @@ def run_until(cache: dict, state: Tree, *, epoch: Callable, done: Callable,
     runs the predicate that was captured, as the reference's jit runs the
     first predicate it traced under a key.  On a CUDA state the state's
     tensors are updated in place and the state itself is returned; a
-    state at new addresses (a ``reset``, or an engine's ``donate=False``
-    clone of its input) captures its span anew.
+    state at new addresses (an engine's ``donate=False`` clone of its
+    input, or a ``reset`` that built a new state) captures its span anew.
 
     Counters: ``until.epochs`` (epochs run), ``until.spans`` (spans run or
     replayed), ``until.host_syncs`` (host reads of the card),

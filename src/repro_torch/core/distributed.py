@@ -692,14 +692,21 @@ class GraphEngine(Placement):
             ))
         return states
 
-    def init(self, key=0, group_params: dict | None = None) -> GraphState:
+    def init(self, key=0, group_params: dict | None = None, *,
+             into: GraphState | None = None) -> GraphState:
         """Initial state.  ``key`` is an int seed or a ``torch.Generator``
         for block ``init_state``; ``group_params[gi]`` overrides the IR's
         stacked per-member params of group ``gi`` (leading dim =
         n_members, in global instantiation order).  A sharded engine's
         state is a ``core.mesh.ShardedState`` (see :meth:`place`).  Traced
-        as the ``init.state`` and ``init.tables`` spans (``obs.trace``)."""
+        as the ``init.state`` and ``init.tables`` spans (``obs.trace``).
+
+        ``into``, an earlier state of this engine (``Simulation.reset``
+        passes its live one), lends the new state its tables, which no run
+        changes, so they are not uploaded again; the caller copies the
+        other leaves into its tensors.  A sharded state lends nothing."""
         rec = _trace.recorder()
+        into = into if isinstance(into, GraphState) else None
         with rec.session_span("init.state"):
             states = self._init_block_states(key, group_params)
             lead = self.dev_shape
@@ -719,15 +726,17 @@ class GraphEngine(Placement):
                 epoch=zi(lead),
             )
         with rec.session_span("init.tables"):
-            return self.place(GraphState(**fields, tables=self.tables()))
+            tables = self.tables() if into is None else into.tables
+            return self.place(GraphState(**fields, tables=tables))
 
     # ------------------------------------------------- shards and placement
     def _gathered(self, state, pick: Callable) -> Tree:
         """``pick(shard state)`` of every shard in the global layout, as
-        numpy leaves."""
+        numpy leaves: copies, also of a CPU state, whose tensors the next
+        run or reset may overwrite."""
         parts = [pick(s) for s in self._shards(state)]
         tree = gather(parts, self.real_shape) if self._sharded else parts[0]
-        return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+        return tree_map(lambda x: x.detach().to("cpu", copy=True).numpy(), tree)
 
     def _locate(self, didx: Sequence[int]) -> tuple[int, tuple]:
         """(shard, index within the shard's leading dims) of the granule at
@@ -1289,14 +1298,15 @@ class GridEngine(GraphEngine):
         self.Dr, self.Dc = Dr, Dc
         self.Tr, self.Tc = R // Dr, C // Dc
 
-    def init(self, key=0, cell_params: Tree = None) -> GraphState:
+    def init(self, key=0, cell_params: Tree = None, *,
+             into: GraphState | None = None) -> GraphState:
         """cell_params: a tree with leading (R, C) dims (global), numpy or
-        tensors."""
+        tensors; ``into`` as in :meth:`GraphEngine.init`."""
         flat = tree_map(
             lambda x: x.reshape((self.R * self.C,) + tuple(x.shape[2:])),
             cell_params,
         )
-        return super().init(key, group_params={0: flat})
+        return super().init(key, group_params={0: flat}, into=into)
 
     def _done_view(self, local):
         """``run_until`` predicates see the granule-local cell states,

@@ -211,13 +211,17 @@ class RegisterGridEngine(Placement):
         x = x.reshape((Dr, Tr, Dc, Tc) + tuple(x.shape[2:]))
         return x.permute((0, 2, 1, 3) + tuple(range(4, x.dim()))).contiguous()
 
-    def init(self, A: np.ndarray | None = None,
-             B: np.ndarray | None = None) -> RegGridState:
+    def init(self, A: np.ndarray | None = None, B: np.ndarray | None = None, *,
+             into: RegGridState | None = None) -> RegGridState:
         """The initial state for ``Y = A @ B`` (A: (M, R), B: (R, C)); an
         engine built from the IR takes its operands from there.  The
         (R, C, M) stream buffer is made on the device: only its west column
         holds A.  A sharded engine's state is a ``core.mesh.ShardedState``
-        (see :meth:`place`)."""
+        (see :meth:`place`).  ``into``, an earlier state of this engine
+        (``Simulation.reset`` passes its live one), takes the two (R, C, M)
+        buffers in place: zeroed, and A written into the west column, so a
+        reset neither allocates nor copies them.  A sharded state takes
+        nothing."""
         if A is None and B is None and self._graph_ab is not None:
             A, B = self._graph_ab
         if A is None or B is None:
@@ -233,19 +237,30 @@ class RegisterGridEngine(Placement):
         lead = (Dr, Dc, Tr, Tc)
         rr = torch.arange(R, device=dev)[:, None].expand(R, C)
         cc = torch.arange(C, device=dev)[None, :].expand(R, C)
-        a_buf = torch.zeros((Dr, Dc, Tr, Tc, M), dtype=torch.float32, device=dev)
-        # west cells (global column 0: tile column 0, local column 0)
-        a_buf[:, 0, :, 0, :] = torch.from_numpy(
-            np.ascontiguousarray(A.T)).to(dev).reshape(Dr, Tr, M)
         zf = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
         zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)  # noqa: E731
         zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)  # noqa: E731
+        live = into.cell if isinstance(into, RegGridState) else {}
+
+        def zf_into(name, *shape):
+            # rr's device, not dev: "cuda" names no index
+            x = live.get(name)
+            if x is not None and (x.shape, x.dtype, x.device) == (shape, torch.float32,
+                                                                    rr.device):
+                return x.zero_()
+            return zf(*shape)
+
+        a_buf = zf_into("a_buf", *lead, M)
+        # west cells (global column 0: tile column 0, local column 0)
+        a_buf[:, 0, :, 0, :] = torch.from_numpy(
+            np.ascontiguousarray(A.T)).to(dev).reshape(Dr, Tr, M)
         cell = dict(
-            b=self._tile(torch.from_numpy(B).to(dev)),
+            # a copy: on the CPU ``to`` would hand back B's own memory
+            b=self._tile(torch.from_numpy(B).to(dev, copy=True)),
             a_reg=zf(*lead), a_v=zb(*lead),
             p_reg=zf(*lead), p_v=zb(*lead),
             a_idx=zi(*lead), y_idx=zi(*lead),
-            a_buf=a_buf, y_buf=zf(*lead, M),
+            a_buf=a_buf, y_buf=zf_into("y_buf", *lead, M),
             is_west=self._tile(cc == 0),
             is_north=self._tile(rr == 0),
             is_south=self._tile(rr == R - 1),
@@ -450,7 +465,8 @@ class RegisterGridEngine(Placement):
 
     def result(self, state) -> np.ndarray:
         """Y (M, C) from the south-edge cells (only their y_buf is copied
-        to the host); traced as a ``session.read`` span."""
+        to the host, also from a CPU state, which the next run or reset
+        may overwrite); traced as a ``session.read`` span."""
         with _trace.recorder().session_span("session.read", api="result"):
             if self._sharded:
                 shards = self._shards(state)[(self.Dr - 1) * self.Dc:]
@@ -458,7 +474,7 @@ class RegisterGridEngine(Placement):
                                for st in shards])
             else:
                 y = state.cell["y_buf"][self.Dr - 1, :, self.Tr - 1]  # (Dc, Tc, M)
-            return y.reshape(self.C, self.M).T.cpu().numpy()
+            return y.reshape(self.C, self.M).T.to("cpu", copy=True).numpy()
 
     def port_stats(self, state: RegGridState) -> dict:
         """The register engine has no external ports."""

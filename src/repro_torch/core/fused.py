@@ -283,13 +283,16 @@ class FusedEngine(GraphEngine):
         )
 
     # ------------------------------------------------------------------ init
-    def init(self, key=0, group_params: dict | None = None) -> FusedState:
+    def init(self, key=0, group_params: dict | None = None, *,
+             into: FusedState | None = None) -> FusedState:
         """Initial state.  ``key`` is an int seed or a ``torch.Generator``
         for block ``init_state`` (``ManycoreCell`` ignores it, so states
         match the JAX package's exactly); ``group_params[gi]`` overrides the
-        IR's stacked per-member params of group ``gi``.  Traced as the
-        ``init.state`` and ``init.tables`` spans (``obs.trace``)."""
+        IR's stacked per-member params of group ``gi``.  ``into`` lends its
+        tables as in ``GraphEngine.init``.  Traced as the ``init.state``
+        and ``init.tables`` spans (``obs.trace``)."""
         rec = _trace.recorder()
+        into = into if isinstance(into, FusedState) else None
         with rec.session_span("init.state"):
             states = self._init_block_states(key, group_params)
             lead = self.dev_shape
@@ -315,7 +318,8 @@ class FusedEngine(GraphEngine):
                 epoch=zi(lead),
             )
         with rec.session_span("init.tables"):
-            return self.place(FusedState(**fields, tables=self.tables()))
+            tables = self.tables() if into is None else into.tables
+            return self.place(FusedState(**fields, tables=tables))
 
     # ------------------------------------------------ flat-batch local views
     def _local_view(self, state: FusedState) -> FusedState:

@@ -27,7 +27,9 @@ view (``eval_done``), ``save``/``load`` go through the engine's
 worker's granule under ``"workers"``.
 
 **State ownership.**  The session owns the engine state and lets the
-engine update it in place (``donate=True``).  The legacy
+engine update it in place (``donate=True``); a ``reset`` writes the new
+initial values into the same tensors where they fit, so a captured
+until-loop replays from one run to the next.  The legacy
 engine-state-threading surface (``init(key)`` / ``run(state, n)`` /
 ``run_epochs(state, n)`` / ``push_external``) keeps working through
 deprecation shims, and an input a shim donated is *poisoned*: touching it
@@ -60,7 +62,7 @@ from ..obs import trace as _trace
 from ..obs.registry import REGISTRY
 from ..obs.schema import STATS_SCHEMA
 from .mesh import unshard
-from .struct import tree_leaves
+from .struct import tree_leaves, tree_paths
 
 Tree = Any
 
@@ -111,6 +113,26 @@ def _poison_input(state: Tree, out: Tree, api: str) -> None:
     its input): the state the caller gets back stays usable."""
     if out is not state:
         poison_donated(state, api)
+
+
+def _write_into(live: Tree, fresh: Tree) -> bool:
+    """Copy every leaf of ``fresh`` into ``live``'s tensor where the two
+    states match: the same tree, every leaf a tensor of the same shape,
+    dtype and device.  A leaf ``fresh`` already holds in ``live``'s tensor
+    (an engine's ``init(into=...)`` wrote it there, or lent it) is not
+    copied.  Returns False, copying nothing, where they do not match."""
+    a, b = tree_paths(live), tree_paths(fresh)
+    if type(live) is not type(fresh) or [p for p, _ in a] != [p for p, _ in b]:
+        return False
+    pairs = [(d, s) for (_, d), (_, s) in zip(a, b)]
+    if not all(isinstance(d, torch.Tensor) and isinstance(s, torch.Tensor)
+               and (d.shape, d.dtype, d.device) == (s.shape, s.dtype, s.device)
+               for d, s in pairs):
+        return False
+    for d, s in pairs:
+        if (d.data_ptr(), d.stride()) != (s.data_ptr(), s.stride()):
+            d.copy_(s)
+    return True
 
 
 class TxPort:
@@ -256,16 +278,40 @@ class Simulation:
         """(Re)initialize and take ownership of the engine state.  ``key``
         (an int seed or a ``torch.Generator``) seeds per-block
         ``init_state``, and is ignored by the register engine, whose
-        operands live in the IR; extra kwargs go to ``engine.init``.  Each
-        call is a new ``run`` of the trace recorder: the ``session.reset``
-        span and the spans of the run after it carry its number."""
+        operands live in the IR; extra kwargs go to ``engine.init``.
+
+        Where the session already holds a state and the new initial state
+        matches it (the same tree, every leaf a tensor of the same shape,
+        dtype and device), the reset writes the new values into the live
+        state's own tensors: their addresses stay, so an until-loop the
+        engine captured on them replays instead of capturing again.  The
+        graph, fused and register engines take the live state as
+        ``init(into=...)``: it lends the new state its tables (graph,
+        fused) or takes its two large buffers' values in place
+        (register).  A first reset, a state of other shapes, a procs
+        engine's (a handle to its workers) and a donated, poisoned state
+        are built anew.  The reset counts ``session.reset.in_place`` or
+        ``session.reset.rebuilt``.
+
+        Each call is a new ``run`` of the trace recorder: the
+        ``session.reset`` span, its ``mode`` ``in_place`` or ``rebuilt``,
+        and the spans of the run after it carry its number."""
         rec = _trace.recorder()
         rec.run += 1
-        with rec.session_span("session.reset"):
+        live = self._writable_state()
+        kw = dict(init_kw)
+        if live is not None and self.kind != "single":
+            kw["into"] = live
+        with rec.session_span("session.reset") as args:
             if self.kind == "register":
-                self._state = self.engine.init(**init_kw)
+                fresh = self.engine.init(**kw)
             else:
-                self._state = self.engine.init(key, **init_kw)
+                fresh = self.engine.init(key, **kw)
+            mode = "in_place" if live is not None and _write_into(live, fresh) else "rebuilt"
+            if mode == "rebuilt":
+                self._state = fresh
+            args["mode"] = mode
+        REGISTRY.inc(f"session.reset.{mode}")
         for p in self._tx_ports.values():
             p.sent = 0
             p._pending.clear()
@@ -279,9 +325,22 @@ class Simulation:
     @property
     def state(self) -> Tree:
         """The live engine state.  The session lets the engine update it in
-        place on the next ``run``, so hold results (e.g. from ``probe``),
-        not this object."""
+        place on the next ``run``, and the next ``reset`` writes the new
+        initial values into it where they fit, so hold results (copied out,
+        e.g. by ``gather_group``), not this object."""
         return self._require_state()
+
+    def _writable_state(self) -> Tree | None:
+        """The live state where ``reset`` may write into it: None before
+        the first reset, on the procs engine (its state is a handle to
+        its workers) and where a shim donated and poisoned it."""
+        st = self._state
+        if st is None or self.kind == "procs":
+            return None
+        if dataclasses.is_dataclass(st) and any(
+                isinstance(getattr(st, f.name), _Donated) for f in dataclasses.fields(st)):
+            return None
+        return st
 
     def _require_state(self) -> Tree:
         if self._state is None:
@@ -376,7 +435,9 @@ class Simulation:
     # ------------------------------------------------------ probes / monitors
     def probe(self, inst) -> Tree:
         """One instance's live (unstacked) state.  ``inst`` is an
-        ``Instance`` or a global instance id."""
+        ``Instance`` or a global instance id.  On some engines its leaves
+        are views of the live state's tensors, which the next ``run`` and
+        ``reset`` overwrite: copy what must outlast them."""
         return self.engine.group_state(self._require_state(), inst)
 
     def stats(self) -> dict:

@@ -26,7 +26,8 @@ times when the call starts and returns.
 **Session spans** (:meth:`TraceRecorder.session_span`) carry
 ``args.run``, the count of ``Simulation.reset`` calls in the process
 (``TraceRecorder.run``), which the spans of one run share, and
-nest on ``TID_SESSION``: ``session.reset`` (``init.state``,
+nest on ``TID_SESSION``: ``session.reset`` (its ``mode`` ``in_place``,
+the live state's tensors written, or ``rebuilt``; ``init.state`` and
 ``init.tables`` inside, in the fused and graph engines, which build the
 two apart), ``session.until`` (``until.capture`` inside, its
 ``cause`` ``first`` or ``moved``) and ``session.read``.

@@ -215,10 +215,14 @@ def test_syncing_predicate_raises(cuda, config):
 @pytest.mark.parametrize("config", ["wafer", "grid", "register"])
 def test_capture_cause_after_reset(cuda, config):
     """Through the session: the first run under a predicate captures with
-    cause ``first``; a reset builds its state at new addresses, so the run
-    after it captures with cause ``moved``; a rerun on the same state
-    captures nothing.  The causes add up to ``until.captures``, and the
-    traced ``until.capture`` span names the cause."""
+    cause ``first``; a reset writes the new initial state into the same
+    tensors, so the run after it replays and captures nothing, and so does
+    a rerun on the same state.  A ``donate=False`` run works on a clone at
+    new addresses: the first such run captures under its own key
+    (``first``), the next, while the first's clone lives, with cause
+    ``moved``.  The causes add up to ``until.captures``, and the traced
+    ``until.capture`` span names the cause; the ``session.reset`` spans
+    name their mode."""
     from repro_torch.core import Simulation
     from repro_torch.obs import trace as obs_trace
 
@@ -240,12 +244,82 @@ def test_capture_cause_after_reset(cuda, config):
         c2 = counts()
         sim.run(until=done, max_epochs=1000)
         c3 = counts()
+        kept = eng.run_until(sim.state, done, 1000, cache_key=done, donate=False)
+        eng.run_until(sim.state, done, 1000, cache_key=done, donate=False)
+        c4 = counts()
         caps = [e for e in rec.events if e["name"] == "until.capture"]
+        modes = [e["args"]["mode"] for e in rec.events if e["name"] == "session.reset"]
     finally:
         rec.disable()
         rec.clear()
+    del kept
     assert [b - a for a, b in zip(c0, c1)] == [1, 1, 0]
-    assert [b - a for a, b in zip(c1, c2)] == [1, 0, 1]
-    assert c3 == c2
-    assert [e["args"]["cause"] for e in caps] == ["first", "moved"]
-    assert [e["args"]["run"] for e in caps] == [rec.run - 1, rec.run]
+    assert c3 == c2 == c1
+    assert [b - a for a, b in zip(c3, c4)] == [2, 1, 1]
+    assert [e["args"]["cause"] for e in caps] == ["first", "first", "moved"]
+    assert [e["args"]["run"] for e in caps] == [rec.run - 1, rec.run, rec.run]
+    assert modes == ["rebuilt", "in_place"]
+
+
+def _session_of(config, cuda):
+    """(a session of ``config``, its predicate, the reset arguments of run
+    ``seed``): the wafer on the fused and graph engines with new core
+    values a reset, the grid on the fused and register engines with new
+    operands a reset."""
+    from repro_torch.core import Simulation
+    from repro_torch.core.distributed import GraphEngine as TGraphEngine
+    from repro_torch.hw.manycore import CoreParams
+
+    if config == "wafer-graph":
+        graph = TGraph.torus(TCore(8, 8), 8, 8, params=t_core_params(fc.torus_values(8, 8)),
+                             capacity=8)
+        eng = TGraphEngine(graph, t_tgp(8, 8, [(2, 1), (2, 2)]), None, tiers=WAFER_TIERS,
+                           batch_axes={"pod": 2, "g": 4}, device=cuda)
+    else:
+        eng, _ = port_engine(config, cuda)
+    sim = Simulation(eng)
+
+    def kw(seed):
+        rng = np.random.RandomState(seed)
+        if config.startswith("wafer"):
+            vals = rng.randint(-8, 9, size=64).astype(np.float32)
+            return {"group_params": {0: CoreParams(value=torch.as_tensor(vals, device=cuda))}}
+        A, B = rng.randn(M, R).astype(np.float32), rng.randn(R, C).astype(np.float32)
+        if config.startswith("register"):
+            return {"A": A, "B": B}
+        p = t_cell_params(A, B)
+        return {"group_params": {0: type(p)(**{
+            f: torch.as_tensor(getattr(p, f), device=cuda).reshape((R * C,) + getattr(p, f).shape[2:])
+            for f in p._data_fields})}}
+
+    return sim, _t_done(config.replace("-graph", "")), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["wafer", "wafer-graph", "grid", "grid-2x2",
+                                    "register", "register-2x2"])
+def test_reset_in_place_replays_without_allocating(cuda, config):
+    """reset -> run -> reset -> run -> reset -> run, new inputs every reset:
+    after the first run's capture, the resets write in place and the runs
+    replay, with no capture and no device allocation (``num_device_alloc``)
+    over the second and the third reset and run.  Every run's state
+    equals, bit for bit, the same run in a new session."""
+    sim, done, kw = _session_of(config, cuda)
+    caps = lambda: REGISTRY.counters().get("until.captures", 0)  # noqa: E731
+    allocs = lambda: torch.cuda.memory_stats(cuda).get("num_device_alloc", 0)  # noqa: E731
+    states, seen = [], []
+    for seed in (1, 2, 3):
+        torch.cuda.synchronize(cuda)
+        c0, a0 = caps(), allocs()
+        sim.reset(0, **kw(seed))
+        sim.run(until=done, max_epochs=1000)
+        torch.cuda.synchronize(cuda)
+        seen.append((caps() - c0, allocs() - a0))
+        states.append(to_numpy(sim.state))
+    print(f"{config}: (captures, device allocs) a reset and run {seen}")
+    assert seen[0][0] == 1 and seen[1] == seen[2] == (0, 0)
+    for seed, got in zip((1, 2, 3), states):
+        new, _, _ = _session_of(config, cuda)
+        new.reset(0, **kw(seed))
+        new.run(until=done, max_epochs=1000)
+        assert_same(to_numpy(new.state), got, (config, seed))
