@@ -469,6 +469,24 @@ Phases (a failing phase raises, and the script exits non-zero):
              ``launch.report`` with the ``single``/``multi`` records of all
              10 architectures x 4 shapes and the manycore grid.
 
+  29. soc-full  soc-1M (``bench/configs/soc-1M.json``: 1,048,576 SoCs of a
+             ``Cpu``, a ``DramModel`` and an ``AnalogRamp``, 8 batched
+             granules of whole SoCs, K = 8) on ``FusedEngine``, run after
+             fused-io: ``fused_checks.check_engine`` from seeded DRAM
+             contents, every leaf of the three groups bit-exact against the
+             blocks' own steps (``epoch_program_ref``) on a copy on the card
+             after every epoch to ``soc_done``, and every result word and the
+             stop cycle equal to ``bench/reference/soc_ref.py``'s; the SoC
+             variant of ``granule_cycle`` (mask 56) timed per simulated cycle
+             by CUDA events from one mid-run state, beside the plain version
+             and the bound (the configuration's per-epoch count at the
+             memory rate); the main path twice (``Simulation.reset`` with new
+             contents, ``run(until=soc_done)``, ``gather_group``), the launch
+             count set to 0 just before each run and read just after, the
+             second run replayed without a capture; ``compare_loops`` as in
+             ``full``.  Its row of the ``kernels`` line is
+             ``granule_step[SoC]``.
+
 After the last phase the script stops the forkserver and resource tracker
 the fleets started and checks that no process of the run is left (every one
 carries the run's token in its environment). The output ends with a JSON line
@@ -480,6 +498,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases build,small,sys-small
     python3 chip_smoke.py --phases build,fsys-small,fsys-full
+    python3 chip_smoke.py --phases build,soc-full
     python3 chip_smoke.py --phases build,fused-io,procs-small,procs-full
     python3 chip_smoke.py --phases build,graph-small,graph-full
     python3 chip_smoke.py --phases build,session-small,session-full
@@ -513,7 +532,7 @@ KERNELS = ("granule_step", "systolic_step", "flash_attention", "rglru_scan",
 #: and these, built as variants (``-DRGLRU_CHUNK``).
 RGLRU_SWEEP_VARIANTS = (64, 128, 512)
 PHASES = ("build", "small", "full", "sys-small", "sys-full", "fsys-small",
-          "fsys-full", "fused-io", "graph-small", "graph-full", "session-small", "session-full",
+          "fsys-full", "fused-io", "soc-full", "graph-small", "graph-full", "session-small", "session-full",
           "mesh-small", "mesh-full", "procs-small", "procs-full", "fleet-small",
           "fleet-full", "lm-small", "lm-dense", "rg-full", "xl-full", "lm-fam",
           "moe-full", "emb-full", "train-small", "train-full", "dryrun-full")
@@ -1837,6 +1856,182 @@ def phase_fused_io(result: dict) -> None:
         bound_ms=bound_ms, bound_by="bytes", library_ms=None)
 
 
+# ---------------------------------------------- the heterogeneous SoC at scale
+SOC_CONFIG = os.path.join(HERE, "bench", "configs", "soc-1M.json")
+SOC_SEEDS = (2**31 + 33, 2**31 + 34)  # the DRAM contents of the two sessions
+
+
+def soc_contents(n: int, seed: int):
+    """(n, N_REQ) f32 DRAM contents: whole numbers 0-1023 drawn on the card,
+    as the benchmark draws them (``bench/systems/soc.py``)."""
+    import torch
+    from repro_torch.hw.soc import N_REQ
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 1024, (n, N_REQ), generator=g, device="cuda",
+                         dtype=torch.int32).to(torch.float32)
+
+
+def phase_soc_full(result: dict) -> None:
+    """soc-1M on ``FusedEngine``: ``granule_cycle``'s SoC variant at the
+    benchmark cell's shape, against the blocks' own steps."""
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+    from bench.reference import soc_ref
+    from repro_torch.core import Simulation, device_loop
+    from repro_torch.core.fused import FusedEngine
+    from repro_torch.hw.soc import (N_REQ, AnalogRamp, DramModel, DramParams,
+                                    soc_done, soc_graph, soc_partition)
+    from repro_torch.kernels import fused_checks as fc
+    from repro_torch.kernels import granule_step
+
+    with open(SOC_CONFIG) as f:
+        cfg = json.load(f)
+    n, G, K, cap = cfg["n_socs"], cfg["granules"], cfg["k"], cfg["queue_capacity"]
+    t0 = time.perf_counter()
+    eng = FusedEngine(soc_graph(n, cap), soc_partition(n, G), None, K=K,
+                      batch_axes={"g": G}, overlap=False, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mask = granule_step.program_mask([g.block for g in eng.graph.groups])
+    done = lambda s: soc_done(s.block_states[0], s.tables.active[0])  # noqa: E731
+    addr, sample, stop = soc_ref.schedule(
+        n, n_req=N_REQ, latency=DramModel.LATENCY, period=AnalogRamp.PERIOD,
+        divider=AnalogRamp.clock_divider, k=K, capacity=cap, intra="register",
+        max_epochs=cfg["max_epochs"], device="cuda")
+
+    def check_results(tag: str, state, mem) -> None:
+        got = eng.gather_group(state, 0).results
+        want = soc_ref.results(mem, addr, sample).cpu().numpy()
+        bad = int(np.count_nonzero(got.view(np.uint32) != want.view(np.uint32)))
+        if got.shape != want.shape or bad:
+            raise AssertionError(f"[soc-full] {tag}: {bad} of {want.size} result "
+                                 f"words differ from soc_ref's")
+
+    log(f"[soc-full] {n} SoCs = {3 * n} blocks (Cpu, DramModel, AnalogRamp) on {G} "
+        f"batched granules of whole SoCs, K = {K}, capacity {cap}: granule_cycle "
+        f"variant {mask}, program {eng._resident_program(0)}; set-up {setup_s:.2f} s")
+
+    # (a) every epoch through the kernel against the blocks' own steps
+    # (epoch_program_ref) on a copy on the card, every leaf bit-exact
+    mem = soc_contents(n, SOC_SEEDS[0])
+    state = eng.init(0, group_params={1: DramParams(mem=mem)})
+    epochs, kern = fc.check_engine(eng, done, cfg["max_epochs"], state=state)
+    cycles = int(kern.cycle.reshape(-1)[0])
+    if cycles != stop:
+        raise AssertionError(f"[soc-full] stopped at cycle {cycles}, soc_ref at {stop}")
+    check_results("check_engine", kern, mem)
+    log(f"[soc-full] {epochs} epochs ({cycles} cycles) bit-exact against the blocks' "
+        f"own steps (epoch_program_ref) on a copy on the card, every leaf of every "
+        f"group after every epoch, one kernel call an epoch; every CPU's {N_REQ} "
+        f"results equal soc_ref's on seeded contents, stop cycle {stop}")
+    del kern, state
+    gc.collect()
+
+    # (d) ms a simulated cycle: the kernel by CUDA events, every call from
+    # one mid-run state (the SoCs finish in a few epochs), the plain version,
+    # and the bound: the benchmark's per-epoch count at the memory rate
+    mid = eng.run_epochs(eng.init(0, group_params={1: DramParams(mem=mem)}), epochs // 2)
+    local = eng._local_view(mid)
+    carry = (local.reg_val, local.reg_v, local.queues, local.block_states,
+             local.cycle, local.credits)
+    start = fc.clone(carry)
+    program = eng._resident_program(0)
+    consts = eng._consts(local.tables)
+    n_cyc = sum(a for op, a in program if op == "C")
+    n_before = granule_step.launches
+    kernel = lambda: granule_step.epoch_program_cuda(carry, program, consts)  # noqa: E731
+    kernel()  # warm-up
+    reps = 10
+    k_times = []
+    for _ in range(reps):
+        assign(carry, start)
+        k_times += [t / n_cyc for t in time_reps(kernel, 1, hold=True)]
+    granule_step.launches = n_before  # timing launches are not the main path
+    ref_carry = carry
+
+    def run_ref():
+        nonlocal ref_carry
+        ref_carry = granule_step.epoch_program_ref(
+            eng._resident_cycle, ref_carry, program,
+            exchange_fn=eng._resident_exchange,
+            issue_fn=eng._resident_exchange_issue,
+            commit_fn=eng._resident_exchange_commit, consts=consts)
+
+    run_ref()  # warm-up
+    p_times = [t / n_cyc for t in time_reps(run_ref, 3)]
+    kern_ms, plain_ms = statistics.median(k_times), statistics.median(p_times)
+    eb = cfg["epoch_bytes"]
+    per_cycle = n * (eb["state_read"] + eb["state_write"]) / eb["epoch_cycles"]
+    bound_ms = per_cycle / HBM_BYTES_PER_S * 1e3
+    log(f"[soc-full] granule_cycle<{mask}> per simulated cycle at {3 * n} slots "
+        f"(median of {reps} calls of {n_cyc} cycles from one mid-run state, CUDA "
+        f"events, the card held until every call was queued): {kern_ms:.5f} ms "
+        f"({min(k_times):.5f}-{max(k_times):.5f}); plain PyTorch on the card "
+        f"{plain_ms:.4f} ms ({min(p_times):.4f}-{max(p_times):.4f}), "
+        f"{plain_ms / kern_ms:.1f}x the kernel; bound {bound_ms:.5f} ms "
+        f"({per_cycle / n:.2f} B a SoC and cycle: soc-1M's per-epoch count over "
+        f"its {eb['epoch_cycles']} cycles), kernel at {kern_ms / bound_ms:.2f}x it")
+    del carry, ref_carry, start, local, mid
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the main path, as the benchmark runs it: Simulation.reset with new
+    # contents -> run(until=soc_done) in the device loop -> gather_group of
+    # the CPU group; twice, the second reset in place and its run replayed
+    sim = Simulation(eng)
+    runs = []
+    for seed in SOC_SEEDS:
+        mem = soc_contents(n, seed)
+        sim.reset(0, group_params={1: DramParams(mem=mem)})
+        sim.block_until_ready()
+        start = fc.clone(sim.state)
+        granule_step.launches = 0
+        c0 = until_counts()
+        t2 = time.perf_counter()
+        sim.run(until=done, max_epochs=cfg["max_epochs"])
+        sim.block_until_ready()
+        run_s = time.perf_counter() - t2
+        launches = granule_step.launches
+        first = dict(counts_since(c0), wall=run_s)
+        if sim.cycle != stop:
+            raise AssertionError(f"[soc-full] the session stopped at cycle {sim.cycle}, "
+                                 f"soc_ref at {stop}")
+        check_loop_counts("soc-full", "granule_step", launches, first, sim.epoch)
+        check_results(f"session, contents {seed}", sim.state, mem)
+        runs.append((launches, first))
+        log(f"[soc-full] session run, contents {seed}: stop cycle {sim.cycle} "
+            f"({sim.epoch} epochs), every result equal to soc_ref's; {launches} kernel "
+            f"calls ({launches * n_cyc} granule_cycle launches: {int(first['spans'])} "
+            f"replayed spans of {device_loop.SPAN} epochs of {n_cyc} cycles and "
+            f"{int(first['captures'])} capture's warm-up, the gated epochs after the "
+            f"stop included), {int(first['syncs'])} host syncs, {run_s * 1e3:.2f} ms "
+            f"wall")
+    if runs[1][1]["captures"]:
+        raise AssertionError("[soc-full] the run after an in-place reset captured anew")
+
+    # the host loop on the same card, warm replays, both loops under the
+    # profiler (granule_cycle's time per simulated cycle from the trace)
+    compare_loops("soc-full", eng, sim, start, done, cfg["max_epochs"], runs[1][1],
+                  fc.clone, fc.compare, 3 * n, ("granule_cycle",))
+    sim._state = None
+    del start, sim, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    result.update(
+        name="granule_step[SoC]", route="cuda",
+        source="src/repro_torch/kernels/csrc/granule_step.cu",
+        replaces="src/repro/kernels/granule_step.py:306",
+        block_type="Cpu+DramModel+AnalogRamp", mask=mask,
+        block_types=["ManycoreCell", "SystolicCell", "PipeStage", "Cpu", "DramModel",
+                     "AnalogRamp"],
+        launches=runs[1][0], max_abs_err=0.0, ms=kern_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+
+
 # ------------------------------------------- the queue interpreter (GraphEngine)
 GRAPH_TRACE_EPOCHS = 8  # the traced window of graph-full's until-runs
 
@@ -1929,7 +2124,8 @@ def phase_graph_small() -> None:
         f"K = (1, 1), 32x32 on 8 granules: every block state equal after each of "
         f"{ep + 1} epochs, to the allreduce's end")
 
-    # the heterogeneous SoC: three block types without a device step
+    # the heterogeneous SoC (three block types) on the queue interpreter;
+    # soc-full holds their device steps against the blocks' own steps
     soc = load_example("torch_heterogeneous_soc")
     single = soc.run_single(120, device="cuda")
     dist, seng = soc.run_distributed(K=1, cycles=120, device="cuda")
@@ -5659,7 +5855,7 @@ def main(argv=None) -> int:
                                        "Performance Loss", "setmaxnreg")):
                 log(f"[build] {line.strip()}")
     log(f"[build] {time.perf_counter() - t0:.2f} s wall for all {len(builds)}")
-    kernels = [{}, {}, {}]
+    kernels = [{}, {}, {}, {}]
     lm_kernels: list = []
     lm_paths: dict = {}  # flash at moe-full's and emb-full's models
     train_rows: dict = {}  # kernel -> arch -> train-full's numbers
@@ -5670,6 +5866,7 @@ def main(argv=None) -> int:
                        ("fsys-small", phase_fsys_small),
                        ("fsys-full", lambda: phase_fsys_full(kernels[2])),
                        ("fused-io", lambda: phase_fused_io(kernels[0])),
+                       ("soc-full", lambda: phase_soc_full(kernels[3])),
                        ("graph-small", phase_graph_small),
                        ("graph-full", phase_graph_full),
                        ("session-small", phase_session_small),

@@ -16,9 +16,15 @@ cycle, so the partitioned run is cycle-accurate and its results are
 bit-identical to the single-netlist simulator; at K=8 every transaction
 still completes and the analog drift stays bounded.
 
-The blocks act on a leading instance dim (``repro_torch.core.block``);
-none of them has a device step in the fused engine's kernel, so
-``GraphEngine`` is the partitioned engine that runs them on the card.
+Then many SoCs, whole SoCs a granule, run on ``FusedEngine`` (the
+paper's scale-up by more instances of the prebuilt simulators): on the
+card each block type's step is a device function of ``granule_step.cu``,
+all three in one launch a cycle; on the CPU the blocks' own steps.  Each
+SoC's DRAM holds other contents, and every SoC's results are the single
+netlist's shifted by them.
+
+The blocks live in ``repro_torch.hw.soc`` and act on a leading instance
+dim (``repro_torch.core.block``).
 
     python examples/torch_heterogeneous_soc.py               # on the card
     python examples/torch_heterogeneous_soc.py --device cpu
@@ -34,144 +40,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.core import Block, Network  # noqa: E402
-from repro_torch.core.struct import tensor_dataclass  # noqa: E402
+from repro_torch.core import Simulation  # noqa: E402
+from repro_torch.core.fused import FusedEngine  # noqa: E402
+from repro_torch.hw.soc import (  # noqa: E402
+    N_REQ, AnalogRamp, Cpu, DramModel, DramParams, build_soc, soc_done, soc_graph,
+    soc_partition,
+)
 
-N_REQ = 8
-
-
-def _rows(x: torch.Tensor) -> torch.Tensor:
-    return torch.arange(x.shape[0], device=x.device)
-
-
-# ------------------------------------------------- "RTL" cycle-accurate CPU
-@tensor_dataclass
-class CpuState:
-    pc: torch.Tensor       # (n,) int32
-    acc: torch.Tensor      # (n,) f32 — latest analog sample
-    results: torch.Tensor  # (n, N_REQ) f32
-    n_done: torch.Tensor   # (n,) int32
-    waiting: torch.Tensor  # (n,) bool
-
-
-class Cpu(Block):
-    """Issues DRAM reads 0..N-1; result = dram[addr] + latest analog sample."""
-
-    in_ports = ("dram_resp", "adc_in")
-    out_ports = ("dram_req",)
-    payload_words = 2
-
-    def init_state(self, n, params=None, *, generator=None, device=None):
-        zi = torch.zeros((n,), dtype=torch.int32, device=device)
-        return CpuState(
-            pc=zi.clone(), acc=torch.zeros((n,), device=device),
-            results=torch.zeros((n, N_REQ), device=device), n_done=zi.clone(),
-            waiting=torch.zeros((n,), dtype=torch.bool, device=device),
-        )
-
-    def step(self, state, rx, tx_ready):
-        (resp, resp_v) = rx["dram_resp"]
-        (adc, adc_v) = rx["adc_in"]
-        req_ready = tx_ready["dram_req"]
-
-        # always consume the freshest analog sample
-        acc = torch.where(adc_v, adc[:, 0], state.acc)
-
-        issue = (~state.waiting) & (state.pc < N_REQ) & req_ready
-        retire = state.waiting & resp_v
-        result = resp[:, 0] + acc
-        rows, slot = _rows(acc), (state.n_done % N_REQ).long()
-        results = state.results.clone()
-        results[rows, slot] = torch.where(retire, result, state.results[rows, slot])
-        new = state.replace(
-            pc=state.pc + issue.to(torch.int32),
-            acc=acc,
-            results=results,
-            n_done=state.n_done + retire.to(torch.int32),
-            waiting=(state.waiting | issue) & ~retire,
-        )
-        req = torch.stack([state.pc.to(torch.float32), torch.zeros_like(acc)], 1)
-        return new, {"dram_resp": retire, "adc_in": adc_v}, {"dram_req": (req, issue)}
-
-
-# ------------------------------------------------- "SW model" DRAM
-@tensor_dataclass
-class DramState:
-    mem: torch.Tensor          # (n, N_REQ) f32
-    delay: torch.Tensor        # (n,) int32
-    pending: torch.Tensor      # (n,) f32
-    has_pending: torch.Tensor  # (n,) bool
-
-
-class DramModel(Block):
-    """Functional model: fixed 3-cycle service latency, word-addressed."""
-
-    in_ports = ("req",)
-    out_ports = ("resp",)
-    payload_words = 2
-    LATENCY = 3
-
-    def init_state(self, n, params=None, *, generator=None, device=None):
-        mem = torch.arange(N_REQ, dtype=torch.float32, device=device) * 10.0
-        return DramState(
-            mem=mem.expand(n, N_REQ).clone(),
-            delay=torch.zeros((n,), dtype=torch.int32, device=device),
-            pending=torch.zeros((n,), device=device),
-            has_pending=torch.zeros((n,), dtype=torch.bool, device=device),
-        )
-
-    def step(self, state, rx, tx_ready):
-        (req, req_v) = rx["req"]
-        resp_ready = tx_ready["resp"]
-        accept = req_v & ~state.has_pending
-        addr = req[:, 0].to(torch.int32) % N_REQ
-        value = state.mem[_rows(addr), addr.long()]
-        ready_to_send = state.has_pending & (state.delay <= 0)
-        send = ready_to_send & resp_ready
-        new = state.replace(
-            delay=torch.where(accept, self.LATENCY, torch.clamp(state.delay - 1, min=0)),
-            pending=torch.where(accept, value, state.pending),
-            has_pending=(state.has_pending | accept) & ~send,
-        )
-        resp = torch.stack([state.pending, torch.ones_like(state.pending)], 1)
-        return new, {"req": accept}, {"resp": (resp, send)}
-
-
-# ------------------------------------------------- "SPICE" PWL analog block
-@tensor_dataclass
-class AnalogState:
-    t: torch.Tensor  # (n,) int32
-
-
-class AnalogRamp(Block):
-    """PWL source v(t) = (t mod 16)/16, sampled by the A2D bridge every
-    cycle of its own (divided) clock — the §III-G oversampling scheme."""
-
-    in_ports = ()
-    out_ports = ("adc_out",)
-    payload_words = 2
-    clock_divider = 4  # analog solver steps at 1/4 the digital rate
-
-    def init_state(self, n, params=None, *, generator=None, device=None):
-        return AnalogState(t=torch.zeros((n,), dtype=torch.int32, device=device))
-
-    def step(self, state, rx, tx_ready):
-        ready = tx_ready["adc_out"]
-        v = (state.t % 16).to(torch.float32) / 16.0
-        out = torch.stack([v, torch.zeros_like(v)], 1)
-        return state.replace(t=state.t + 1), {}, {"adc_out": (out, ready)}
-
-
-def build_soc(capacity: int = 8):
-    """One Network description, reused by every engine backend."""
-    net = Network(payload_words=2, capacity=capacity)
-    cpu = net.instantiate(Cpu(), name="cpu")
-    dram = net.instantiate(DramModel(), name="dram")
-    adc = net.instantiate(AnalogRamp(), name="adc")
-    net.connect(cpu["dram_req"], dram["req"])
-    net.connect(dram["resp"], cpu["dram_resp"])
-    net.connect(adc["adc_out"], cpu["adc_in"])
-    return net, cpu
+__all__ = ["AnalogRamp", "Cpu", "DramModel", "N_REQ", "build_soc", "run_distributed",
+           "run_fused", "run_single"]
 
 
 def run_single(cycles: int = 120, device="cuda"):
@@ -192,6 +69,22 @@ def run_distributed(K: int = 1, cycles: int = 120, device="cuda"):
                     batch_axes={"gx": 3}, device=device)
     sim.reset(0).run(cycles=cycles)
     return sim.probe(cpu), sim.engine
+
+
+def run_fused(n: int = 64, granules: int = 2, K: int = 8, device="cuda"):
+    """``n`` SoCs, ``n / granules`` whole SoCs a granule, batched on one
+    device, on ``FusedEngine``: SoC ``i``'s DRAM word ``a`` holds ``10 * a
+    + i``.  Runs until every CPU retired its reads; returns every CPU's
+    results (n, N_REQ), the stop cycle and the engine."""
+    eng = FusedEngine(soc_graph(n), soc_partition(n, granules), None, K=K,
+                      batch_axes={"g": granules}, overlap=False, device=device)
+    sim = Simulation(eng)
+    mem = (torch.arange(N_REQ, dtype=torch.float32) * 10.0
+           + torch.arange(n, dtype=torch.float32)[:, None])
+    sim.reset(0, group_params={1: DramParams(mem=mem.to(device))})
+    sim.run(until=lambda s: soc_done(s.block_states[0], s.tables.active[0]),
+            max_epochs=100)
+    return eng.gather_group(sim.state, 0).results, sim.cycle, eng
 
 
 def main(argv=None) -> None:
@@ -228,6 +121,14 @@ def main(argv=None) -> None:
     drift8 = cpu_k8.results.cpu().numpy() - base
     assert (drift8 >= 0).all() and (drift8 < 1.0).all()
     print("OK — K=8 epochs: all transactions complete, analog drift bounded")
+
+    # Scale-up: 64 SoCs, whole SoCs a granule, on the fused engine.
+    many, stop, feng = run_fused(device=args.device)
+    print(f"\nFusedEngine: {many.shape[0]} SoCs ({feng.graph.n_instances} blocks) on "
+          f"{feng.G} batched granules, K=8: every CPU done at cycle {stop}")
+    shift = np.arange(many.shape[0], dtype=np.float32)[:, None]
+    np.testing.assert_array_equal(many, results[None, :] + shift)
+    print("OK — every SoC's results are the single netlist's plus its own contents")
 
 
 if __name__ == "__main__":

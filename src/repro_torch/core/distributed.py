@@ -550,6 +550,8 @@ class GraphEngine(Placement):
         self._member_granule = low.member_granule
         self._member_slot = low.member_slot
         self._n_slot = low.n_slot
+        self._gather_idx: dict = {}  # gather_group's index a group, once
+        self._member_idx: dict = {}  # init's index a group, on the device, once
         routes = low.routes  # (tier, src granule, dst granule) -> channels
 
         self.classes: list[_ExchangeClass] = []
@@ -685,7 +687,10 @@ class GraphEngine(Placement):
                 device=self.device,
             )
             n_slot = self._n_slot[gi]
-            mo = torch.as_tensor(self._member_of[gi].reshape(-1), device=self.device)
+            if gi not in self._member_idx:  # uploaded once, not every reset
+                self._member_idx[gi] = torch.as_tensor(self._member_of[gi].reshape(-1),
+                                                       device=self.device)
+            mo = self._member_idx[gi]
             states.append(tree_map(
                 lambda x: x[mo].reshape(self.dev_shape + (n_slot,) + x.shape[1:]),
                 st,
@@ -733,10 +738,23 @@ class GraphEngine(Placement):
     def _gathered(self, state, pick: Callable) -> Tree:
         """``pick(shard state)`` of every shard in the global layout, as
         numpy leaves: copies, also of a CPU state, whose tensors the next
-        run or reset may overwrite."""
+        run or reset may overwrite.  A leaf on the card is copied once into
+        page-locked host memory from the caching host allocator: into
+        pageable memory the copy faults in and zeroes fresh pages every
+        read (32 MiB took ~15-19 ms on the H100's host, page-locked ~0.7
+        ms).  The arrays are the caller's: each keeps its block until the
+        caller drops it, and the block then serves a later read."""
         parts = [pick(s) for s in self._shards(state)]
         tree = gather(parts, self.real_shape) if self._sharded else parts[0]
-        return tree_map(lambda x: x.detach().to("cpu", copy=True).numpy(), tree)
+
+        def to_host(x: torch.Tensor):
+            if x.device.type != "cuda":
+                return x.detach().to("cpu", copy=True).numpy()
+            out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            out.copy_(x.detach())
+            return out.numpy()
+
+        return tree_map(to_host, tree)
 
     def _locate(self, didx: Sequence[int]) -> tuple[int, tuple]:
         """(shard, index within the shard's leading dims) of the granule at
@@ -1142,11 +1160,23 @@ class GraphEngine(Placement):
         """Group ``gi``'s member states in global instantiation order
         (numpy leaves); traced as a ``session.read`` span."""
         n_slot = self._n_slot[gi]
-        idx = self._member_granule[gi] * n_slot + self._member_slot[gi]
+        idx = self._gather_index(gi)
         with _trace.recorder().session_span("session.read", api="gather_group"):
             return tree_map(
                 lambda x: x.reshape((self.G * n_slot,) + x.shape[self.nd + 1:])[idx],
                 self._gathered(state, lambda s: s.block_states[gi]))
+
+    def _gather_index(self, gi: int):
+        """Where group ``gi``'s members sit in its flat (granule, slot)
+        rows, in instantiation order, worked out once; a full slice where
+        that is every row in order (the members fill their granules in
+        turn), so the read takes no second copy."""
+        if gi not in self._gather_idx:
+            n_slot = self._n_slot[gi]
+            idx = self._member_granule[gi] * n_slot + self._member_slot[gi]
+            whole = idx.size == self.G * n_slot and np.array_equal(idx, np.arange(idx.size))
+            self._gather_idx[gi] = slice(None) if whole else idx
+        return self._gather_idx[gi]
 
     def group_state(self, state, inst) -> Tree:
         """One instance's (unstacked) state — mirrors NetworkSim.group_state."""

@@ -132,6 +132,9 @@ class FusedEngine(GraphEngine):
         self._resident_from = min(r, self._fold_from)
         self._program_cache: dict[int, tuple] = {}
         self._cons_cache: dict[tuple, tuple] = {}
+        # what each launch of the CUDA program steps, for obs (host numbers)
+        granule_step.record_program([g.block for g in graph.groups],
+                                    [t.shape[1] for t in self._rx_flat])
 
     # ---------------------------------------------------- uniform-grid preset
     @classmethod

@@ -348,6 +348,50 @@ class ChannelGraph:
             params, payload_words, dtype, capacity,
         )
 
+    @classmethod
+    def replicate(cls, net, n: int) -> "ChannelGraph":
+        """Vectorized builder for ``n`` copies of the small netlist ``net``
+        (a ``Network`` without external ports): the tables equal
+        ``from_network`` of a network that instantiates and connects
+        ``net``'s blocks ``n`` times in turn — copy ``i``'s instance ``k``
+        is ``i * m + k``, its channel ``c`` is ``2 + i * n_c + c`` — each
+        group holding every copy's members of one block object, copy-major.
+        O(n) numpy, no per-instance loop; names elided at this scale."""
+        one = cls.from_network(net)
+        if one.ext_in or one.ext_out:
+            raise ValueError("replicate() takes a netlist without external ports: "
+                             "the copies would share their names")
+        m, n_c = one.n_instances, one.n_channels - _N_SENTINELS
+        copy = np.arange(n, dtype=np.int64)[:, None]
+
+        def wired(t: np.ndarray) -> np.ndarray:
+            # (m_g, n_p) channel ids -> (n * m_g, n_p), sentinels kept
+            t = t.astype(np.int64)[None]
+            out = np.where(t >= _N_SENTINELS, t + copy[..., None] * n_c, t)
+            return out.reshape(n * t.shape[1], t.shape[2]).astype(np.int32)
+
+        def tiled(x) -> np.ndarray:
+            x = np.asarray(x)
+            return np.tile(x, (n,) + (1,) * (x.ndim - 1))
+
+        groups = [
+            GroupDef(block=g.block,
+                     members=(g.members[None, :] + copy * m).reshape(-1).astype(np.int32),
+                     names=(),
+                     params=None if g.params is None else tree_map(tiled, g.params))
+            for g in one.groups
+        ]
+        ends = [np.concatenate([e[:_N_SENTINELS],
+                                (e[None, _N_SENTINELS:] + copy * m).reshape(-1)])
+                for e in (one.chan_src.astype(np.int64), one.chan_dst.astype(np.int64))]
+        return cls(
+            payload_words=one.payload_words, dtype=one.dtype, capacity=one.capacity,
+            groups=groups,
+            rx_idx=[wired(t) for t in one.rx_idx],
+            tx_idx=[wired(t) for t in one.tx_idx],
+            chan_src=ends[0], chan_dst=ends[1], ext_in={}, ext_out={},
+        )
+
     # -- queries -------------------------------------------------------------
     def locate(self, inst_id: int) -> tuple[int, int]:
         """(group index, slot) of a global instance id."""

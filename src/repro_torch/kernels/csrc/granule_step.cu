@@ -61,9 +61,26 @@
 //     output channel.  Its port tables hold one column and its flat
 //     consumer ids one a slot (in_base + slot), where the other types have
 //     two.
+//   3 Cpu, 4 DramModel, 5 AnalogRamp  (repro_torch/hw/soc.py): the three
+//     model types of the paper's heterogeneous SoC (section IV-A), whose
+//     port counts differ: the CPU has two in ports (dram_resp, adc_in) and
+//     one out port (dram_req), the DRAM one of each, the ramp no in port
+//     and one out port.  Each group carries its own counts (Group::n_in,
+//     n_out), and its tables that many columns (none for the ramp's rx_idx,
+//     a null pointer).  Cpu: acc takes the freshest sample, a read issues
+//     when none is outstanding and dram_req is ready, a reply retires it
+//     into results[n_done % n_req] as the word plus acc by __fadd_rn;
+//     readiness on dram_resp is `waiting`, on adc_in always.  DramModel: a
+//     request is taken when none is pending (the address its word 0 by
+//     truncation, modulo n_req), answered after `latency` cycles when resp
+//     is ready; readiness on req is !has_pending.  AnalogRamp: offers
+//     (t mod period) / period by __fdiv_rn when adc_out is ready, t += 1,
+//     on its divided clock.  `results` and `mem` are n_req words a slot.
 // granule_cycle is instantiated for each set of types a program holds, so
 // the wafer's kernel carries ManycoreCell's code alone; a set that holds
-// PipeStage adds instantiations and leaves the others' code as it was.
+// PipeStage adds instantiations and leaves the others' code as it was, and
+// so does the SoC's set (its three types together, the one mix of them
+// instantiated).
 //
 // The pre-cycle snapshot, by parity: every leaf that another thread reads
 // within a cycle is read from buffer s = cycle parity and written to
@@ -75,7 +92,10 @@
 //   * SystolicCell: a_idx, read by the producer of a west cell's n_in (its
 //     a_valid).  Only west cells step a_idx, so only they write buffer
 //     s ^ 1; both buffers start equal and stay so elsewhere.  The flags and
-//     b are read-only; y_idx, y_buf and fires only their owner touches.
+//     b are read-only; y_idx, y_buf and fires only their owner touches;
+//   * Cpu: waiting, read by the DRAM whose reply it takes; DramModel:
+//     has_pending, read by the CPU whose request it takes.  Their other
+//     leaves (and the ramp's t) only their owner touches.
 // reg_val needs no second buffer: a producer writes a register only when
 // it was empty before the cycle, and a consumer reads it only when it was
 // full.  Leaves only their owner touches stay in place.  The cycle counter
@@ -117,7 +137,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-enum BlockType { kManycore = 0, kSystolic = 1, kPipe = 2, kNumTypes = 3 };
+enum BlockType {
+  kManycore = 0, kSystolic = 1, kPipe = 2, kCpu = 3, kDram = 4, kAnalog = 5,
+  kNumTypes = 6
+};
+// The SoC's types, instantiated together.
+static const int kSocMask = (1 << kCpu) | (1 << kDram) | (1 << kAnalog);
+// In and out ports a slot, by type.
+static const int kInPorts[kNumTypes] = {2, 2, 1, 2, 1, 0};
+static const int kOutPorts[kNumTypes] = {2, 2, 1, 1, 1, 1};
 static const int kMaxGroups = 4;
 static const int kThreads = 256;
 // 8 CTAs of 256 threads an SM: the full 2048 threads, 32 registers each.
@@ -130,8 +158,8 @@ static const int kMinBlocks = 8;
 
 // Field order of the structs below must match the ctypes mirrors in
 // repro_torch.kernels.granule_step (_CoreLeaves, _CellLeaves, _PipeLeaves,
-// _Group, _ProgramArgs); granule_args_size() lets the wrapper check the
-// layout.
+// _CpuLeaves, _DramLeaves, _AnalogLeaves, _Group, _ProgramArgs);
+// granule_args_size() lets the wrapper check the layout.
 struct CoreLeaves {  // ManycoreCell's CoreState, (n_slot,) each; `value` unused
   float* own;
   float* acc;
@@ -165,22 +193,50 @@ struct PipeLeaves {  // PipeStage's PipeStageState
   float delta;     // added to word 0 (the group's block constant)
 };
 
+struct CpuLeaves {  // Cpu's CpuState
+  int32_t* pc;
+  float* acc;
+  float* results;       // (n_slot, n_req)
+  int32_t* n_done;
+  uint8_t* waiting[2];  // by cycle parity (the replying DRAM reads it)
+  int32_t n_req;
+};
+
+struct DramLeaves {  // DramModel's DramState
+  const float* mem;         // (n_slot, n_req), read-only
+  int32_t* delay;
+  float* pending;
+  uint8_t* has_pending[2];  // by cycle parity (the requesting CPU reads it)
+  int32_t n_req;
+  int32_t latency;
+};
+
+struct AnalogLeaves {  // AnalogRamp's AnalogState
+  int32_t* t;
+  int32_t period;
+};
+
 struct Group {
   int32_t type;     // BlockType
   int32_t base;     // first thread, a multiple of 32
   int32_t n_slot;   // flat slots (all batch rows)
   int32_t in_base;  // flat consumer id of slot 0, port 0
   int32_t divider;  // clock divider
+  int16_t n_in;     // in and out ports a slot (kInPorts, kOutPorts), in
+  int16_t n_out;    // what was padding before the pointers
   // port tables in combined ids: [0, n_reg) registers, then queue rows
-  const int32_t* rx_idx;  // (n_slot, 2); PipeStage (n_slot, 1)
-  const int32_t* tx_idx;  // (n_slot, 2); PipeStage (n_slot, 1)
+  const int32_t* rx_idx;  // (n_slot, n_in); null where n_in is 0
+  const int32_t* tx_idx;  // (n_slot, n_out)
   // consumer of each output port: a flat consumer id, -1 for none (a queue
   // row), -2 where the port drives no channel (a sentinel)
-  const int32_t* cons;    // (n_slot, 2); PipeStage (n_slot, 1)
+  const int32_t* cons;    // (n_slot, n_out)
   union {
     CoreLeaves core;
     CellLeaves cell;
     PipeLeaves pipe;
+    CpuLeaves cpu;
+    DramLeaves dram;
+    AnalogLeaves analog;
   } u;
 };
 
@@ -317,6 +373,18 @@ __device__ __forceinline__ bool pipe_ready(const ProgramArgs& a, const Group& g,
   return chan_ready(a, s, g.tx_idx[j]);
 }
 
+// Cpu's readiness on in port pj of slot j (clock enable aside): it always
+// takes the analog sample, and a reply only to an outstanding read.
+__device__ __forceinline__ bool cpu_ready(const Group& g, int s, int j, int pj) {
+  return pj == 1 || g.u.cpu.waiting[s][j] != 0;
+}
+
+// DramModel's readiness on its in port of slot j (clock enable aside): a
+// request is taken when none is pending.
+__device__ __forceinline__ bool dram_ready(const Group& g, int s, int j) {
+  return g.u.dram.has_pending[s][j] == 0;
+}
+
 // Readiness of the consumer with flat id `cons` (>= 0), its clock included:
 // the group whose in-port range holds it, by that group's type.
 template <int kMask>
@@ -327,14 +395,19 @@ __device__ __forceinline__ bool consumer_ready(const ProgramArgs& a, int s,
     if (gi >= a.n_groups) return false;
     const Group& g = a.g[gi];
     const bool pipe = (kMask & (1 << kPipe)) && g.type == kPipe;
+    // in ports a slot: the group's own where a SoC type runs, else the
+    // counts masks 1-7 have built in (so their code stays as it was)
+    const int n_in = (kMask & kSocMask) ? g.n_in : (pipe ? 1 : 2);
     const int k = cons - g.in_base;
-    if (k < 0 || k >= (pipe ? 1 : 2) * g.n_slot) continue;
+    if (k < 0 || k >= n_in * g.n_slot) continue;
     if (!enabled(a, g, off)) return false;
     if ((kMask & (1 << kManycore)) && g.type == kManycore)
       return core_ready(a, g, s, k >> 1, k & 1);
     if ((kMask & (1 << kSystolic)) && g.type == kSystolic)
       return cell_ready(a, g, s, k >> 1, k & 1);
     if (pipe) return pipe_ready(a, g, s, k);
+    if ((kMask & (1 << kCpu)) && g.type == kCpu) return cpu_ready(g, s, k >> 1, k & 1);
+    if ((kMask & (1 << kDram)) && g.type == kDram) return dram_ready(g, s, k);
     return false;
   }
   return false;
@@ -542,6 +615,100 @@ __device__ __forceinline__ void pipe_step(const ProgramArgs& a, const Group& g,
   if (en && fire) L.count[i] += 1;
 }
 
+// Cpu.step (repro_torch/hw/soc.py) on slot i of group g.
+template <int kMask>
+__device__ __forceinline__ void cpu_step(const ProgramArgs& a, const Group& g,
+                                         int i, int s, int off, bool halt) {
+  const CpuLeaves& L = g.u.cpu;
+  const int d = s ^ 1;
+  const bool en = enabled(a, g, off);
+  const int2 rx = pair_at(g.rx_idx, i);  // dram_resp, adc_in
+  const int tx = g.tx_idx[i], cn = g.cons[i];  // dram_req
+  const bool waiting = L.waiting[s][i] != 0;
+  const int pc = L.pc[i], n_done = L.n_done[i];
+  if (halt) return;  // after the slot's first loads, which overlap the flag's
+
+  const bool resp_v = chan_valid(a, s, rx.x);
+  const bool adc_v = chan_valid(a, s, rx.y);
+  const bool req_ready = chan_ready(a, s, tx);
+  // always the freshest analog sample
+  const float acc = adc_v ? chan_front(a, s, rx.y).x : L.acc[i];
+  const bool issue = !waiting && pc < L.n_req && req_ready;
+  const bool retire = waiting && resp_v;
+
+  // in ports: pop the reply a retire takes and every sample; out port: the
+  // read of address pc
+  commit_in(a, s, rx.x, en && retire);
+  commit_in(a, s, rx.y, en && adc_v);
+  commit_out<kMask>(a, s, off, tx, cn, en && issue, (float)pc, 0.0f);
+
+  // the slot's own state (a divided clock holds it on this cycle)
+  if (!en) {
+    L.waiting[d][i] = waiting ? 1 : 0;
+    return;
+  }
+  if (retire) {
+    const float word = chan_front(a, s, rx.x).x;
+    L.results[(int64_t)i * L.n_req + ring(n_done, L.n_req)] = __fadd_rn(word, acc);
+    L.n_done[i] = n_done + 1;
+  }
+  if (adc_v) L.acc[i] = acc;
+  if (issue) L.pc[i] = pc + 1;
+  L.waiting[d][i] = ((waiting || issue) && !retire) ? 1 : 0;
+}
+
+// DramModel.step (repro_torch/hw/soc.py) on slot i of group g.
+template <int kMask>
+__device__ __forceinline__ void dram_step(const ProgramArgs& a, const Group& g,
+                                          int i, int s, int off, bool halt) {
+  const DramLeaves& L = g.u.dram;
+  const int d = s ^ 1;
+  const bool en = enabled(a, g, off);
+  const int rx = g.rx_idx[i], tx = g.tx_idx[i], cn = g.cons[i];  // req, resp
+  const bool pending = L.has_pending[s][i] != 0;
+  const int delay = L.delay[i];
+  if (halt) return;  // after the slot's first loads, which overlap the flag's
+
+  const bool req_v = chan_valid(a, s, rx);
+  const bool resp_ready = chan_ready(a, s, tx);
+  const bool accept = req_v && !pending;
+  const bool send = pending && delay <= 0 && resp_ready;
+
+  // in port: pop the request it takes; out port: [pending, 1] on a send
+  commit_in(a, s, rx, en && accept);
+  commit_out<kMask>(a, s, off, tx, cn, en && send, send ? L.pending[i] : 0.0f, 1.0f);
+
+  // the slot's own state (a divided clock holds it on this cycle)
+  if (!en) {
+    L.has_pending[d][i] = pending ? 1 : 0;
+    return;
+  }
+  if (accept) {
+    const int addr = ring((int)chan_front(a, s, rx).x, L.n_req);
+    L.pending[i] = L.mem[(int64_t)i * L.n_req + addr];
+  }
+  const int delay2 = accept ? L.latency : (delay - 1 > 0 ? delay - 1 : 0);
+  if (delay2 != delay) L.delay[i] = delay2;
+  L.has_pending[d][i] = ((pending || accept) && !send) ? 1 : 0;
+}
+
+// AnalogRamp.step (repro_torch/hw/soc.py) on slot i of group g.
+template <int kMask>
+__device__ __forceinline__ void analog_step(const ProgramArgs& a, const Group& g,
+                                            int i, int s, int off, bool halt) {
+  const AnalogLeaves& L = g.u.analog;
+  const bool en = enabled(a, g, off);
+  const int tx = g.tx_idx[i], cn = g.cons[i];  // adc_out
+  const int t = L.t[i];
+  if (halt) return;  // after the slot's first loads, which overlap the flag's
+
+  // out port: the sample where the channel is ready (no in port to commit)
+  const bool ready = chan_ready(a, s, tx);
+  const float v = __fdiv_rn((float)ring(t, L.period), (float)L.period);
+  commit_out<kMask>(a, s, off, tx, cn, en && ready, v, 0.0f);
+  if (en) L.t[i] = t + 1;
+}
+
 // One cycle of every slot of every group: the group's block step and the
 // commit of every channel end the slot owns.  kMask: the block types the
 // program holds (bit t for type t).
@@ -561,6 +728,12 @@ granule_cycle(const ProgramArgs a, const int s, const int off) {
       cell_step<kMask>(a, g, i - g.base, s, off, halt);
     else if ((kMask & (1 << kPipe)) && g.type == kPipe)
       pipe_step<kMask>(a, g, i - g.base, s, off, halt);
+    else if ((kMask & (1 << kCpu)) && g.type == kCpu)
+      cpu_step<kMask>(a, g, i - g.base, s, off, halt);
+    else if ((kMask & (1 << kDram)) && g.type == kDram)
+      dram_step<kMask>(a, g, i - g.base, s, off, halt);
+    else if ((kMask & (1 << kAnalog)) && g.type == kAnalog)
+      analog_step<kMask>(a, g, i - g.base, s, off, halt);
     return;
   }
 }
@@ -667,6 +840,9 @@ static cudaError_t launch_cycle(int mask, const ProgramArgs& a, int s, int off,
       granule_cycle<(1 << kManycore) | (1 << kSystolic) | (1 << kPipe)>
           <<<grid, kThreads, 0, stream>>>(a, s, off);
       break;
+    case kSocMask:
+      granule_cycle<kSocMask><<<grid, kThreads, 0, stream>>>(a, s, off);
+      break;
     default:
       return cudaErrorInvalidValue;
   }
@@ -688,11 +864,13 @@ extern "C" int granule_program(const ProgramArgs* args, const TierArgs* tiers,
   for (int gi = 0; gi < a.n_groups; ++gi) {
     const Group& g = a.g[gi];
     if (g.type < 0 || g.type >= kNumTypes || g.divider < 1 || g.n_slot <= 0 ||
-        g.base % 32 != 0 || g.base < end || g.in_base != in_end)
+        g.base % 32 != 0 || g.base < end || g.in_base != in_end ||
+        g.n_in != kInPorts[g.type] || g.n_out != kOutPorts[g.type] ||
+        (g.n_in > 0) != (g.rx_idx != nullptr))
       return (int)cudaErrorInvalidValue;
     mask |= 1 << g.type;
     end = g.base + g.n_slot;
-    in_end += (g.type == kPipe ? 1 : 2) * g.n_slot;
+    in_end += g.n_in * g.n_slot;
   }
   if (a.n_threads != end) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
@@ -739,7 +917,13 @@ extern "C" int granule_program(const ProgramArgs* args, const TierArgs* tiers,
       } else if (g.type == kSystolic) {
         const CellLeaves& L = g.u.cell;
         copies[n_copies++] = {L.a_idx[0], L.a_idx[1], slots * 4};
-      }  // PipeStage: no paired leaf (only its owner touches count)
+      } else if (g.type == kCpu) {
+        const CpuLeaves& L = g.u.cpu;
+        copies[n_copies++] = {L.waiting[0], L.waiting[1], slots};
+      } else if (g.type == kDram) {
+        const DramLeaves& L = g.u.dram;
+        copies[n_copies++] = {L.has_pending[0], L.has_pending[1], slots};
+      }  // PipeStage, AnalogRamp: no paired leaf (only the owner touches them)
     }
     for (int k = 0; k < n_copies; ++k) {
       const int64_t n = (int64_t)copies[k].n;

@@ -250,19 +250,24 @@ def south_done(cells, M: int):
 
 def blocks_done(blocks, states) -> torch.Tensor:
     """() bool on the states' device — the end of a run of the systems
-    here: every ``ManycoreCell`` group finished its allreduce, and every
+    here: every ``ManycoreCell`` group finished its allreduce, every
     ``SystolicCell`` group with west cells (a grid; the relays stream
-    nothing) collected ``M`` outputs at each south cell.  Nothing is read
-    back to the host, so it serves as a device loop's predicate."""
+    nothing) collected ``M`` outputs at each south cell, and every ``Cpu``
+    retired its reads (``hw.soc.soc_done``).  Nothing is read back to the
+    host, so it serves as a device loop's predicate."""
     from ..hw.manycore import ManycoreCell
+    from ..hw.soc import Cpu, soc_done
     from ..hw.systolic import SystolicCell
 
-    done = torch.ones((), dtype=torch.bool, device=states[0].fires.device)
+    device = next(x for _, x in tree_paths(states[0])).device
+    done = torch.ones((), dtype=torch.bool, device=device)
     for blk, st in zip(blocks, states):
         if isinstance(blk, ManycoreCell):
             done = done & (st.phase == 2).all()
         elif isinstance(blk, SystolicCell):
             done = done & (~st.is_west.any() | south_done(st, blk.m_stream))
+        elif isinstance(blk, Cpu):
+            done = done & soc_done(st)
     return done
 
 

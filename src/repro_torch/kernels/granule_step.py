@@ -18,10 +18,12 @@ are the issue and commit halves of that exchange (see
     registers it produces, with the consumer's readiness recomputed
     through :func:`consumer_table`; the boundary rows it pushes or pops),
     and the credit-bounded slab exchange between cycles.  ``ManycoreCell``,
-    ``SystolicCell`` and ``PipeStage`` have a device step
+    ``SystolicCell``, ``PipeStage`` and the heterogeneous SoC's ``Cpu``,
+    ``DramModel`` and ``AnalogRamp`` have a device step
     (:func:`device_step_type`); a program of up to :data:`MAX_GROUPS`
-    groups of them, of any type and mix, runs in one launch a cycle, each
-    group on its own warps.  Any other block type raises
+    groups runs in one launch a cycle, each group on its own warps: of the
+    first three types in any mix, or the SoC's three together
+    (:data:`SOC_MASK`).  Any other block type or mix raises
     ``NotImplementedError`` on a CUDA state.
     The kernel updates the carry's tensors in place and returns the same
     carry.
@@ -331,13 +333,35 @@ class _PipeLeaves(ctypes.Structure):
     _fields_ = [("count", _PTR), ("delta", ctypes.c_float)]
 
 
+class _CpuLeaves(ctypes.Structure):
+    """``CpuLeaves`` of ``csrc/granule_step.cu`` (``Cpu``)."""
+
+    _fields_ = [("pc", _PTR), ("acc", _PTR), ("results", _PTR), ("n_done", _PTR),
+                ("waiting", _PAIR), ("n_req", _I32)]
+
+
+class _DramLeaves(ctypes.Structure):
+    """``DramLeaves`` of ``csrc/granule_step.cu`` (``DramModel``)."""
+
+    _fields_ = [("mem", _PTR), ("delay", _PTR), ("pending", _PTR),
+                ("has_pending", _PAIR), ("n_req", _I32), ("latency", _I32)]
+
+
+class _AnalogLeaves(ctypes.Structure):
+    """``AnalogLeaves`` of ``csrc/granule_step.cu`` (``AnalogRamp``)."""
+
+    _fields_ = [("t", _PTR), ("period", _I32)]
+
+
 class _Leaves(ctypes.Union):
-    _fields_ = [("core", _CoreLeaves), ("cell", _CellLeaves), ("pipe", _PipeLeaves)]
+    _fields_ = [("core", _CoreLeaves), ("cell", _CellLeaves), ("pipe", _PipeLeaves),
+                ("cpu", _CpuLeaves), ("dram", _DramLeaves), ("analog", _AnalogLeaves)]
 
 
 class _Group(ctypes.Structure):
     _fields_ = [("type", _I32), ("base", _I32), ("n_slot", _I32),
-                ("in_base", _I32), ("divider", _I32), ("rx_idx", _PTR),
+                ("in_base", _I32), ("divider", _I32), ("n_in", ctypes.c_int16),
+                ("n_out", ctypes.c_int16), ("rx_idx", _PTR),
                 ("tx_idx", _PTR), ("cons", _PTR), ("u", _Leaves)]
 
 
@@ -364,20 +388,74 @@ class _TierArgs(ctypes.Structure):
                 + [(n, _I32) for n in _TIER_INTS])
 
 
-def device_step_type(block) -> int | None:
-    """The kernel's type code of ``block`` (0 ``ManycoreCell``, 1
-    ``SystolicCell``, 2 ``PipeStage``), or None where the kernel has no
-    step for it.  A subclass counts only where it keeps its base's
-    ``step`` (a clock divider, say): any other step has no device
-    function."""
+def _device_classes() -> tuple:
+    """The block classes with a device step, by type code."""
     from ..hw.manycore import ManycoreCell
     from ..hw.pipestage import PipeStage
+    from ..hw.soc import AnalogRamp, Cpu, DramModel
     from ..hw.systolic import SystolicCell
 
-    for code, cls in enumerate((ManycoreCell, SystolicCell, PipeStage)):
+    return (ManycoreCell, SystolicCell, PipeStage, Cpu, DramModel, AnalogRamp)
+
+
+def device_step_type(block) -> int | None:
+    """The kernel's type code of ``block`` (0 ``ManycoreCell``, 1
+    ``SystolicCell``, 2 ``PipeStage``, 3 ``Cpu``, 4 ``DramModel``, 5
+    ``AnalogRamp``), or None where the kernel has no step for it.  A
+    subclass counts only where it keeps its base's ``step`` (a clock
+    divider, say): any other step has no device function."""
+    for code, cls in enumerate(_device_classes()):
         if isinstance(block, cls) and type(block).step is cls.step:
             return code
     return None
+
+
+#: The type mask of the SoC's program (``Cpu``, ``DramModel`` and
+#: ``AnalogRamp`` together), the one mix of those types instantiated
+#: beside masks 1-7 (the first three types in any mix).
+SOC_MASK = (1 << 3) | (1 << 4) | (1 << 5)
+
+
+def program_mask(blocks) -> int:
+    """The ``granule_cycle`` variant a program of ``blocks`` launches (bit
+    ``t`` for type code ``t``).  Raises ``NotImplementedError``, naming
+    the types, for a block without a device step and for a mix the kernel
+    has no variant of."""
+    codes = [device_step_type(b) for b in blocks]
+    names = ", ".join(type(b).__name__ for b in blocks)
+    if None in codes or not 1 <= len(codes) <= MAX_GROUPS:
+        raise NotImplementedError(
+            f"no device step for block types [{names}]: the CUDA epoch "
+            f"program steps up to {MAX_GROUPS} groups of ManycoreCell, "
+            "SystolicCell, PipeStage, Cpu, DramModel and AnalogRamp"
+        )
+    mask = 0
+    for c in codes:
+        mask |= 1 << c
+    if not (1 <= mask <= 7 or mask == SOC_MASK):
+        raise NotImplementedError(
+            f"no granule_cycle variant for the mix [{names}] (type mask {mask}): "
+            "the kernel holds ManycoreCell, SystolicCell and PipeStage in any mix, "
+            "and Cpu, DramModel and AnalogRamp only all three together")
+    return mask
+
+
+def record_program(blocks, n_slots) -> None:
+    """Publish, at a program's build, the slots a launch steps of each block
+    type (``granule.slots.<type>``, every batch row) and the variant mask it
+    launches (``granule.mask``): host numbers, no synchronize.  A program
+    the kernel has no variant of publishes nothing."""
+    try:
+        mask = program_mask(blocks)
+    except NotImplementedError:
+        return
+    per_type: dict = {}
+    for b, n in zip(blocks, n_slots):
+        key = type(b).__name__.lower()
+        per_type[key] = per_type.get(key, 0) + int(n)
+    for key, n in per_type.items():
+        REGISTRY.set(f"granule.slots.{key}", float(n))
+    REGISTRY.set("granule.mask", float(mask))
 
 
 def _library():
@@ -397,29 +475,46 @@ def _library():
     return fn
 
 
-#: Port columns of each type's tables (``rx_idx``, ``tx_idx``, ``cons``)
-#: and in-port ids a slot, by type code: PipeStage has one of each.
-_PORTS = (2, 2, 1)
+#: (in ports, out ports) a slot by type code: the columns of each type's
+#: tables (``rx_idx``; ``tx_idx`` and ``cons``), and its in-port ids a
+#: slot.  The ramp has no in port, so no ``rx_idx``.
+_PORTS = ((2, 2), (2, 2), (1, 1), (2, 1), (1, 1), (0, 1))
+
+
+def _type_leaves(code: int, block) -> tuple:
+    """(state class, {leaf: dtype}, paired leaves, {leaf: words a slot})
+    of type ``code``."""
+    from ..hw import manycore, pipestage, soc, systolic
+
+    if code <= 2:
+        mod, cls = ((manycore, manycore.CoreState), (systolic, systolic.CellState),
+                    (pipestage, pipestage.PipeStageState))[code]
+        wide = {"a_buf": block.m_stream, "y_buf": block.m_stream} if code == 1 else {}
+        return cls, mod.DEVICE_LEAVES, mod.PAIRED_LEAVES, wide
+    kind = _device_classes()[code]
+    cls = (soc.CpuState, soc.DramState, soc.AnalogState)[code - 3]
+    return (cls, soc.DEVICE_LEAVES[kind], soc.PAIRED_LEAVES[kind],
+            dict.fromkeys(soc.WIDE_LEAVES, soc.N_REQ))
 
 
 def _group_leaves(code: int, block, st, n_slot: int, dev, keep: list):
     """The state leaves of one group for the kernel, checked; each paired
     leaf gets its second buffer (kept alive in ``keep``)."""
-    from ..hw import manycore, pipestage, systolic
+    from ..hw import soc
 
-    mod, cls = ((manycore, manycore.CoreState), (systolic, systolic.CellState),
-                (pipestage, pipestage.PipeStageState))[code]
+    cls, leaves, paired, wide = _type_leaves(code, block)
     if not isinstance(st, cls):
         raise TypeError(f"{type(block).__name__}: expected {cls.__name__}, "
                         f"got {type(st).__name__}")
     ptr = {}
-    for name, dtype in mod.DEVICE_LEAVES.items():
+    for name, dtype in leaves.items():
         x = getattr(st, name)
-        shape = (n_slot,) + ((block.m_stream,) if name in ("a_buf", "y_buf") else ())
+        shape = (n_slot,) + ((wide[name],) if name in wide else ())
         p0 = tensor_ptr(x, name, dtype, shape, dev)
-        if name in mod.PAIRED_LEAVES:
-            # ManycoreCell's paired leaves are written by every slot every
-            # cycle; a_idx only by west cells, so its copy starts equal
+        if name in paired:
+            # ManycoreCell's and the SoC's paired leaves are written by every
+            # slot every cycle; a_idx only by west cells, so its copy starts
+            # equal
             x1 = x.clone() if code == 1 else torch.empty_like(x)
             keep.append(x1)
             ptr[name] = _PAIR(p0, x1.data_ptr())
@@ -429,7 +524,13 @@ def _group_leaves(code: int, block, st, n_slot: int, dev, keep: list):
         return _Leaves(core=_CoreLeaves(**ptr, R=block.R, C=block.C))
     if code == 1:
         return _Leaves(cell=_CellLeaves(**ptr, M=block.m_stream))
-    return _Leaves(pipe=_PipeLeaves(**ptr, delta=block.delta))
+    if code == 2:
+        return _Leaves(pipe=_PipeLeaves(**ptr, delta=block.delta))
+    if code == 3:
+        return _Leaves(cpu=_CpuLeaves(**ptr, n_req=soc.N_REQ))
+    if code == 4:
+        return _Leaves(dram=_DramLeaves(**ptr, n_req=soc.N_REQ, latency=block.LATENCY))
+    return _Leaves(analog=_AnalogLeaves(**ptr, period=block.PERIOD))
 
 
 def epoch_program_cuda(carry: Tree, program: Program,
@@ -448,14 +549,8 @@ def epoch_program_cuda(carry: Tree, program: Program,
     program = validate_program(program)
     reg_val, reg_v, q, block_states, cycle, credits = carry
     dev = reg_val.device
+    program_mask(consts.blocks)
     codes = [device_step_type(b) for b in consts.blocks]
-    if None in codes or not 1 <= len(codes) <= MAX_GROUPS:
-        names = ", ".join(type(b).__name__ for b in consts.blocks)
-        raise NotImplementedError(
-            f"no device step for block types [{names}]: the CUDA epoch "
-            f"program steps up to {MAX_GROUPS} groups of ManycoreCell, "
-            "SystolicCell and PipeStage"
-        )
     n_reg, W = reg_val.shape
     if W != 2:
         raise ValueError(f"the device steps take 2-word packets, carry has {W}")
@@ -478,20 +573,22 @@ def epoch_program_cuda(carry: Tree, program: Program,
     groups = (_Group * MAX_GROUPS)()
     base = in_base = 0
     for gi, (code, block, st) in enumerate(zip(codes, consts.blocks, block_states)):
-        n_slot, ports = consts.rx_idx[gi].shape[0], _PORTS[code]
+        n_slot, (n_in, n_out) = consts.rx_idx[gi].shape[0], _PORTS[code]
         tables = {}
-        for name, t in (("rx_idx", consts.rx_idx[gi]), ("tx_idx", consts.tx_idx[gi]),
-                        ("cons", consts.cons[gi])):
-            tables[name] = tensor_ptr(t, f"{name}.{gi}", torch.int32, (n_slot, ports), dev)
-            if tables[name] % (4 * ports):
+        for name, t, ports in (("rx_idx", consts.rx_idx[gi], n_in),
+                               ("tx_idx", consts.tx_idx[gi], n_out),
+                               ("cons", consts.cons[gi], n_out)):
+            ptr = tensor_ptr(t, f"{name}.{gi}", torch.int32, (n_slot, ports), dev)
+            tables[name] = ptr if ports else None  # a type without in ports
+            if ports and ptr % (4 * ports):
                 raise ValueError(f"{name}.{gi}: the kernel loads int2 pairs, "
                                  "the table must be 8-byte aligned")
         groups[gi] = _Group(
             type=code, base=base, n_slot=n_slot, in_base=in_base,
-            divider=int(block.clock_divider),
+            divider=int(block.clock_divider), n_in=n_in, n_out=n_out,
             u=_group_leaves(code, block, st, n_slot, dev, keep), **tables)
         base += -(-n_slot // 32) * 32  # the next group starts on a warp boundary
-        in_base += ports * n_slot
+        in_base += n_in * n_slot
     args = _ProgramArgs(
         reg_val=tensor_ptr(reg_val, "reg_val", torch.float32, (n_reg, W), dev),
         reg_v=paired(reg_v, "reg_v", torch.bool, (n_reg,)),
@@ -545,8 +642,8 @@ def epoch_program_cuda(carry: Tree, program: Program,
 
 
 __all__ = [
-    "MAX_GROUPS", "Program", "ProgramConsts", "consumer_table",
+    "MAX_GROUPS", "Program", "ProgramConsts", "SOC_MASK", "consumer_table",
     "device_step_type", "epoch_program",
     "epoch_program_ref", "epoch_program_cuda", "overlap_program",
-    "resolve_overlap", "validate_program",
+    "program_mask", "record_program", "resolve_overlap", "validate_program",
 ]

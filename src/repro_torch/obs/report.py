@@ -13,7 +13,11 @@ Renders, from an exported Perfetto trace file:
     track's spans, ``epoch`` spans left out;
   * **top stalls** — the longest individual wait-like spans (credit
     waits, slab waits, pump waits), with track and timestamp so the
-    window can be inspected in the Perfetto UI.
+    window can be inspected in the Perfetto UI;
+  * **granule program**, given a registry snapshot (``--stats``, a
+    ``Simulation.stats()`` document, or ``summarize(..., metrics=)``): the
+    slots each launch of ``granule_step``'s cycle steps, by block type,
+    and the variant mask it launches.
 
 :func:`idle_split` puts a device trace's idle time down to the session's
 spans (``obs.trace``), laid on the device trace's clock.
@@ -134,7 +138,21 @@ def _self_seconds(spans: list) -> list:
     return self_s
 
 
-def summarize(doc: dict, *, top: int = 10) -> str:
+def granule_lines(metrics: dict) -> list:
+    """The ``granule.*`` entries of a registry snapshot as report lines:
+    the slots a launch steps by block type, then the variant mask."""
+    slots = sorted((k[len("granule.slots."):], v) for k, v in metrics.items()
+                   if k.startswith("granule.slots."))
+    if not slots and "granule.mask" not in metrics:
+        return []
+    lines = ["granule program (per launch of granule_cycle):"]
+    lines += [f"  slots {name:<14} {int(v):>12d}" for name, v in slots]
+    if "granule.mask" in metrics:
+        lines.append(f"  variant mask         {int(metrics['granule.mask']):>12d}")
+    return lines
+
+
+def summarize(doc: dict, *, top: int = 10, metrics: dict | None = None) -> str:
     events = doc["traceEvents"]
     names = _track_names(events)
     spans = [e for e in events if e.get("ph") == "X"]
@@ -190,6 +208,9 @@ def summarize(doc: dict, *, top: int = 10) -> str:
             lines.append(f"  @{ev['ts'] / 1e6:.4f}s  {ev['name']} "
                          f"[{_track_label(names, ev['pid'], ev['tid'])}]"
                          f"{('  ' + extra) if extra else ''}")
+    extra = granule_lines(metrics or {})
+    if extra:
+        lines += [""] + extra
     return "\n".join(lines)
 
 
@@ -200,8 +221,15 @@ def main(argv=None) -> int:
     ap.add_argument("trace", help="trace.json exported by repro_torch.obs.trace")
     ap.add_argument("--top", type=int, default=10,
                     help="rows in the top-stalls table (default 10)")
+    ap.add_argument("--stats", default=None,
+                    help="a JSON Simulation.stats() document: its registry "
+                         "snapshot's granule program is printed too")
     args = ap.parse_args(argv)
-    print(summarize(load(args.trace), top=args.top))
+    metrics = None
+    if args.stats:
+        with open(args.stats) as f:
+            metrics = json.load(f).get("metrics", {})
+    print(summarize(load(args.trace), top=args.top, metrics=metrics))
     return 0
 
 
@@ -209,4 +237,5 @@ if __name__ == "__main__":  # pragma: no cover - CLI
     raise SystemExit(main())
 
 
-__all__ = ["IDLE_ORDER", "STALL_NAMES", "idle_split", "load", "main", "summarize"]
+__all__ = ["IDLE_ORDER", "STALL_NAMES", "granule_lines", "idle_split", "load", "main",
+           "summarize"]

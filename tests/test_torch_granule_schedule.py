@@ -14,7 +14,10 @@ consumer).  ``one_pass_cycle`` below does the same with whole-tensor ops
 and is held bit-exact against the plain cycle on every cycle of a run to
 its end: the wafer, the systolic grid (one granule and 2x2 granules with
 boundary queues), a two-group systolic network with a half-rate group,
-and a mixed network of both block types.  Tolerance is bit-exact: integer
+a mixed network of both block types, and the heterogeneous SoC's three
+types (a CPU of two in ports and one out port, a DRAM, a ramp with no in
+port on a quarter-rate clock), whole SoCs a granule and one type a
+granule with every channel across an exchange.  Tolerance is bit-exact: integer
 logic over exact f32 adds and one fused multiply-add a fire.
 """
 import numpy as np
@@ -26,6 +29,7 @@ from repro_torch.core.fused import FusedEngine
 from repro_torch.core.struct import tree_paths
 from repro_torch.hw.manycore import ManycoreCell, make_core_params
 from repro_torch.hw.pipestage import PipeStage, make_chain
+from repro_torch.hw.soc import Cpu, DramModel, soc_done, soc_graph, soc_partition
 from repro_torch.hw.systolic import SystolicCell, make_cell_params
 from repro_torch.kernels import fused_checks as fc
 from repro_torch.kernels import granule_step
@@ -88,11 +92,23 @@ def _mixed(batched=False):
                      partition=part, tiers=[(("g",), 4)], batch_axes={"g": 2})
 
 
+def _soc(split=False):
+    """16 SoCs: whole SoCs on 2 batched granules at K = 8, or (``split``)
+    each block type on a granule of its own at K = 2, every channel a
+    boundary egress and ingress row."""
+    n = 16
+    if split:
+        return FusedEngine(soc_graph(n, capacity=4), np.tile(np.arange(3), n), None,
+                           K=2, batch_axes={"g": 3}, overlap=False, device="cpu")
+    return FusedEngine(soc_graph(n, capacity=4), soc_partition(n, 2), None, K=8,
+                       batch_axes={"g": 2}, overlap=False, device="cpu")
+
+
 ENGINES = {"torus16_8granules": _batched, "one_granule": _single,
            "divided_clock": lambda: _single(_HalfRateCell)}
 MULTI = {"systolic_grid": _grid, "systolic_grid_2x2": lambda: _grid((2, 2)),
          "two_group_half_rate": _two_group, "mixed": _mixed,
-         "mixed_2granules": lambda: _mixed(True)}
+         "mixed_2granules": lambda: _mixed(True), "soc": _soc}
 
 
 def _cons(eng):
@@ -177,11 +193,17 @@ def one_pass_cycle(eng, carry, tb, cons):
             m = (ids >= int(bases[gi])) & (ids < int(bases[gi + 1]))
             k = ids[m] - int(bases[gi])
             n_in = rxs[gi].shape[1]
+            if n_in == 0:  # the ramp: no in port, never a consumer
+                continue
             j, pj = k // n_in, k % n_in
             if isinstance(blk, ManycoreCell):
                 r = consumer_ready(states[gi], j, pj, chan_ready, blk, txs[gi])
             elif isinstance(blk, PipeStage):
                 r = chan_ready(txs[gi][j, 0])  # the kernel's pipe_ready
+            elif isinstance(blk, Cpu):
+                r = (pj == 1) | states[gi].waiting[j]  # the kernel's cpu_ready
+            elif isinstance(blk, DramModel):
+                r = ~states[gi].has_pending[j]  # the kernel's dram_ready
             else:
                 r = cell_ready(states[gi], j, pj, chan_valid, chan_ready, blk,
                                rxs[gi], txs[gi])
@@ -393,3 +415,17 @@ def test_one_pass_cycle_matches_plain_cycle_pipestage_chain(granules):
     torch.testing.assert_close(out[:, 0], torch.arange(sent, dtype=torch.float32) + 4.0,
                                rtol=0, atol=0)
     assert bool((carry[3][0].count == sent).all())
+
+
+def test_one_pass_cycle_matches_plain_cycle_soc_type_a_granule():
+    """The SoC's three types each on a granule of their own (the example's
+    split): every channel is a boundary egress row at its producer and an
+    ingress row at its consumer, the ramp's rows on a quarter-rate clock;
+    every leaf bit-exact on every cycle until every CPU retired its reads
+    (the padding slots of each granule masked)."""
+    eng = _soc(split=True)
+    active = eng._local_view(eng.init(0)).tables.active[0]
+    states, _ = _run_one_pass(eng, lambda st: bool(soc_done(st[0], active)),
+                              "soc_type_a_granule")
+    assert bool(((states[0].n_done == 8) | ~active).all())
+    assert int(active.sum()) == 16 and int(eng.n_q) > 1
